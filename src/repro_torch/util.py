@@ -1,0 +1,27 @@
+"""Small shared helpers used across core/, kernels/ and sparse/."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["align_up", "resolve_device", "to_device"]
+
+
+def align_up(v: int, a: int) -> int:
+    """Round ``v`` up to the next multiple of ``a`` (at least ``a``)."""
+    return int(max(a, -(-int(v) // a) * a))
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another.  Never falls back: a missing card fails at the first tensor
+    placed on it."""
+    return torch.device("cuda" if device is None else device)
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """Host array -> tensor on ``device``; float64 is rounded to float32
+    as numpy's ``astype`` rounds it, integers keep their dtype."""
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
