@@ -8,14 +8,16 @@ exits non-zero otherwise.  Every phase prints one JSON line; any failed
 check raises, so the exit code is not 0.
 
 1. device   the card's name and power limit (``nvidia-smi``) and the
-            memory rate the bounds use (3.35 TB/s H100 SXM, 2.0 TB/s PCIe);
+            rates the bounds use (3.35 TB/s and 67 TFLOP/s f32 for H100
+            SXM, 2.0 TB/s and 51.2 TFLOP/s for PCIe);
 2. build    ``nvcc`` builds ``src/repro_torch/kernels/csrc/spmv.cu`` for
             ``sm_90a`` (with ``-Xptxas -v``);
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the full-size plans' shapes (B1/B2 on the 4x2 plans, B3/B4 on
             the halo-free 1x8 plans), f32 and bf16 storage; median times of
             20 runs (CUDA events) of kernel and plain version, and the
-            memory bound of each;
+            bound of each: the larger of its bytes over the memory rate
+            and its flops over the f32 rate;
 4. golden   CG (jacobi, tol 1e-6, maxiter 400) on the golden matrix at 4x2,
             ell and sell: iterations within ±1 of the fixture's
             (``tests/golden_square_hashes.json``);
@@ -25,9 +27,11 @@ check raises, so the exit code is not 0.
             (against a host float64 CSR matvec, rel <= 1e-5) -> fused CG
             (``make_solver``, jacobi, tol 1e-6, maxiter 10,000; true
             relative residual < 1e-4) -> ``from_dist``; the unfused
-            ``make_cg`` too on the 4x2 plans.  Launch counts are zeroed
-            just before this phase and read just after it: every kernel
-            must have launched;
+            ``make_cg`` too on the 4x2 plans.  ``ms_per_iter`` divides by
+            the iterations run: whole blocks of ``CHECK_EVERY``, so the
+            gated no-op tail after convergence counts.  Launch counts are
+            zeroed just before this phase and read just after it: every
+            kernel must have launched;
 6. profile  ``torch.profiler`` device time by kernel over 64 fused-CG
             iterations on the 4x2 plans, against phase 5's unprofiled
             ms/iteration (the device's busy share);
@@ -51,6 +55,7 @@ SRC = ROOT / "src"
 N_SURFACE, LAYERS, SEED = 20_000, 64, 0
 DEVICE = "cuda"
 REPS = 20
+CHECK_EVERY = 16          # gated CG iterations per host sync
 KERNELS = {   # name -> (plan key, TPU kernel it replaces)
     "fused_ell_spmv": ("ell/4x2", "src/repro/kernels/spmv_bcsr.py:103"),
     "fused_sell_spmv": ("sell/4x2", "src/repro/kernels/spmv_bcsr.py:211"),
@@ -109,7 +114,7 @@ def read_fields(fmt, x_ghost) -> tuple[str, ...]:
 # ---------------------------------------------------------------------- #
 # phases
 # ---------------------------------------------------------------------- #
-def phase_device() -> tuple[str, float]:
+def phase_device() -> tuple[str, float, float]:
     import torch
 
     smi = subprocess.run(
@@ -119,13 +124,14 @@ def phase_device() -> tuple[str, float]:
     name = torch.cuda.get_device_name(0)
     pcie = "pcie" in name.lower()
     bw = 2.0e12 if pcie else 3.35e12
+    f32_peak = 51.2e12 if pcie else 67e12
     emit("device", nvidia_smi=smi, name=name,
          count=torch.cuda.device_count(),
-         bandwidth_tb_s=bw / 1e12,
-         bandwidth_source="H100 PCIe data sheet" if pcie
+         bandwidth_tb_s=bw / 1e12, f32_tflop_s=f32_peak / 1e12,
+         peaks_source="H100 PCIe data sheet" if pcie
          else "H100 SXM data sheet",
          torch=torch.__version__, cuda=torch.version.cuda)
-    return smi, bw
+    return smi, bw, f32_peak
 
 
 def phase_build() -> None:
@@ -161,7 +167,7 @@ def build_plans(A) -> dict:
     return plans
 
 
-def phase_kernels(plans, x, bw) -> dict:
+def phase_kernels(plans, x, bw, f32_peak) -> dict:
     """Each kernel vs its plain version on its plan's main-path inputs."""
     import torch
 
@@ -187,14 +193,23 @@ def phase_kernels(plans, x, bw) -> dict:
             y, want = kern(), plain()
             torch.cuda.synchronize()
             err = float((y - want).abs().max())
-            tol = (2e-2 if dtype == torch.bfloat16 else 2e-5) * max(
-                1.0, float(want.abs().max()))
-            byts = nbytes(*(F[k] for k in read_fields(fmt, xg)), xl, xg,
-                          y)
+            # both accumulate in f32 on the same values, whatever the
+            # storage dtype: only the summation order differs
+            tol = 2e-5 * max(1.0, float(want.abs().max()))
+            fields = read_fields(fmt, xg)
+            byts = nbytes(*(F[k] for k in fields), xl, xg, y)
+            # one multiply and one add per stored entry, f32 outside the
+            # tensor cores
+            flops = 2 * sum(F[k].numel() for k in fields
+                            if k.endswith("vals"))
+            bytes_ms, flops_ms = byts / bw * 1e3, flops / f32_peak * 1e3
             row = {"kernel": name, "plan": key, "dtype": str(dtype)[6:],
                    "max_abs_err": err, "tol": tol,
                    "ms": time_ms(kern), "plain_ms": time_ms(plain),
-                   "bytes": byts, "bound_ms": byts / bw * 1e3}
+                   "bytes": byts, "flops": flops,
+                   "bound_ms": max(bytes_ms, flops_ms),
+                   "bound_by": "bytes" if bytes_ms >= flops_ms
+                   else "operations"}
             emit("kernel", **row)
             check(y.shape == want.shape and err <= tol,
                   f"{name} {dtype}: max|err| {err} > {tol}")
@@ -252,9 +267,11 @@ def phase_full(A, plans, x, b) -> tuple[dict, dict]:
         row = {"plan": key, "spmv_rel_err": spmv_rel,
                "spmv_ms": time_ms(lambda: spmv(xd))}
         bd = to_dist(b, layout, plan)
-        solvers = {"fused": make_solver(plan, solver="cg", precond="jacobi")}
+        solvers = {"fused": make_solver(plan, solver="cg", precond="jacobi",
+                                        check_every=CHECK_EVERY)}
         if key.endswith("4x2"):
-            solvers["unfused"] = make_cg(plan, fused=False)
+            solvers["unfused"] = make_cg(plan, fused=False,
+                                         check_every=CHECK_EVERY)
         for kind, solve in solvers.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -264,9 +281,12 @@ def phase_full(A, plans, x, b) -> tuple[dict, dict]:
             xg = from_dist(xs, layout, plan).astype(np.float64)
             true_rel = float(np.linalg.norm(A.matvec(xg) - b64)
                              / np.linalg.norm(b64))
-            row[kind] = {"iters": int(iters), "rel": float(rel),
-                         "true_rel": true_rel, "ms": ms,
-                         "ms_per_iter": ms / max(int(iters), 1)}
+            # whole blocks of CHECK_EVERY gated iterations run, so up to
+            # CHECK_EVERY - 1 no-op iterations follow convergence
+            iters_run = -(-int(iters) // CHECK_EVERY) * CHECK_EVERY
+            row[kind] = {"iters": int(iters), "iters_run": iters_run,
+                         "rel": float(rel), "true_rel": true_rel, "ms": ms,
+                         "ms_per_iter": ms / max(iters_run, 1)}
             check(np.isfinite(xg).all() and xg.shape == (A.n_rows,),
                   f"{key} {kind}: non-finite or misshapen solution")
             check(float(rel) <= 1e-6, f"{key} {kind}: CG stopped at "
@@ -294,9 +314,9 @@ def phase_profile(plans, b, full_rows, iters: int = 64) -> None:
 
     for key in ("ell/4x2", "sell/4x2"):
         plan, layout = plans[key]
-        solve = make_solver(plan)
+        solve = make_solver(plan, check_every=CHECK_EVERY)
         bd = to_dist(b, layout, plan)
-        solve(bd, tol=0.0, maxiter=16)                  # warm
+        solve(bd, tol=0.0, maxiter=CHECK_EVERY)         # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -349,7 +369,7 @@ def main() -> int:
 
     from repro_torch.sparse import graded_extruded_mesh_matrix
 
-    smi, bw = phase_device()
+    smi, bw, f32_peak = phase_device()
     phase_build()
     t0 = time.perf_counter()
     A = graded_extruded_mesh_matrix(N_SURFACE, LAYERS, seed=SEED)
@@ -359,7 +379,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED + 1)
     x = rng.standard_normal(A.n_rows).astype(np.float32)
     b = rng.standard_normal(A.n_rows).astype(np.float32)
-    kern = phase_kernels(plans, x, bw)
+    kern = phase_kernels(plans, x, bw, f32_peak)
     lib = library_ms(A, x)
     emit("library", what="torch.sparse CSR matvec, global matrix, f32",
          ms=lib)
@@ -371,7 +391,8 @@ def main() -> int:
          "replaces": KERNELS[name][1], "launches": launches[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
-         "bound_ms": kern[name]["bound_ms"], "bound_by": "bytes",
+         "bound_ms": kern[name]["bound_ms"],
+         "bound_by": kern[name]["bound_by"],
          "library_ms": lib} for name in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -77,8 +77,7 @@ def cg_solve(spmv: Callable, b: torch.Tensor, m_inv: torch.Tensor,
     return x, k, rel
 
 
-def make_cg(plan: SpMVPlan, backend: str = "kernel", fused: bool = False,
-            check_every: int = 16):
+def make_cg(plan: SpMVPlan, fused: bool = False, check_every: int = 16):
     """Bundle a plan into ``solve(b, tol=..., maxiter=...)`` returning
     ``(x, iters, rel_residual)`` with ``x`` in CG layout.
 
@@ -88,8 +87,8 @@ def make_cg(plan: SpMVPlan, backend: str = "kernel", fused: bool = False,
     if fused:
         from repro_torch.solvers.base import make_solver
         return make_solver(plan, solver="cg", precond="jacobi",
-                           backend=backend, check_every=check_every)
-    spmv = make_spmv(plan, backend=backend)
+                           check_every=check_every)
+    spmv = make_spmv(plan)
     m_inv = jacobi_inverse(plan.diag_a, plan.mask)
 
     def solve(b: torch.Tensor, tol: float = 1e-8, maxiter: int = 10_000):

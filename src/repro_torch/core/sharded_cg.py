@@ -7,10 +7,9 @@ from repro_torch.solvers.base import make_solver
 __all__ = ["make_fused_cg"]
 
 
-def make_fused_cg(plan: SpMVPlan, backend: str = "kernel",
-                  check_every: int = 16):
+def make_fused_cg(plan: SpMVPlan, check_every: int = 16):
     """``solve(b, tol=..., maxiter=...)`` -> ``(x, iters, rel_residual)``,
     all vectors in CG layout.  Equivalent to ``make_solver(plan,
     solver="cg", precond="jacobi", ...)``."""
-    return make_solver(plan, solver="cg", precond="jacobi", backend=backend,
+    return make_solver(plan, solver="cg", precond="jacobi",
                        check_every=check_every)

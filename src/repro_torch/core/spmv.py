@@ -317,7 +317,7 @@ def from_dist(vd: torch.Tensor, layout: dict, plan: SpMVPlan) -> np.ndarray:
 # ---------------------------------------------------------------------- #
 # the distributed SpMV body (shared by make_spmv and the solvers)
 # ---------------------------------------------------------------------- #
-def make_shard_body(plan: SpMVPlan, backend: str = "kernel"):
+def make_shard_body(plan: SpMVPlan):
     """Build the two-phase SpMV over the whole virtual mesh:
     ``body(x) -> y``, both ``(n_node, n_core, rc_pad)``.
 
@@ -326,25 +326,19 @@ def make_shard_body(plan: SpMVPlan, backend: str = "kernel"):
        ``(n_node, g_pad + 1)``;
     2. the core-axis gather of each node's slice -> ``x_local``
        ``(n_node, nl_pad)``;
-    3. the format's local diag + offd matvec over all shards.
+    3. the format's local diag + offd matvec over all shards, through the
+       kernel wrappers: the CUDA kernels on the card, their plain versions
+       on the CPU.
 
-    ``backend``: ``"kernel"`` (the kernel wrappers: CUDA kernels on the
-    card, their plain versions on the CPU) or ``"plain"`` (the plain
-    versions everywhere).  The body carries ``body.transport`` and
-    ``body.wire_dtype`` (resolved names), and ``body.inputs(x) ->
-    (x_local, x_ghost)``: steps 1-2 alone, what the local matvec gets.
+    The body carries ``body.transport`` and ``body.wire_dtype`` (resolved
+    names), and ``body.inputs(x) -> (x_local, x_ghost)``: steps 1-2 alone,
+    what the local matvec gets.
     """
     n_node, n_core, rc_pad = plan.n_node, plan.n_core, plan.rc_pad
     g_pad = plan.g_pad
     has_halo = plan.hs > 0
     tr, tstate = resolve_transport(plan)
-    fmt = get_format(plan.format)
-    if backend == "kernel":
-        local_matvec = fmt.matvec_kernel
-    elif backend == "plain":
-        local_matvec = fmt.matvec_plain
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
+    local_matvec = get_format(plan.format).matvec_kernel
     F = dict(plan.fmt_data, send_own=plan.send_own, recv_own=plan.recv_own)
     # x_gather is replicated over the core axis: one row per node, int64
     # and offset into the node's flattened (n_core * rc_pad) view
@@ -367,10 +361,10 @@ def make_shard_body(plan: SpMVPlan, backend: str = "kernel"):
     return body
 
 
-def make_spmv(plan: SpMVPlan, backend: str = "kernel"):
+def make_spmv(plan: SpMVPlan):
     """The distributed SpMV ``plan.x_shape -> plan.cg_shape`` on the
     plan's device.  Carries ``spmv.transport`` / ``spmv.wire_dtype``."""
-    body = make_shard_body(plan, backend=backend)
+    body = make_shard_body(plan)
 
     def spmv(xd: torch.Tensor) -> torch.Tensor:
         if tuple(xd.shape) != plan.x_shape:

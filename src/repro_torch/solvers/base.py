@@ -175,8 +175,7 @@ def from_dist_batch(xd: torch.Tensor, layout: dict, plan) -> np.ndarray:
 # --------------------------------------------------------------------- #
 def make_solver(plan, *, solver: str | Solver = "cg",
                 precond: str | Preconditioner = "jacobi",
-                backend: str = "kernel", nrhs: int | None = None,
-                check_every: int = 16):
+                nrhs: int | None = None, check_every: int = 16):
     """Bundle a plan and a registered solver/preconditioner pair into
     ``solve(b, tol=..., maxiter=...)`` on the plan's device.
 
@@ -185,15 +184,13 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     the batched layout ``(n_node, n_core, k, rc_pad)``
     (:func:`to_dist_batch`) and ``iters``/``rel`` are ``(k,)``.
 
-    ``backend`` selects the SpMV's local matvec (``"kernel"`` |
-    ``"plain"``, see ``make_shard_body``); ``check_every`` the gated
-    iterations between host syncs.
+    ``check_every`` is the number of gated iterations between host syncs.
     """
     from repro_torch.core.spmv import make_shard_body
 
     sol = get_solver(solver)
     pre = get_precond(precond)
-    body = make_shard_body(plan, backend=backend)
+    body = make_shard_body(plan)
     pdata = pre.build(plan)
     ctx = SolverCtx(spmv=lambda v: torch.stack([body(vj) for vj in v]),
                     precond=lambda r: pre.apply(pdata, r))

@@ -11,11 +11,12 @@ A format owns
     into device tensors (``pack`` — one entry per name in ``fields`` and in
     ``aux_fields``, every tensor leading with ``(n_node, n_core)`` shard
     dims);
-  * the **local two-phase matvec** over all shards at once, in two
-    backends: ``matvec_plain`` (the plain PyTorch versions of
-    :mod:`repro_torch.kernels.ref`) and ``matvec_kernel`` (the wrappers of
-    :mod:`repro_torch.kernels.ops`: the CUDA kernels on a CUDA tensor, the
-    plain versions on a CPU one).  Both get the node-local ``x_local``
+  * the **local two-phase matvec** over all shards at once:
+    ``matvec_kernel`` (the wrappers of :mod:`repro_torch.kernels.ops`,
+    which the shard body runs: the CUDA kernels on a CUDA tensor, the
+    plain versions on a CPU one) and ``matvec_plain`` (the plain PyTorch
+    versions of :mod:`repro_torch.kernels.ref`, which the kernels are held
+    against on the card).  Both get the node-local ``x_local``
     ``(n_node, nl_pad)`` and the exchanged ``x_ghost`` ``(n_node, g_pad +
     1)`` (``None`` when the plan has no halo traffic: skip the ghost
     phase).  Real ghost slots ``< g_pad`` carry the owners' bits; the

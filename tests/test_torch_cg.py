@@ -7,10 +7,11 @@ subprocess on the golden matrix, 4×2 and a halo-free 1×4 grid.
 Tolerances:
   * iterations within ±1 of the reference and of the golden fixture's
     42 (ell) / 41 (sell) at tol 1e-6 on the 4×2 grid; within ±1 of the
-    reference at tol 1e-5 on every grid.  Below ~3e-6 this matrix sits on
-    its float32 plateau (true residual ~2e-4 while the recurrence residual
-    keeps falling), where the count at 1e-6 depends on summation order —
-    the halo-free grid gives 57 (reference) against 42–56 (port).
+    reference at tol 3e-6 and 1e-5 on every grid.  Below ~3e-6 this matrix
+    sits on its float32 plateau (true residual ~2e-4 while the recurrence
+    residual keeps falling), where the count at 1e-6 depends on summation
+    order — the halo-free grid gives 57 (reference) against 42–56 (port);
+    the 3e-6 check shows the counts agree just above the plateau.
   * ``x`` within ``1e-4·max|x|`` of the reference at tol 1e-6.
 """
 import json
@@ -69,10 +70,10 @@ def test_cg_matches_reference(case, key, reference, golden):
     plan, layout = _plan(case, A)
     solve = SOLVERS[key](plan)
     bd = to_dist(b, layout, plan)
-    for tol in (1e-6, 1e-5):
+    for tol in (1e-6, 3e-6, 1e-5):
         x, iters, rel = solve(bd, tol=tol, maxiter=400)
         want_iters = int(reference[f"{case}/{key}_{tol:g}_iters"])
-        if tol == 1e-5 or case.endswith("4x2"):
+        if tol >= 3e-6 or case.endswith("4x2"):
             assert abs(int(iters) - want_iters) <= 1, (tol, int(iters),
                                                        want_iters)
         assert float(rel) <= tol

@@ -25,9 +25,9 @@ import sys
 import numpy as np
 
 CASES = ("ell/4x2", "sell/4x2", "ell/1x4", "sell/1x4")
-#: 1e-6 is the golden fixture's tolerance; 1e-5 sits above the float32
-#: plateau where iteration counts at 1e-6 depend on rounding order
-TOLS = (1e-6, 1e-5)
+#: 1e-6 is the golden fixture's tolerance; 3e-6 and 1e-5 sit above the
+#: float32 plateau where iteration counts at 1e-6 depend on rounding order
+TOLS = (1e-6, 3e-6, 1e-5)
 PLAN_META = ("n", "n_node", "n_core", "rc_pad", "nl_pad", "g_pad", "hs",
              "mode", "format", "transport", "wire_dtype")
 
