@@ -18,6 +18,15 @@ check raises, so the exit code is not 0.
             20 runs (CUDA events) of kernel and plain version, and the
             bound of each: the larger of its bytes over the memory rate
             and its flops over the f32 rate;
+3b. balanced the single-device kernel path on the full-size matrix of
+            phase 5: ``BalancedCOO`` (``partition_balanced`` and
+            ``partition_equal_rows`` bounds, 16, 64 and 8 x SM-count bins)
+            -> ``balanced_spmv`` (B5), and the global ``ELLMatrix`` -> flat
+            ``ell_spmv`` (B3's kernel as one shard), each against the host
+            float64 CSR matvec (rel <= 1e-5).  Launch counts are zeroed
+            just before this path and read just after it.  Then each
+            kernel against its plain version (2e-5·max|y|) and timed, f32
+            and bf16 storage, with its padding, imbalance and bound;
 4. golden   CG (jacobi, tol 1e-6, maxiter 400) on the golden matrix at 4x2,
             ell and sell: iterations within ±1 of the fixture's
             (``tests/golden_square_hashes.json``);
@@ -62,6 +71,10 @@ KERNELS = {   # name -> (plan key, TPU kernel it replaces)
     "ell_spmv": ("ell/1x8", "src/repro/kernels/spmv_bcsr.py:58"),
     "sell_spmv": ("sell/1x8", "src/repro/kernels/spmv_bcsr.py:189"),
 }
+#: the single-device path's kernel; its row on the ``kernels`` line is the
+#: 64-bin nnz-balanced f32 one
+BALANCED = ("balanced_spmv", "src/repro/kernels/spmv_bcsr.py:268",
+            "balanced/64")
 SOURCE = "src/repro_torch/kernels/csrc/spmv.cu"
 
 
@@ -167,6 +180,35 @@ def build_plans(A) -> dict:
     return plans
 
 
+def measure(phase: str, row: dict, kern, plain, in_bytes: int, flops: int,
+            bw: float, f32_peak: float) -> dict:
+    """Hold ``kern()`` against ``plain()`` on the same inputs and time both;
+    emit ``row`` with the results as one ``phase`` line and return it.
+
+    Both accumulate in f32 on the same values, whatever the storage dtype,
+    so only the summation order differs: the limit is 2e-5·max|y|.  The
+    bound is the larger of the bytes moved (``in_bytes`` read once, the
+    output written once) over the memory rate and ``flops`` over the f32
+    rate."""
+    import torch
+
+    y, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((y - want).abs().max())
+    tol = 2e-5 * max(1.0, float(want.abs().max()))
+    byts = in_bytes + nbytes(y)
+    bytes_ms, flops_ms = byts / bw * 1e3, flops / f32_peak * 1e3
+    row = {**row, "max_abs_err": err, "tol": tol, "ms": time_ms(kern),
+           "plain_ms": time_ms(plain), "bytes": byts, "flops": flops,
+           "bound_ms": max(bytes_ms, flops_ms),
+           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+    emit(phase, **row)
+    check(y.shape == want.shape and err <= tol,
+          f"{row['kernel']} {row.get('plan', row.get('matrix'))} "
+          f"{row['dtype']}: max|err| {err} > {tol}")
+    return row
+
+
 def phase_kernels(plans, x, bw, f32_peak) -> dict:
     """Each kernel vs its plain version on its plan's main-path inputs."""
     import torch
@@ -183,39 +225,104 @@ def phase_kernels(plans, x, bw, f32_peak) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             F = {k: (v.to(dtype) if v.is_floating_point() else v)
                  for k, v in plan.fmt_data.items()}
-
-            def kern():
-                return fmt.matvec_kernel(F, xl, xg, plan.rc_pad)
-
-            def plain():
-                return fmt.matvec_plain(F, xl, xg, plan.rc_pad)
-
-            y, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = float((y - want).abs().max())
-            # both accumulate in f32 on the same values, whatever the
-            # storage dtype: only the summation order differs
-            tol = 2e-5 * max(1.0, float(want.abs().max()))
             fields = read_fields(fmt, xg)
-            byts = nbytes(*(F[k] for k in fields), xl, xg, y)
             # one multiply and one add per stored entry, f32 outside the
             # tensor cores
-            flops = 2 * sum(F[k].numel() for k in fields
-                            if k.endswith("vals"))
-            bytes_ms, flops_ms = byts / bw * 1e3, flops / f32_peak * 1e3
-            row = {"kernel": name, "plan": key, "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "tol": tol,
-                   "ms": time_ms(kern), "plain_ms": time_ms(plain),
-                   "bytes": byts, "flops": flops,
-                   "bound_ms": max(bytes_ms, flops_ms),
-                   "bound_by": "bytes" if bytes_ms >= flops_ms
-                   else "operations"}
-            emit("kernel", **row)
-            check(y.shape == want.shape and err <= tol,
-                  f"{name} {dtype}: max|err| {err} > {tol}")
+            row = measure(
+                "kernel", {"kernel": name, "plan": key,
+                           "dtype": str(dtype)[6:]},
+                lambda: fmt.matvec_kernel(F, xl, xg, plan.rc_pad),
+                lambda: fmt.matvec_plain(F, xl, xg, plan.rc_pad),
+                nbytes(*(F[k] for k in fields), xl, xg),
+                2 * sum(F[k].numel() for k in fields if k.endswith("vals")),
+                bw, f32_peak)
             results.setdefault(name, row)        # f32 first: the main path
             del F
     return results
+
+
+def phase_balanced(A, x, bw, f32_peak) -> tuple[dict, dict]:
+    """The single-device kernel path on the full-size matrix; returns the
+    path's launch counts and the rows of ``balanced_spmv`` by label."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.partition import (imbalance, partition_balanced,
+                                            partition_equal_rows)
+    from repro_torch.kernels import (LAUNCHES, balanced_spmv, ell_spmv, ref,
+                                     reset_launches)
+    from repro_torch.sparse import BalancedCOO, ELLMatrix
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    y_host = A.matvec(x.astype(np.float64))
+    scale = float(np.abs(y_host).max())
+    xd = torch.from_numpy(x).to(DEVICE)
+    built = {}
+    reset_launches()
+    for nbins in (16, 64, 8 * sms):
+        for kind in ("balanced", "rows"):
+            bounds = (partition_balanced(A.row_nnz, nbins)
+                      if kind == "balanced"
+                      else partition_equal_rows(A.n_rows, nbins))
+            t0 = time.perf_counter()
+            bcoo = BalancedCOO.from_csr(A, bounds, device=DEVICE)
+            build_s = time.perf_counter() - t0
+            y = balanced_spmv(bcoo, xd).cpu().numpy()
+            rel = float(np.abs(y - y_host).max() / scale)
+            check(y.shape == (A.n_rows,) and rel <= 1e-5,
+                  f"balanced {kind}/{nbins}: rel err {rel} > 1e-5")
+            built[f"{kind}/{nbins}"] = (bcoo, {
+                "nbins": nbins, "bounds": kind, "build_s": build_s,
+                "imbalance": imbalance(A.row_nnz, bounds),
+                "host_rel_err": rel})
+    t0 = time.perf_counter()
+    ell = ELLMatrix.from_csr(A, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    y = ell_spmv(ell.vals, ell.cols, xd)[:A.n_rows].cpu().numpy()
+    rel = float(np.abs(y - y_host).max() / scale)
+    check(rel <= 1e-5, f"flat ell_spmv: rel err {rel} > 1e-5")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    emit("balanced_launches", **launches)
+    check(launches["balanced_spmv"] > 0 and launches["ell_spmv"] > 0,
+          "the single-device path never launched its kernels")
+
+    rows = {}
+    for label, (bcoo, info) in built.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            B = dataclasses.replace(bcoo, vals=bcoo.vals.to(dtype))
+            # the real entries only (the kernel never reads the padding):
+            # value, column and bin-local row each; the bin lengths, the
+            # row map and x
+            row = measure(
+                "balanced", {"kernel": "balanced_spmv", "matrix": label,
+                             **info, "dtype": str(dtype)[6:],
+                             "padding_waste": B.padding_waste,
+                             "nnz_pad": B.nnz_pad, "rows_pad": B.rows_pad,
+                             "bytes_stored": nbytes(B.vals, B.cols,
+                                                    B.lrows)},
+                lambda: balanced_spmv(B, xd),
+                lambda: ref.balanced_spmv_ref(B, xd),
+                A.nnz * (B.vals.element_size() + 8)
+                + nbytes(B.bin_lens, B.out_gather, xd), 2 * A.nnz,
+                bw, f32_peak)
+            rows.setdefault(label, row)          # f32 first
+            del B
+    del built
+    for dtype in (torch.float32, torch.bfloat16):
+        vals = ell.vals.to(dtype)
+        measure("balanced", {"kernel": "ell_spmv", "matrix": "ell/global",
+                             "dtype": str(dtype)[6:], "build_s": build_s,
+                             "host_rel_err": rel, "width": ell.width,
+                             "padding_waste": 1.0 - A.nnz / vals.numel()},
+                lambda: ell_spmv(vals, ell.cols, xd),
+                lambda: ref.ell_spmv_ref(vals, ell.cols, xd),
+                nbytes(vals, ell.cols, xd), 2 * vals.numel(), bw, f32_peak)
+        del vals
+    del ell
+    return launches, rows
 
 
 def phase_golden() -> None:
@@ -380,20 +487,24 @@ def main() -> int:
     x = rng.standard_normal(A.n_rows).astype(np.float32)
     b = rng.standard_normal(A.n_rows).astype(np.float32)
     kern = phase_kernels(plans, x, bw, f32_peak)
+    bal_launches, bal = phase_balanced(A, x, bw, f32_peak)
     lib = library_ms(A, x)
     emit("library", what="torch.sparse CSR matvec, global matrix, f32",
          ms=lib)
     phase_golden()
     launches, rows = phase_full(A, plans, x, b)
     phase_profile(plans, b, rows)
+    entries = [(name, KERNELS[name][1], launches[name], kern[name])
+               for name in KERNELS]
+    entries.append((BALANCED[0], BALANCED[1], bal_launches[BALANCED[0]],
+                    bal[BALANCED[2]]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"],
-         "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"],
-         "library_ms": lib} for name in KERNELS]}), flush=True)
+         "replaces": replaces, "launches": n,
+         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by")},
+         "library_ms": lib} for name, replaces, n, row in entries]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ the kernels (``reset_launches`` zeroes the counts).
 Shapes follow the plan: matrix blocks lead with ``(n_node, n_core)``;
 ``x_local`` is ``(n_node, nl_pad)`` and ``x_ghost`` ``(n_node, g_pad + 1)``
 — one per node, shared by the node's cores.  Outputs are float32
-``(n_node, n_core, rows)``.
+``(n_node, n_core, rows)``.  The single-device path takes a whole matrix
+and a flat ``x``: ``ell_spmv`` on an ``ELLMatrix``'s ``(rows, w)`` arrays
+and ``balanced_spmv`` on a ``BalancedCOO``.
 """
 from __future__ import annotations
 
@@ -20,14 +22,24 @@ import torch
 
 from repro_torch.kernels import ref
 
-__all__ = ["ell_spmv", "fused_ell_spmv", "fused_sell_spmv", "LAUNCHES",
-           "reset_launches"]
+__all__ = ["ell_spmv", "fused_ell_spmv", "fused_sell_spmv", "balanced_spmv",
+           "LAUNCHES", "reset_launches"]
 
 #: kernel name -> launches since the last ``reset_launches``
 LAUNCHES: dict[str, int] = {"fused_ell_spmv": 0, "ell_spmv": 0,
-                            "fused_sell_spmv": 0, "sell_spmv": 0}
+                            "fused_sell_spmv": 0, "sell_spmv": 0,
+                            "balanced_spmv": 0}
 
 _VAL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _flat_x(name: str, x: torch.Tensor) -> torch.Tensor:
+    """A flat ``x`` as the kernels take it: float32 ``(1, n)``.  bfloat16
+    widens exactly, as the TPU kernels cast the gathered values."""
+    if x.dim() != 1 or x.dtype not in _VAL_DTYPES:
+        raise TypeError(f"{name}: x must be float32 or bfloat16 (n,), got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    return x.to(torch.float32)[None]
 
 
 def reset_launches() -> None:
@@ -112,9 +124,20 @@ def _ell(name, dvals, dcols, ovals, ocols, x_local, x_ghost):
 
 def ell_spmv(vals: torch.Tensor, cols: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
-    """Halo-free ELL SpMV over all shards: ``y = vals·x[cols]`` per row."""
+    """Halo-free ELL SpMV: ``y = vals·x[cols]`` per row.
+
+    Over all shards: vals/cols ``(n_node, n_core, rows, w)`` and x
+    ``(n_node, n)`` give ``(n_node, n_core, rows)``.  Flat (an
+    ``ELLMatrix``'s arrays): vals/cols ``(rows, w)`` and x ``(n,)`` give
+    ``(rows,)``, through the same kernel as one shard.  The TPU kernel's
+    ``row_tile`` has no counterpart: a thread takes one row and the grid
+    covers every row, so the rows need no padding."""
     if _on_cpu(vals):
         return ref.ell_spmv_ref(vals, cols, x)
+    if vals.dim() == 2:
+        x = _flat_x("ell_spmv", x)
+        return _ell("ell_spmv", vals[None, None], cols[None, None], None,
+                    None, x, None)[0, 0]
     return _ell("ell_spmv", vals, cols, None, None, x, None)
 
 
@@ -191,3 +214,48 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return y
+
+
+def balanced_spmv(bcoo, x: torch.Tensor) -> torch.Tensor:
+    """Whole ``BalancedCOO`` SpMV -> flat ``(n_rows,)`` float32.
+
+    The kernel reduces each bin into its ``(nbins, rows_pad)`` block, then
+    ``out_gather`` picks the rows out in plain PyTorch, as the JAX package
+    does outside its kernel.  x ``(n_cols,)`` float32 or bfloat16.  The TPU
+    kernel's ``nnz_chunk`` has no counterpart: each block of 256 rows
+    streams its own entry range in chunks of the kernel's size."""
+    if _on_cpu(bcoo.vals):
+        return ref.balanced_spmv_ref(bcoo, x)
+    from repro_torch.kernels.spmv_cuda import library
+
+    name = "balanced_spmv"
+    nbins, nnz_pad = bcoo.vals.shape
+    xf = _flat_x(name, x)
+    if (bcoo.cols.shape != bcoo.vals.shape
+            or bcoo.lrows.shape != bcoo.vals.shape
+            or bcoo.bin_lens.shape != (nbins,)
+            or bcoo.out_gather.shape != (bcoo.n_rows,)
+            or xf.shape[1] != bcoo.n_cols):
+        raise ValueError(f"{name}: shapes {tuple(bcoo.vals.shape)} "
+                         f"{tuple(bcoo.cols.shape)} "
+                         f"{tuple(bcoo.lrows.shape)} "
+                         f"{tuple(bcoo.bin_lens.shape)} x {tuple(x.shape)} "
+                         f"for n_cols {bcoo.n_cols}")
+    if nbins > 65535:
+        raise ValueError(f"{name}: {nbins} bins > 65535")
+    if max(nnz_pad, bcoo.rows_pad) > 2**31 - 4096:
+        raise ValueError(f"{name}: a bin of {nnz_pad} entries and "
+                         f"{bcoo.rows_pad} rows overflows int32 offsets")
+    code = _check(name, bcoo.vals.device, [bcoo.vals],
+                  [bcoo.cols, bcoo.lrows, bcoo.bin_lens, bcoo.out_gather],
+                  [xf])
+    y = torch.empty((nbins, bcoo.rows_pad), dtype=torch.float32,
+                    device=bcoo.vals.device)
+    err = library().repro_balanced_spmv(
+        code, bcoo.vals.data_ptr(), bcoo.cols.data_ptr(),
+        bcoo.lrows.data_ptr(), bcoo.bin_lens.data_ptr(), nnz_pad,
+        xf.data_ptr(), y.data_ptr(), nbins, bcoo.rows_pad,
+        _stream(bcoo.vals.device))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return torch.index_select(y.view(-1), 0, bcoo.out_gather)

@@ -7,14 +7,15 @@ They run on any device: the CPU tests use them as the port's matvec, and
 
 Shard layout (the plan's): matrix blocks lead with ``(n_node, n_core)``;
 the node-local vectors ``x`` are ``(n_node, n)`` — one per node, shared by
-the node's cores.
+the node's cores.  The single-device path (``ELLMatrix``, ``BalancedCOO``)
+takes a whole matrix and a flat ``x`` ``(n,)``.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["ell_spmv_ref", "fused_ell_spmv_ref", "sell_spmv_ref",
-           "fused_sell_spmv_ref"]
+           "fused_sell_spmv_ref", "binned_matvec_ref", "balanced_spmv_ref"]
 
 
 def _take_per_node(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -31,10 +32,12 @@ def ell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,
     """``y[i, c, r] = Σ_k vals[i, c, r, k] · x[i, cols[i, c, r, k]]``.
 
     vals/cols ``(n_node, n_core, rows, w)``; x ``(n_node, n)``; returns
-    ``(n_node, n_core, rows)`` float32.  Padding entries carry
-    ``vals == 0``, so they contribute nothing.
+    ``(n_node, n_core, rows)`` float32.  The flat form, vals/cols
+    ``(rows, w)`` and x ``(n,)``, returns ``(rows,)``.  Padding entries
+    carry ``vals == 0``, so they contribute nothing.
     """
-    g = _take_per_node(x, cols).to(torch.float32)
+    g = (x[cols.long()] if x.dim() == 1
+         else _take_per_node(x, cols)).to(torch.float32)
     return (vals.to(torch.float32) * g).sum(-1)
 
 
@@ -88,3 +91,28 @@ def fused_sell_spmv_ref(dvals, dcols, dstart, dwidth, ovals, ocols, ostart,
         return y
     return y + sell_spmv_ref(ovals, ocols, ostart, owidth, x_ghost, rc_pad,
                              slice_height)
+
+
+def binned_matvec_ref(vals: torch.Tensor, cols: torch.Tensor,
+                      lrows: torch.Tensor, x: torch.Tensor,
+                      rows_pad: int) -> torch.Tensor:
+    """nnz-binned COO SpMV: ``y[t, lrows[t, k]] += vals[t, k]·x[cols[t, k]]``.
+
+    vals/cols/lrows ``(nbins, nnz_pad)``, x ``(n,)``; returns
+    ``(nbins, rows_pad)`` float32, a scatter-add into ``t·rows_pad +
+    lrows``.  Padding entries (``vals == 0``, row 0) add nothing.  On a
+    CUDA tensor the scatter adds in no fixed order (atomics): there it is
+    only what the kernel is compared with."""
+    nbins = vals.shape[0]
+    contrib = vals.to(torch.float32) * x[cols.long()].to(torch.float32)
+    dest = (lrows.long() + rows_pad
+            * torch.arange(nbins, device=vals.device)[:, None])
+    y = torch.zeros(nbins * rows_pad, dtype=torch.float32, device=vals.device)
+    return y.index_add_(0, dest.reshape(-1),
+                        contrib.reshape(-1)).view(nbins, rows_pad)
+
+
+def balanced_spmv_ref(bcoo, x: torch.Tensor) -> torch.Tensor:
+    """Whole ``BalancedCOO`` SpMV: returns the flat ``(n_rows,)`` result."""
+    y = binned_matvec_ref(bcoo.vals, bcoo.cols, bcoo.lrows, x, bcoo.rows_pad)
+    return y.reshape(-1)[bcoo.out_gather.long()]

@@ -4,7 +4,7 @@
 interface at first use, under ``build/kernels/`` at the repository root,
 named by a hash of the source and flags (a changed source never loads a
 stale library).  ``ctypes`` loads it; :mod:`repro_torch.kernels.ops` calls
-the two entry points with tensor pointers and the current CUDA stream.
+the three entry points with tensor pointers and the current CUDA stream.
 
 Nothing here runs at import: the CPU tests import every module on a
 machine with no ``nvcc``.  A failed build raises; there is no fallback.
@@ -34,6 +34,7 @@ _ARGTYPES = {
                        _i, _i, _i, _p],
     "repro_sell_spmv": [_i, _p, _p, _p, _p, _i64, _p, _p, _p, _p, _i64, _i,
                         _i, _i, _p, _i64, _p, _i64, _p, _i, _i, _i, _p],
+    "repro_balanced_spmv": [_i, _p, _p, _p, _p, _i64, _p, _p, _i, _i, _p],
 }
 
 

@@ -1,18 +1,35 @@
-"""Host-side sparse containers and packers (numpy).
+"""Sparse containers and packers.
 
-``CSRMatrix`` is the host CSR matrix all assembly, partitioning and halo
-planning works on; ``ell_arrays_from_csr`` / ``sell_arrays_from_csr`` pack a
-CSR block into the padded ELL and sliced-ELL (SELL-C) layouts the shard
-formats put on the device.  Everything here is numpy and gives the same
-bytes as the JAX package's ``repro.sparse.csr`` for the same input.
+``CSRMatrix`` is the host CSR matrix (numpy) all assembly, partitioning and
+halo planning works on; ``ell_arrays_from_csr`` / ``sell_arrays_from_csr``
+pack a CSR block into the padded ELL and sliced-ELL (SELL-C) layouts the
+shard formats put on the device.  The packers give the same bytes as the
+JAX package's ``repro.sparse.csr`` for the same input.
+
+Two device formats hold a whole matrix for the single-device kernels of
+:mod:`repro_torch.kernels.ops`, as tensors:
+
+``ELLMatrix``
+    padded row-major (ELLPACK) storage, every row padded to one width: the
+    "vector-based threading" analogue, work split by *rows*
+    (``ops.ell_spmv``).
+``BalancedCOO``
+    rows grouped into ``nbins`` contiguous bins of about equal *non-zeros*
+    (greedy + diffusion, ``repro_torch.core.partition``), each bin padded
+    to a common entry count: the "task-based + thread-balanced" analogue
+    (``ops.balanced_spmv``).  Balancing the nnz minimises the padding.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["CSRMatrix", "ell_arrays_from_csr", "sell_arrays_from_csr"]
+from repro_torch.util import align_up, resolve_device
+
+__all__ = ["CSRMatrix", "ELLMatrix", "BalancedCOO", "ell_arrays_from_csr",
+           "sell_arrays_from_csr"]
 
 
 @dataclasses.dataclass
@@ -70,9 +87,24 @@ class CSRMatrix:
         rows, cols = np.nonzero(dense)
         return cls.from_coo(rows, cols, dense[rows, cols], dense.shape)
 
+    @classmethod
+    def from_scipy(cls, m) -> "CSRMatrix":
+        m = m.tocsr()
+        return cls(indptr=np.asarray(m.indptr, dtype=np.int64),
+                   indices=np.asarray(m.indices, dtype=np.int64),
+                   data=np.asarray(m.data),
+                   shape=tuple(m.shape))
+
     # ------------------------------------------------------------------ #
     # host-side ops
     # ------------------------------------------------------------------ #
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=self.data.dtype)
+        for r in range(self.n_rows):
+            lo, hi = self.indptr[r], self.indptr[r + 1]
+            out[r, self.indices[lo:hi]] += self.data[lo:hi]
+        return out
+
     def _row_of_nnz(self) -> np.ndarray:
         """(nnz,) row id of every stored entry."""
         return np.repeat(np.arange(self.n_rows, dtype=np.int64), self.row_nnz)
@@ -86,6 +118,11 @@ class CSRMatrix:
         return np.bincount(self._row_of_nnz(),
                            weights=prod.astype(np.float64),
                            minlength=self.n_rows).astype(out_dtype)
+
+    def transpose(self) -> "CSRMatrix":
+        """Aᵀ as a new CSRMatrix (host; e.g. prolongation P = Rᵀ)."""
+        return CSRMatrix.from_coo(self.indices, self._row_of_nnz(),
+                                  self.data, (self.n_cols, self.n_rows))
 
     def diagonal(self) -> np.ndarray:
         d = np.zeros(self.n_rows, dtype=self.data.dtype)
@@ -203,3 +240,197 @@ def sell_arrays_from_csr(m: CSRMatrix, slots: np.ndarray, slice_height: int
         cols[pos] = m.indices
         rows[pos] = q
     return vals, cols, rows, starts, w[:n_slices]
+
+
+# ---------------------------------------------------------------------- #
+# device formats of a whole matrix (the single-device kernel path)
+# ---------------------------------------------------------------------- #
+def _host(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor on ``a``'s bytes (copied when ``a`` is read-only, as
+    arrays handed over from JAX are)."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _values(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host values -> ``dtype`` tensor on ``device``.  float64 is rounded
+    to float32 first, as the JAX package rounds it (also on the way to
+    bfloat16); a bfloat16 numpy array (``ml_dtypes``) keeps its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = _host(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = _host(a.astype(np.float32, copy=False))
+    return t.to(device=device, dtype=dtype)
+
+
+def _index(a: np.ndarray, device) -> torch.Tensor:
+    return _host(np.asarray(a).astype(np.int32, copy=False)).to(device)
+
+
+@dataclasses.dataclass
+class ELLMatrix:
+    """Padded-row (ELLPACK) storage: ``y[r] = Σ_k vals[r,k] · x[cols[r,k]]``.
+
+    Padding entries have ``vals == 0`` and ``cols == 0`` so they contribute
+    nothing.  Equal-*rows* work splitting over this format is the
+    "vector-based threading" analogue from the paper.
+    """
+
+    cols: torch.Tensor   # (n_rows_pad, width) int32
+    vals: torch.Tensor   # (n_rows_pad, width) float32 or bfloat16
+    n_rows: int
+    n_cols: int
+
+    @property
+    def width(self) -> int:
+        return self.cols.shape[1]
+
+    @property
+    def n_rows_pad(self) -> int:
+        return self.cols.shape[0]
+
+    @classmethod
+    def from_csr(cls, m: CSRMatrix, width: int | None = None,
+                 n_rows_pad: int | None = None, dtype=torch.float32,
+                 device=None) -> "ELLMatrix":
+        device = resolve_device(device)
+        cols, vals = ell_arrays_from_csr(m, width=width, n_rows_pad=n_rows_pad)
+        return cls(cols=_index(cols, device),
+                   vals=_values(vals, dtype, device),
+                   n_rows=m.n_rows, n_cols=m.n_cols)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Plain PyTorch SpMV (padding-safe) in the storage dtype, as the
+        reference's ``ELLMatrix.matvec``; the kernel is ``ops.ell_spmv``."""
+        g = x[self.cols.long()].to(self.vals.dtype)
+        return (self.vals * g).sum(-1)[: self.n_rows]
+
+
+@dataclasses.dataclass
+class BalancedCOO:
+    """nnz-balanced binned COO — input format of ``ops.balanced_spmv``.
+
+    Rows are grouped into ``nbins`` contiguous bins with ~equal nonzeros
+    (the paper's greedy + diffusion thread partition).  Each bin is padded
+    to ``nnz_pad`` entries and ``rows_pad`` rows so the kernel's grid is
+    static.  ``lrows`` holds *bin-local* row ids, nondecreasing over a
+    bin's ``bin_nnz[t]`` real entries (bins are contiguous CSR row ranges);
+    padding past them has ``vals == cols == lrows == 0``.  ``out_gather``
+    maps the kernel's ``(nbins, rows_pad)`` output back to the flat row
+    vector.
+
+    ``bin_lens`` is the port's own field: ``bin_nnz`` as an int32 tensor
+    beside the others, where the kernel reads each bin's real entry count.
+    """
+
+    vals: torch.Tensor        # (nbins, nnz_pad) float32 or bfloat16
+    cols: torch.Tensor        # (nbins, nnz_pad) int32 — column into x
+    lrows: torch.Tensor       # (nbins, nnz_pad) int32 — bin-local row id
+    bin_starts: torch.Tensor  # (nbins,) int32 — first global row of each bin
+    out_gather: torch.Tensor  # (n_rows,) int32 — flat index into (nbins*rows_pad)
+    bin_lens: torch.Tensor    # (nbins,) int32 — bin_nnz on the device
+    n_rows: int
+    n_cols: int
+    rows_pad: int
+    bin_nnz: tuple            # true stored-entry count per bin (from indptr)
+
+    @property
+    def nbins(self) -> int:
+        return self.vals.shape[0]
+
+    @property
+    def nnz_pad(self) -> int:
+        return self.vals.shape[1]
+
+    @classmethod
+    def from_csr(cls, m: CSRMatrix, bounds: np.ndarray, dtype=torch.float32,
+                 nnz_align: int = 128, rows_align: int = 8,
+                 device=None) -> "BalancedCOO":
+        """``bounds``: (nbins+1,) row partition from
+        ``repro_torch.core.partition``."""
+        bounds = np.asarray(bounds, dtype=np.int64)
+        nbins = len(bounds) - 1
+        rn = m.row_nnz
+        bin_nnz = np.array([rn[bounds[t]:bounds[t + 1]].sum()
+                            for t in range(nbins)], dtype=np.int64)
+        bin_rows = np.diff(bounds)
+        nnz_pad = align_up(bin_nnz.max() if nbins else 1, nnz_align)
+        rows_pad = align_up(bin_rows.max() if nbins else 1, rows_align)
+
+        vals = np.zeros((nbins, nnz_pad), dtype=np.float64)
+        cols = np.zeros((nbins, nnz_pad), dtype=np.int32)
+        lrows = np.zeros((nbins, nnz_pad), dtype=np.int32)
+        out_gather = np.zeros(m.n_rows, dtype=np.int32)
+        for t in range(nbins):
+            lo_r, hi_r = bounds[t], bounds[t + 1]
+            s, e = m.indptr[lo_r], m.indptr[hi_r]
+            k = e - s
+            vals[t, :k] = m.data[s:e]
+            cols[t, :k] = m.indices[s:e]
+            # bin-local row ids, repeated per nnz
+            lrows[t, :k] = np.repeat(np.arange(hi_r - lo_r), rn[lo_r:hi_r])
+            out_gather[lo_r:hi_r] = t * rows_pad + np.arange(hi_r - lo_r)
+        return cls.from_arrays(
+            {"vals": vals, "cols": cols, "lrows": lrows,
+             "bin_starts": bounds[:-1], "out_gather": out_gather},
+            {"n_rows": m.n_rows, "n_cols": m.n_cols, "rows_pad": rows_pad,
+             "bin_nnz": bin_nnz}, dtype=dtype, device=device)
+
+    @classmethod
+    def from_arrays(cls, arrays: dict[str, np.ndarray], meta: dict,
+                    dtype=None, device=None) -> "BalancedCOO":
+        """A port ``BalancedCOO`` from host arrays — those of the JAX
+        package's ``BalancedCOO`` handed over as numpy (``vals``, ``cols``,
+        ``lrows``, ``bin_starts``, ``out_gather``) with its meta
+        (``n_rows``, ``n_cols``, ``rows_pad``, ``bin_nnz``), so that both
+        packages compute on the identical binned matrix.
+
+        ``dtype`` defaults to the values' own (float32 for float64 input).
+        Raises unless what the kernel relies on holds: within each bin's
+        real entries, ``lrows`` is nondecreasing and in ``[0, rows_pad)``
+        and ``cols`` in ``[0, n_cols)``."""
+        device = resolve_device(device)
+        vals = np.asarray(arrays["vals"])
+        cols, lrows = np.asarray(arrays["cols"]), np.asarray(arrays["lrows"])
+        bin_nnz = np.asarray(meta["bin_nnz"], dtype=np.int64)
+        rows_pad, n_cols = int(meta["rows_pad"]), int(meta["n_cols"])
+        if not (vals.ndim == 2 and vals.shape == cols.shape == lrows.shape
+                and bin_nnz.shape == (vals.shape[0],)
+                and np.all(bin_nnz <= vals.shape[1])):
+            raise ValueError(f"BalancedCOO arrays {vals.shape} {cols.shape} "
+                             f"{lrows.shape} for bin_nnz {bin_nnz.shape}")
+        live = np.arange(vals.shape[1]) < bin_nnz[:, None]
+        if (np.any(np.diff(lrows, axis=1)[live[:, 1:]] < 0)
+                or np.any((lrows[live] < 0) | (lrows[live] >= rows_pad))
+                or np.any((cols[live] < 0) | (cols[live] >= n_cols))):
+            raise ValueError("BalancedCOO: bin-local rows must be "
+                             "nondecreasing in [0, rows_pad) and columns in "
+                             "[0, n_cols) over each bin's entries")
+        if dtype is None:
+            dtype = (torch.bfloat16 if vals.dtype.name == "bfloat16"
+                     else torch.float32)
+        return cls(vals=_values(vals, dtype, device),
+                   cols=_index(cols, device), lrows=_index(lrows, device),
+                   bin_starts=_index(arrays["bin_starts"], device),
+                   out_gather=_index(arrays["out_gather"], device),
+                   bin_lens=_index(bin_nnz, device),
+                   n_rows=int(meta["n_rows"]), n_cols=n_cols,
+                   rows_pad=rows_pad,
+                   bin_nnz=tuple(int(k) for k in bin_nnz))
+
+    @property
+    def padding_waste(self) -> float:
+        """Fraction of stored entries that are padding — the balanced
+        partition minimises this.
+
+        Computed from the true per-bin stored-entry counts (``bin_nnz``,
+        taken from the CSR ``indptr`` at construction), *not* from
+        ``vals != 0`` — an explicitly stored zero value is a real entry the
+        kernel streams, not padding."""
+        if len(self.bin_nnz) != self.nbins:
+            raise ValueError(f"bin_nnz has {len(self.bin_nnz)} entries for "
+                             f"{self.nbins} bins")
+        total = self.nbins * self.nnz_pad
+        real = int(sum(self.bin_nnz))
+        return 1.0 - real / max(total, 1)

@@ -9,8 +9,9 @@ Tolerances: each kernel against its plain version on identical inputs
 within ``2e-5·max(1, max|y|)``, with f32 and with bf16 storage: both
 accumulate in f32 on the same values, so only the summation order differs
 (``tests/test_kernels.py``'s f32 bound); golden CG iterations within ±1 of
-the fixture.
+the fixture; rows and bins with no entries exactly 0.
 """
+import dataclasses
 import json
 import pathlib
 
@@ -19,10 +20,12 @@ import pytest
 import torch
 
 from repro_torch.core import (build_spmv_plan, make_shard_body, make_spmv,
+                              partition_balanced, partition_equal_rows,
                               to_dist)
-from repro_torch.kernels import LAUNCHES, ops, reset_launches
+from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
 from repro_torch.solvers import make_solver
-from repro_torch.sparse import get_format, graded_extruded_mesh_matrix
+from repro_torch.sparse import (BalancedCOO, CSRMatrix, ELLMatrix, get_format,
+                                graded_extruded_mesh_matrix)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +101,100 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(golden):
         ops.fused_ell_spmv(*args, xl[:, ::2], xg)
     with pytest.raises(ValueError):
         ops.fused_ell_spmv(*args, xl.cpu(), xg)
+
+
+# --------------------------------------------------------------------- #
+# the single-device path: BalancedCOO -> balanced_spmv, ELLMatrix -> ell_spmv
+# --------------------------------------------------------------------- #
+def _close_to_plain(y, want):
+    tol = 2e-5 * max(1.0, float(want.abs().max()))
+    assert y.dtype == torch.float32 and y.shape == want.shape
+    assert float((y - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["balanced", "rows"])
+@pytest.mark.parametrize("nbins", [1, 4, 13, 300])
+def test_balanced_spmv_matches_plain_version(nbins, kind, dtype, golden):
+    A, x, _ = golden
+    bounds = (partition_balanced(A.row_nnz, nbins) if kind == "balanced"
+              else partition_equal_rows(A.n_rows, nbins))
+    b = BalancedCOO.from_csr(A, bounds, dtype=dtype, device="cuda")
+    xd = torch.from_numpy(x).cuda()
+    reset_launches()
+    y = ops.balanced_spmv(b, xd)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {k: int(k == "balanced_spmv") for k in LAUNCHES}
+    _close_to_plain(y, ref.balanced_spmv_ref(b, xd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_ell_spmv_matches_plain_version(dtype, golden):
+    A, x, _ = golden
+    e = ELLMatrix.from_csr(A, dtype=dtype, device="cuda")
+    for xd in (torch.from_numpy(x).cuda(),
+               torch.from_numpy(x).cuda().to(torch.bfloat16)):
+        reset_launches()
+        y = ops.ell_spmv(e.vals, e.cols, xd)
+        torch.cuda.synchronize()
+        assert LAUNCHES == {k: int(k == "ell_spmv") for k in LAUNCHES}
+        _close_to_plain(y, ref.ell_spmv_ref(e.vals, e.cols, xd))
+
+
+def test_balanced_spmv_writes_zeros_where_there_are_no_entries(golden):
+    """Empty bins, rows with no entries and each bin's ``rows_pad`` tail
+    come out exactly 0, whatever the output's memory held before."""
+    rng = np.random.default_rng(3)
+    n = 40
+    rows = np.repeat(np.arange(n), 3)
+    keep = ~np.isin(rows, [0, 3, 11, 12, 13, 14, 15, 39])
+    A = CSRMatrix.from_coo(rows[keep], rng.integers(0, n, keep.sum()),
+                           rng.standard_normal(keep.sum()), (n, n))
+    b = BalancedCOO.from_csr(A, np.array([0, 0, 10, 10, 25, 40, 40]),
+                             device="cuda")
+    # the whole (nbins, rows_pad) output, through an identity row map
+    full = b.nbins * b.rows_pad
+    whole = dataclasses.replace(
+        b, n_rows=full,
+        out_gather=torch.arange(full, dtype=torch.int32, device="cuda"))
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    torch.full((full,), float("nan"), device="cuda")   # dirty the pool
+    y = ops.balanced_spmv(whole, x)
+    want = ref.binned_matvec_ref(b.vals, b.cols, b.lrows, x, b.rows_pad)
+    hit = torch.zeros(full, dtype=torch.bool, device="cuda")
+    for t, k in enumerate(b.bin_nnz):
+        hit[t * b.rows_pad + b.lrows[t, :k].long()] = True
+    assert torch.isfinite(y).all()
+    assert (y[~hit] == 0).all()
+    _close_to_plain(y, want.reshape(-1))
+    y_host = A.matvec(x.cpu().numpy().astype(np.float64))
+    np.testing.assert_allclose(ops.balanced_spmv(b, x).cpu().numpy(), y_host,
+                               atol=1e-5 * max(1.0, np.abs(y_host).max()),
+                               rtol=0)
+
+
+def test_balanced_wrapper_raises_on_what_the_kernel_does_not_take(golden):
+    A, x, _ = golden
+    b = BalancedCOO.from_csr(A, partition_balanced(A.row_nnz, 4),
+                             device="cuda")
+    xd = torch.from_numpy(x).cuda()
+    with pytest.raises(TypeError):
+        ops.balanced_spmv(dataclasses.replace(b, cols=b.cols.long()), xd)
+    with pytest.raises(TypeError):
+        ops.balanced_spmv(dataclasses.replace(b, lrows=b.lrows.long()), xd)
+    with pytest.raises(TypeError):
+        ops.balanced_spmv(dataclasses.replace(b, vals=b.vals.half()), xd)
+    with pytest.raises(TypeError):
+        ops.balanced_spmv(b, xd.double())
+    with pytest.raises(ValueError):
+        ops.balanced_spmv(b, xd.cpu())
+    with pytest.raises(ValueError):
+        ops.balanced_spmv(b, xd[:-1])
+    nbins = 65536
+    z = torch.zeros((nbins, 128), dtype=torch.int32, device="cuda")
+    many = dataclasses.replace(
+        b, vals=z.float(), cols=z, lrows=z,
+        bin_starts=z[:, 0].contiguous(), bin_lens=z[:, 0].contiguous(),
+        bin_nnz=(0,) * nbins)
+    with pytest.raises(ValueError):
+        ops.balanced_spmv(many, xd)

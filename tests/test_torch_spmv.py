@@ -32,7 +32,7 @@ from repro_torch.core import (build_spmv_plan, from_dist, make_spmv,
 from repro_torch.core.spmv import plan_fields
 from repro_torch.core.transport import A2ATransport, resolve_transport
 from repro_torch.kernels import ops, ref
-from repro_torch.sparse import graded_extruded_mesh_matrix
+from repro_torch.sparse import BalancedCOO, graded_extruded_mesh_matrix
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CASES = ("ell/4x2", "sell/4x2", "ell/1x4", "sell/1x4")
@@ -188,5 +188,12 @@ def test_wrappers_refuse_other_devices_and_types():
         ops.ell_spmv(v, c, x)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.fused_ell_spmv(v, c, v, c, x, x)
+    b = BalancedCOO(vals=v[0, 0], cols=c[0, 0], lrows=c[0, 0],
+                    bin_starts=c[0, 0, :, 0], out_gather=c[0, 0, :4, 0],
+                    bin_lens=c[0, 0, :, 0], n_rows=4, n_cols=4, rows_pad=8,
+                    bin_nnz=(0,) * 8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.balanced_spmv(b, x[0])
     assert set(ops.LAUNCHES) == {"fused_ell_spmv", "ell_spmv",
-                                 "fused_sell_spmv", "sell_spmv"}
+                                 "fused_sell_spmv", "sell_spmv",
+                                 "balanced_spmv"}
