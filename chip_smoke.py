@@ -17,12 +17,18 @@ check raises, so the exit code is not 0.
             the halo-free 1x8 plans), f32 and bf16 storage; median times of
             20 runs (CUDA events) of kernel and plain version, and the
             bound of each: the larger of its bytes over the memory rate
-            and its flops over the f32 rate;
+            and its flops over the f32 rate.  The ELL kernel reads only
+            each row's real entries (its row lengths), so its bytes are
+            the real entries' values and columns, the lengths, x and y,
+            and its flops two per real entry; ``bound_stored_ms`` beside
+            it counts every stored slot, padding included.  SELL counts
+            its stored entries (about nnz) and slice descriptors;
 3b. balanced the single-device kernel path on the full-size matrix of
             phase 5: ``BalancedCOO`` (``partition_balanced`` and
             ``partition_equal_rows`` bounds, 16, 64 and 8 x SM-count bins)
             -> ``balanced_spmv`` (B5), and the global ``ELLMatrix`` -> flat
-            ``ell_spmv`` (B3's kernel as one shard), each against the host
+            ``ell_spmv`` with its ``row_lens`` (B3's kernel as one shard;
+            its bound counts real entries, as in phase 3), each against the host
             float64 CSR matvec (rel <= 1e-5).  Launch counts are zeroed
             just before this path and read just after it.  Then each
             kernel against its plain version (2e-5·max|y|) and timed, f32
@@ -44,8 +50,8 @@ check raises, so the exit code is not 0.
 6. profile  ``torch.profiler`` device time by kernel over 64 fused-CG
             iterations on the 4x2 plans, against phase 5's unprofiled
             ms/iteration (the device's busy share);
-7. the ``kernels`` line, the ``nvidia-smi`` line, and the last line
-   ``{"ok": true, "device": {...}}``.
+7. the ``kernels`` line (B1-B4, B5 and the flat ELL), the ``nvidia-smi``
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 ``library_ms`` is one ``torch.sparse`` CSR matvec of the same global
 matrix (cuSPARSE) — the yardstick only; the port never calls it.
@@ -71,10 +77,12 @@ KERNELS = {   # name -> (plan key, TPU kernel it replaces)
     "ell_spmv": ("ell/1x8", "src/repro/kernels/spmv_bcsr.py:58"),
     "sell_spmv": ("sell/1x8", "src/repro/kernels/spmv_bcsr.py:189"),
 }
-#: the single-device path's kernel; its row on the ``kernels`` line is the
-#: 64-bin nnz-balanced f32 one
+#: the single-device path's kernels; B5's row on the ``kernels`` line is
+#: the 64-bin nnz-balanced f32 one, the flat ELL's the global ELLMatrix's
 BALANCED = ("balanced_spmv", "src/repro/kernels/spmv_bcsr.py:268",
             "balanced/64")
+FLAT_ELL = ("ell_spmv/flat", "src/repro/kernels/spmv_bcsr.py:58",
+            "ell/global")
 SOURCE = "src/repro_torch/kernels/csrc/spmv.cu"
 
 
@@ -112,16 +120,26 @@ def nbytes(*ts) -> int:
 
 
 def read_fields(fmt, x_ghost) -> tuple[str, ...]:
-    """The plan arrays a kernel reads: values, columns and (SELL) slice
-    descriptors of the diag stream, and of the offd stream with a halo.
-    The SELL ``rows`` streams are never read."""
+    """The plan arrays a kernel reads: values, columns and (ELL) row
+    lengths or (SELL) slice descriptors of the diag stream, and of the offd
+    stream with a halo.  The SELL ``rows`` streams are never read."""
     streams = ("d", "o") if x_ghost is not None else ("d",)
     if fmt.name == "ell":
         names = {"d": "diag", "o": "offd"}
         return tuple(f"{names[s]}_{f}" for s in streams
-                     for f in ("vals", "cols"))
+                     for f in ("vals", "cols", "len"))
     return tuple(f"sell_{s}{f}" for s in streams
                  for f in ("vals", "cols", "start", "width"))
+
+
+def ell_bytes(vals, cols, lens, xs) -> tuple[int, int, int]:
+    """ELL inputs as the kernel reads them: ``(bytes, flops, stored
+    bytes)``.  Only each row's real entries are read (value and column),
+    with the row lengths and x; the stored bytes count every slot."""
+    real = sum(int(n.sum()) for n in lens)
+    per = vals[0].element_size() + cols[0].element_size()
+    return (real * per + nbytes(*lens, *xs), 2 * real,
+            nbytes(*vals, *cols, *xs))
 
 
 # ---------------------------------------------------------------------- #
@@ -181,7 +199,8 @@ def build_plans(A) -> dict:
 
 
 def measure(phase: str, row: dict, kern, plain, in_bytes: int, flops: int,
-            bw: float, f32_peak: float) -> dict:
+            bw: float, f32_peak: float, stored_bytes: int | None = None
+            ) -> dict:
     """Hold ``kern()`` against ``plain()`` on the same inputs and time both;
     emit ``row`` with the results as one ``phase`` line and return it.
 
@@ -189,6 +208,8 @@ def measure(phase: str, row: dict, kern, plain, in_bytes: int, flops: int,
     so only the summation order differs: the limit is 2e-5·max|y|.  The
     bound is the larger of the bytes moved (``in_bytes`` read once, the
     output written once) over the memory rate and ``flops`` over the f32
+    rate.  ``stored_bytes`` (ELL: every stored slot) adds
+    ``bound_stored_ms``, those bytes and the output over the memory
     rate."""
     import torch
 
@@ -202,6 +223,8 @@ def measure(phase: str, row: dict, kern, plain, in_bytes: int, flops: int,
            "plain_ms": time_ms(plain), "bytes": byts, "flops": flops,
            "bound_ms": max(bytes_ms, flops_ms),
            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+    if stored_bytes is not None:
+        row["bound_stored_ms"] = (stored_bytes + nbytes(y)) / bw * 1e3
     emit(phase, **row)
     check(y.shape == want.shape and err <= tol,
           f"{row['kernel']} {row.get('plan', row.get('matrix'))} "
@@ -226,16 +249,23 @@ def phase_kernels(plans, x, bw, f32_peak) -> dict:
             F = {k: (v.to(dtype) if v.is_floating_point() else v)
                  for k, v in plan.fmt_data.items()}
             fields = read_fields(fmt, xg)
-            # one multiply and one add per stored entry, f32 outside the
-            # tensor cores
+            if fmt.name == "ell":
+                byts, flops, stored = ell_bytes(
+                    *([F[k] for k in fields if k.endswith(f)]
+                      for f in ("vals", "cols", "len")), [xl, xg])
+            else:
+                # one multiply and one add per stored entry, f32 outside
+                # the tensor cores
+                byts = nbytes(*(F[k] for k in fields), xl, xg)
+                flops = 2 * sum(F[k].numel() for k in fields
+                                if k.endswith("vals"))
+                stored = None
             row = measure(
                 "kernel", {"kernel": name, "plan": key,
                            "dtype": str(dtype)[6:]},
                 lambda: fmt.matvec_kernel(F, xl, xg, plan.rc_pad),
                 lambda: fmt.matvec_plain(F, xl, xg, plan.rc_pad),
-                nbytes(*(F[k] for k in fields), xl, xg),
-                2 * sum(F[k].numel() for k in fields if k.endswith("vals")),
-                bw, f32_peak)
+                byts, flops, bw, f32_peak, stored)
             results.setdefault(name, row)        # f32 first: the main path
             del F
     return results
@@ -243,7 +273,8 @@ def phase_kernels(plans, x, bw, f32_peak) -> dict:
 
 def phase_balanced(A, x, bw, f32_peak) -> tuple[dict, dict]:
     """The single-device kernel path on the full-size matrix; returns the
-    path's launch counts and the rows of ``balanced_spmv`` by label."""
+    path's launch counts and the f32 rows of ``balanced_spmv`` and of the
+    flat ``ell_spmv`` by label."""
     import dataclasses
 
     import numpy as np
@@ -280,7 +311,8 @@ def phase_balanced(A, x, bw, f32_peak) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     ell = ELLMatrix.from_csr(A, device=DEVICE)
     build_s = time.perf_counter() - t0
-    y = ell_spmv(ell.vals, ell.cols, xd)[:A.n_rows].cpu().numpy()
+    y = ell_spmv(ell.vals, ell.cols, xd,
+                 lens=ell.row_lens)[:A.n_rows].cpu().numpy()
     rel = float(np.abs(y - y_host).max() / scale)
     check(rel <= 1e-5, f"flat ell_spmv: rel err {rel} > 1e-5")
     torch.cuda.synchronize()
@@ -313,13 +345,17 @@ def phase_balanced(A, x, bw, f32_peak) -> tuple[dict, dict]:
     del built
     for dtype in (torch.float32, torch.bfloat16):
         vals = ell.vals.to(dtype)
-        measure("balanced", {"kernel": "ell_spmv", "matrix": "ell/global",
-                             "dtype": str(dtype)[6:], "build_s": build_s,
-                             "host_rel_err": rel, "width": ell.width,
-                             "padding_waste": 1.0 - A.nnz / vals.numel()},
-                lambda: ell_spmv(vals, ell.cols, xd),
-                lambda: ref.ell_spmv_ref(vals, ell.cols, xd),
-                nbytes(vals, ell.cols, xd), 2 * vals.numel(), bw, f32_peak)
+        byts, flops, stored = ell_bytes([vals], [ell.cols], [ell.row_lens],
+                                        [xd])
+        row = measure(
+            "balanced", {"kernel": "ell_spmv", "matrix": FLAT_ELL[2],
+                         "dtype": str(dtype)[6:], "build_s": build_s,
+                         "host_rel_err": rel, "width": ell.width,
+                         "padding_waste": 1.0 - A.nnz / vals.numel()},
+            lambda: ell_spmv(vals, ell.cols, xd, lens=ell.row_lens),
+            lambda: ref.ell_spmv_ref(vals, ell.cols, xd),
+            byts, flops, bw, f32_peak, stored)
+        rows.setdefault(FLAT_ELL[2], row)        # f32 first
         del vals
     del ell
     return launches, rows
@@ -498,6 +534,8 @@ def main() -> int:
                for name in KERNELS]
     entries.append((BALANCED[0], BALANCED[1], bal_launches[BALANCED[0]],
                     bal[BALANCED[2]]))
+    entries.append((FLAT_ELL[0], FLAT_ELL[1], bal_launches["ell_spmv"],
+                    bal[FLAT_ELL[2]]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": replaces, "launches": n,

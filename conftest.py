@@ -7,12 +7,23 @@
   test files: under ``pytest-xdist --dist loadfile`` a patch applied by one
   file would make other files pass or fail by worker placement.
 * Registers the ``cuda`` marker for tests that need an NVIDIA card.
+* Restores the reference's solver and preconditioner registries after
+  each test, for the same reason: ``tests/test_solvers.py`` registers
+  names that ``tests/test_precond.py``'s conformance sweep would then
+  expect in its subprocess's output when both files share a worker.
 """
 from __future__ import annotations
 
 import importlib.util
 import os
 import sys
+
+import pytest
+
+#: module -> registry dict restored after every test (if the module is
+#: loaded; this file never imports the JAX package itself)
+_REGISTRIES = (("repro.solvers.base", "_SOLVERS"),
+               ("repro.solvers.precond", "_PRECONDS"))
 
 _SHIM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests", "_jaxcompat")
@@ -32,6 +43,19 @@ def _install_jax_shim() -> None:
 
 
 _install_jax_shim()
+
+
+@pytest.fixture(autouse=True)
+def _restore_registries():
+    saved = []
+    for mod, attr in _REGISTRIES:
+        reg = getattr(sys.modules.get(mod), attr, None)
+        if reg is not None:
+            saved.append((reg, dict(reg)))
+    yield
+    for reg, before in saved:
+        reg.clear()
+        reg.update(before)
 
 
 def pytest_configure(config):

@@ -30,53 +30,161 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 
 // ------------------------------------------------------------------------
+// The warp-segment sum shared by the ELL and SELL kernels.
+//
+// Each lane of a warp owns one output (an ELL row, a SELL slot) whose
+// entries are one contiguous segment [seg, seg + len) of vals/cols.  The
+// warp lays its 32 segments end to end (a prefix sum of len) and walks that
+// flat range with neighbouring lanes on neighbouring entries, kWarpChunk
+// entries at a time: each lane loads kUnroll entries' value and column
+// before it gathers their x, and stages the f32 value and x[col] in shared
+// memory.  Then each lane adds its own segment's part of the chunk onto acc
+// in entry order, one fmaf per entry -- the order of a thread that reads
+// its segment itself, so the sum is the same bit for bit.
+//
+// kBackToBack: the segments of neighbouring lanes are adjacent in memory
+// (SELL slots), so entry e of the flat range sits at seg(lane 0) + e.
+// Otherwise (ELL rows, whose padding lies between them) each lane finds
+// the owner of its entry by a binary search over the lanes' offsets,
+// five shuffles, and reads seg(owner) + (e - offset(owner)).
+//
+// Geometry (PERF.md): 256 staged entries per warp (16 KB of shared memory
+// per block of 8 warps) and 4 loads in flight per lane ran fastest of the
+// chunks of 128 to 768 entries and 2 to 8 loads tried on the card.  A
+// lane-split shuffle-tree sum was not tried: it would change each row's
+// summation order, and the golden CG count moves with that order
+// (ROADMAP C).
+// ------------------------------------------------------------------------
+constexpr int kWarpChunk = 256;   // staged entries per warp
+constexpr int kUnroll = 4;        // loads in flight per lane
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kWarpChunk % (32 * kUnroll) == 0, "chunk of whole steps");
+
+template <typename T, bool kBackToBack>
+__device__ __forceinline__ float warp_segment_sum(
+    float acc, const T* __restrict__ vals, const int32_t* __restrict__ cols,
+    const float* __restrict__ x, int64_t seg, int len,
+    float* __restrict__ s_v, float* __restrict__ s_x) {
+  const int lane = threadIdx.x & 31;
+  int end = len;                      // inclusive prefix sum over the warp
+  for (int d = 1; d < 32; d <<= 1) {
+    const int n = __shfl_up_sync(kFull, end, d);
+    if (lane >= d) end += n;
+  }
+  const int off = end - len;
+  const int total = __shfl_sync(kFull, end, 31);
+  const int64_t seg0 = __shfl_sync(kFull, seg, 0);
+
+  for (int c0 = 0; c0 < total; c0 += kWarpChunk) {
+    const int n = min(kWarpChunk, total - c0);
+    for (int b = 0; b < n; b += 32 * kUnroll) {
+      int64_t src[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int e = c0 + b + u * 32 + lane;
+        if (kBackToBack) {
+          src[u] = seg0 + e;
+        } else {
+          int j = 0, oj = 0;          // the last lane j with off[j] <= e
+#pragma unroll
+          for (int step = 16; step > 0; step >>= 1) {
+            const int o = __shfl_sync(kFull, off, j + step);
+            if (o <= e) { j += step; oj = o; }
+          }
+          src[u] = __shfl_sync(kFull, seg, j) + (e - oj);
+        }
+      }
+      float v[kUnroll];
+      int32_t c[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (b + u * 32 + lane < n) {
+          v[u] = to_f32(vals[src[u]]);
+          c[u] = cols[src[u]];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = b + u * 32 + lane;
+        if (k < n) {
+          s_v[k] = v[u];
+          s_x[k] = x[c[u]];
+        }
+      }
+    }
+    __syncwarp();
+    const int lo = max(off, c0), hi = min(off + len, c0 + n);
+    for (int k = lo; k < hi; ++k)
+      acc = fmaf(s_v[k - c0], s_x[k - c0], acc);
+    __syncwarp();
+  }
+  return acc;
+}
+
+// ------------------------------------------------------------------------
 // ELL: replaces fused_ell_spmv_pallas (src/repro/kernels/spmv_bcsr.py:103,
 // body _fused_ell_kernel :84) and, with wo == 0, ell_spmv_pallas (:58,
 // body _ell_kernel :48).
 //
-//   y[s, r] = sum_k dvals[s, r, k] * x_local[node(s), dcols[s, r, k]]
-//           + sum_k ovals[s, r, k] * x_ghost[node(s), ocols[s, r, k]]
+//   y[s, r] = sum_{k < dlen[s, r]} dvals[s, r, k] * x_local[node(s), dcols[s, r, k]]
+//           + sum_{k < olen[s, r]} ovals[s, r, k] * x_ghost[node(s), ocols[s, r, k]]
 //
-// Bound: device-memory bytes.  Each stored entry costs 8 B in f32 (6 B in
+// len[r] is 1 + the row's last slot holding an entry (ELLFormat's
+// diag_len/offd_len, ELLMatrix.row_lens); the slots past it are padding
+// (value 0, column 0), so for finite x stopping there is exact.  A null
+// lens reads all w slots, as the plain version and the TPU kernel do: the
+// same result for finite x, but a non-finite x[0] then makes every padded
+// row NaN (0 * Inf), which the kernel with lengths does not.
+//
+// Bound: device-memory bytes.  Each real entry costs 8 B in f32 (6 B in
 // bf16: value + int32 column) and two flops, far below the card's
-// operations-per-byte balance; add the x reads and one 4 B write per row.
-// Design: one output row per thread, k in order, the f32 accumulator in a
-// register.  The diag partial never leaves the register -- the offd sum
-// adds onto it and y is written once, as in the TPU kernel -- so the
-// intermediate y of PETSc's two phases costs no device-memory traffic.
-// The x gathers mostly hit L2 (x_local of one node is 2.4 MB at the 4x2
-// full-size plan, far inside the 50 MB L2).  Known limit: the plan's
-// (rows, w) row-major layout makes a warp's loads of vals/cols strided by
-// w, so they are not coalesced; a column-major (w, rows) copy or a
-// warp-per-row variant is the next step, left to a later change.
+// operations-per-byte balance; add the 4 B length and one 4 B write per
+// row, and the x reads.  Row-padded ELL stores 3-10x the entries on the
+// graded matrices, so the padding is never read: a warp owns 32 rows and
+// walks only their [0, len) entries, coalesced (warp_segment_sum).  The
+// diag partial stays in a register -- the offd sum adds onto it and y is
+// written once, as in the TPU kernel -- so the intermediate y of PETSc's
+// two phases costs no device-memory traffic.  The x gathers mostly hit L2
+// (x_local of one node is 2.4 MB at the 4x2 full-size plan, far inside the
+// 50 MB L2).
+//
+// Known limits, at ~3x the bound (PERF.md): a row's real entries rarely
+// start on a 32 B sector, so a warp's load of ~1.5 rows touches a sector
+// or two more than it needs; the owner search costs five shuffles per
+// staged entry.
 // ------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
-           int wd, const T* __restrict__ ovals,
-           const int32_t* __restrict__ ocols, int wo,
+           const int32_t* __restrict__ dlens, int wd,
+           const T* __restrict__ ovals, const int32_t* __restrict__ ocols,
+           const int32_t* __restrict__ olens, int wo,
            const float* __restrict__ x_local, int64_t xl_stride,
            const float* __restrict__ x_ghost, int64_t xg_stride,
            float* __restrict__ y, int rows, int n_core) {
+  __shared__ float s_v[kWarps][kWarpChunk];
+  __shared__ float s_x[kWarps][kWarpChunk];
+  const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
+  const bool live = r < rows;          // no early return: the warp shuffles
   const int s = blockIdx.y;
   const int64_t node = s / n_core;
-  const int64_t row = static_cast<int64_t>(s) * rows + r;
+  const int64_t row = static_cast<int64_t>(s) * rows + (live ? r : 0);
 
-  const float* xl = x_local + node * xl_stride;
-  const T* dv = dvals + row * wd;
-  const int32_t* dc = dcols + row * wd;
-  float acc = 0.0f;
-  for (int k = 0; k < wd; ++k) acc += to_f32(dv[k]) * xl[dc[k]];
-
+  int len = 0;
+  if (live) len = dlens ? min(max(dlens[row], 0), wd) : wd;
+  float acc = warp_segment_sum<T, false>(
+      0.0f, dvals, dcols, x_local + node * xl_stride, row * wd, len,
+      s_v[warp], s_x[warp]);
   if (wo > 0) {
-    const float* xg = x_ghost + node * xg_stride;
-    const T* ov = ovals + row * wo;
-    const int32_t* oc = ocols + row * wo;
-    for (int k = 0; k < wo; ++k) acc += to_f32(ov[k]) * xg[oc[k]];
+    len = 0;
+    if (live) len = olens ? min(max(olens[row], 0), wo) : wo;
+    acc = warp_segment_sum<T, false>(
+        acc, ovals, ocols, x_ghost + node * xg_stride, row * wo, len,
+        s_v[warp], s_x[warp]);
   }
-  y[row] = acc;
+  if (live) y[row] = acc;
 }
 
 // ------------------------------------------------------------------------
@@ -87,30 +195,23 @@ ell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
 // The TPU kernel streams each flat SELL stream in chunks and reduces into
 // the (rc_pad,) output with a one-hot MXU matmul, only because Mosaic has
 // no scatter-add.  That is dropped entirely.  sell_arrays_from_csr stores
-// entry k of slot q at start[sl] + (q - sl*C) * width[sl] + k, so a slot's
-// entries are contiguous: one thread per slot reads its width[sl] entries
-// in order and writes y[q] once.  Deterministic, no atomics; the rows
-// stream is never read.  Slots of slices a shard does not have (width 0)
-// get 0.
+// entry k of slot q at start[sl] + (q - sl*C) * width[sl] + k, and the
+// slices of a shard back to back (start[sl + 1] = start[sl] + C *
+// width[sl], absent slices of width 0 at the end), so the 32 slots of a
+// warp (32 / C slices at C = 8) are one contiguous range of the stream.
+// The warp walks it coalesced, no search and no rows stream needed
+// (warp_segment_sum), and each lane sums its own slot's width[sl] entries
+// in order; y[q] is written once.  Deterministic, no atomics.  Slots of
+// slices a shard does not have (width 0) get 0.
 //
 // Bound: device-memory bytes, as ELL: 8 B per stored entry (6 B in bf16),
-// plus 8 B of slice descriptor per slice, the x reads and one 4 B write
-// per slot.  Storage tracks true nnz (slice-local widths), so SELL moves
-// fewer padding bytes than ELL on the graded matrices.  Known limit: the
-// row-major layout within a slice strides a warp's loads by the slice
-// width (uncoalesced), as in ELL.
+// plus 8 B of slice descriptor per slot's slice, the x reads and one 4 B
+// write per slot.  SELL stores about nnz (slice-local widths, rows sorted
+// by length), so it reads its padding, which is small.  Known limits, at
+// ~2.5x the bound (PERF.md): each entry is staged through shared memory
+// and read back by one lane, and each x gather waits on its column's
+// load, so a lane has only kUnroll gathers in flight.
 // ------------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ float sell_slot(
-    float acc, const T* __restrict__ vals, const int32_t* __restrict__ cols,
-    int32_t start, int32_t width, int j, const float* __restrict__ x) {
-  const int64_t base = static_cast<int64_t>(start) +
-                       static_cast<int64_t>(j) * width;
-  for (int k = 0; k < width; ++k)
-    acc += to_f32(vals[base + k]) * x[cols[base + k]];
-  return acc;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
@@ -123,20 +224,38 @@ sell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
             const float* __restrict__ x_local, int64_t xl_stride,
             const float* __restrict__ x_ghost, int64_t xg_stride,
             float* __restrict__ y, int rc_pad, int n_core) {
+  __shared__ float s_v[kWarps][kWarpChunk];
+  __shared__ float s_x[kWarps][kWarpChunk];
+  const int warp = threadIdx.x >> 5;
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= rc_pad) return;
   const int s = blockIdx.y;
   const int64_t node = s / n_core;
   const int sl = q / slice_height;
   const int j = q - sl * slice_height;
+  const bool present = sl < n_slices;  // slots past the last slice: none
   const int64_t d = static_cast<int64_t>(s) * n_slices + sl;
 
-  float acc = sell_slot(0.0f, dvals + s * d_len, dcols + s * d_len,
-                        dstart[d], dwidth[d], j, x_local + node * xl_stride);
-  if (has_offd)
-    acc = sell_slot(acc, ovals + s * o_len, ocols + s * o_len, ostart[d],
-                    owidth[d], j, x_ghost + node * xg_stride);
-  y[static_cast<int64_t>(s) * rc_pad + q] = acc;
+  int len = 0;
+  int64_t seg = 0;
+  if (present) {
+    len = dwidth[d];
+    seg = dstart[d] + static_cast<int64_t>(j) * len;
+  }
+  float acc = warp_segment_sum<T, true>(
+      0.0f, dvals + s * d_len, dcols + s * d_len,
+      x_local + node * xl_stride, seg, len, s_v[warp], s_x[warp]);
+  if (has_offd) {
+    len = 0;
+    seg = 0;
+    if (present) {
+      len = owidth[d];
+      seg = ostart[d] + static_cast<int64_t>(j) * len;
+    }
+    acc = warp_segment_sum<T, true>(
+        acc, ovals + s * o_len, ocols + s * o_len,
+        x_ghost + node * xg_stride, seg, len, s_v[warp], s_x[warp]);
+  }
+  if (q < rc_pad) y[static_cast<int64_t>(s) * rc_pad + q] = acc;
 }
 
 // ------------------------------------------------------------------------
@@ -240,9 +359,11 @@ balanced_kernel(const T* __restrict__ vals, const int32_t* __restrict__ cols,
 extern "C" {
 
 // vals_bf16: 0 -> float32 storage, 1 -> bfloat16.  wo == 0 is the
-// halo-free kernel (ovals/ocols/x_ghost are then not read).
+// halo-free kernel (ovals/ocols/olens/x_ghost are then not read).  dlens/
+// olens: per-row entry counts, or null to read every slot.
 int repro_ell_spmv(int vals_bf16, const void* dvals, const int32_t* dcols,
-                   int wd, const void* ovals, const int32_t* ocols, int wo,
+                   const int32_t* dlens, int wd, const void* ovals,
+                   const int32_t* ocols, const int32_t* olens, int wo,
                    const float* x_local, int64_t xl_stride,
                    const float* x_ghost, int64_t xg_stride, float* y,
                    int n_shards, int n_core, int rows, void* stream) {
@@ -251,20 +372,21 @@ int repro_ell_spmv(int vals_bf16, const void* dvals, const int32_t* dcols,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16) {
     ell_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(dvals), dcols, wd,
-        static_cast<const __nv_bfloat16*>(ovals), ocols, wo, x_local,
+        static_cast<const __nv_bfloat16*>(dvals), dcols, dlens, wd,
+        static_cast<const __nv_bfloat16*>(ovals), ocols, olens, wo, x_local,
         xl_stride, x_ghost, xg_stride, y, rows, n_core);
   } else {
     ell_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(dvals), dcols, wd,
-        static_cast<const float*>(ovals), ocols, wo, x_local, xl_stride,
-        x_ghost, xg_stride, y, rows, n_core);
+        static_cast<const float*>(dvals), dcols, dlens, wd,
+        static_cast<const float*>(ovals), ocols, olens, wo, x_local,
+        xl_stride, x_ghost, xg_stride, y, rows, n_core);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // has_offd == 0 is the diag-only kernel (the o* pointers and x_ghost are
-// then not read).
+// then not read).  Each shard's slices lie back to back in its stream, as
+// sell_arrays_from_csr lays them out.
 int repro_sell_spmv(int vals_bf16, const void* dvals, const int32_t* dcols,
                     const int32_t* dstart, const int32_t* dwidth,
                     int64_t d_len, const void* ovals, const int32_t* ocols,

@@ -89,13 +89,31 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _ell(name, dvals, dcols, ovals, ocols, x_local, x_ghost):
+def _lens(name: str, lens, vals: torch.Tensor):
+    """Row lengths as the ELL kernel takes them: int32, contiguous, on the
+    values' device, one per row of ``vals``; ``None`` reads every slot."""
+    if lens is None:
+        return None
+    if lens.dtype != torch.int32:
+        raise TypeError(f"{name}: row lengths must be int32, got "
+                        f"{lens.dtype}")
+    if lens.device != vals.device or not lens.is_contiguous():
+        raise ValueError(f"{name}: row lengths must be contiguous on "
+                         f"{vals.device}, got {lens.device}")
+    if lens.shape != vals.shape[:-1]:
+        raise ValueError(f"{name}: row lengths {tuple(lens.shape)} for "
+                         f"values {tuple(vals.shape)}")
+    return lens
+
+
+def _ell(name, dvals, dcols, dlens, ovals, ocols, olens, x_local, x_ghost):
     from repro_torch.kernels.spmv_cuda import library
 
     n_node, n_core, rows, wd = dvals.shape
     if dcols.shape != dvals.shape or x_local.shape[0] != n_node:
         raise ValueError(f"{name}: shapes {tuple(dvals.shape)} "
                          f"{tuple(dcols.shape)} x {tuple(x_local.shape)}")
+    dlens = _lens(name, dlens, dvals)
     vals, idx, xs = [dvals], [dcols], [x_local]
     wo = 0
     if ovals is not None:
@@ -104,17 +122,22 @@ def _ell(name, dvals, dcols, ovals, ocols, x_local, x_ghost):
                 or x_ghost.shape[0] != n_node):
             raise ValueError(f"{name}: offd shapes {tuple(ovals.shape)} "
                              f"{tuple(ocols.shape)} x {tuple(x_ghost.shape)}")
+        olens = _lens(name, olens, ovals)
         vals, idx, xs = vals + [ovals], idx + [ocols], xs + [x_ghost]
     if n_node * n_core > 65535:
         raise ValueError(f"{name}: {n_node * n_core} shards > 65535")
     code = _check(name, dvals.device, vals, idx, xs)
     y = torch.empty((n_node, n_core, rows), dtype=torch.float32,
                     device=dvals.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = library().repro_ell_spmv(
-        code, dvals.data_ptr(), dcols.data_ptr(), wd,
-        ovals.data_ptr() if wo else None, ocols.data_ptr() if wo else None,
-        wo, x_local.data_ptr(), x_local.shape[1],
-        x_ghost.data_ptr() if wo else None,
+        code, dvals.data_ptr(), dcols.data_ptr(), ptr(dlens), wd,
+        ptr(ovals) if wo else None, ptr(ocols) if wo else None,
+        ptr(olens) if wo else None, wo, x_local.data_ptr(),
+        x_local.shape[1], ptr(x_ghost) if wo else None,
         x_ghost.shape[1] if wo else 0, y.data_ptr(), n_node * n_core,
         n_core, rows, _stream(dvals.device))
     _raise_on(name, err)
@@ -122,36 +145,47 @@ def _ell(name, dvals, dcols, ovals, ocols, x_local, x_ghost):
     return y
 
 
-def ell_spmv(vals: torch.Tensor, cols: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+             lens: torch.Tensor | None = None) -> torch.Tensor:
     """Halo-free ELL SpMV: ``y = vals·x[cols]`` per row.
 
     Over all shards: vals/cols ``(n_node, n_core, rows, w)`` and x
     ``(n_node, n)`` give ``(n_node, n_core, rows)``.  Flat (an
     ``ELLMatrix``'s arrays): vals/cols ``(rows, w)`` and x ``(n,)`` give
-    ``(rows,)``, through the same kernel as one shard.  The TPU kernel's
-    ``row_tile`` has no counterpart: a thread takes one row and the grid
-    covers every row, so the rows need no padding."""
+    ``(rows,)``, through the same kernel as one shard.  ``lens`` (int32,
+    one per row: ``ELLFormat``'s ``diag_len``, ``ELLMatrix.row_lens``)
+    lets the kernel stop at each row's last entry; ``None`` reads all ``w``
+    slots, as the plain version and the TPU kernel always do.  The two give
+    the same result for finite ``x``; where ``x[0]`` is Inf or NaN, a read
+    padding slot (value 0, column 0) makes its row NaN, and a skipped one
+    does not.
+    The TPU kernel's ``row_tile`` has no counterpart: a warp takes 32 rows
+    and the grid covers every row, so the rows need no padding."""
     if _on_cpu(vals):
         return ref.ell_spmv_ref(vals, cols, x)
     if vals.dim() == 2:
         x = _flat_x("ell_spmv", x)
-        return _ell("ell_spmv", vals[None, None], cols[None, None], None,
+        return _ell("ell_spmv", vals[None, None], cols[None, None],
+                    None if lens is None else lens[None, None], None, None,
                     None, x, None)[0, 0]
-    return _ell("ell_spmv", vals, cols, None, None, x, None)
+    return _ell("ell_spmv", vals, cols, lens, None, None, None, x, None)
 
 
 def fused_ell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
                    ovals: torch.Tensor, ocols: torch.Tensor,
-                   x_local: torch.Tensor, x_ghost: torch.Tensor
-                   ) -> torch.Tensor:
+                   x_local: torch.Tensor, x_ghost: torch.Tensor,
+                   dlens: torch.Tensor | None = None,
+                   olens: torch.Tensor | None = None) -> torch.Tensor:
     """One-pass two-phase ELL SpMV: diag × x_local + offd × x_ghost, the
-    diag partial kept in a register."""
+    diag partial kept in a register.  ``dlens``/``olens``: each stream's
+    row lengths, as ``ell_spmv``'s ``lens``, with the same condition: the
+    result equals the all-slot read's only for finite ``x_local[:, 0]``
+    and ``x_ghost[:, 0]``."""
     if _on_cpu(dvals):
         return ref.fused_ell_spmv_ref(dvals, dcols, ovals, ocols, x_local,
                                       x_ghost)
-    return _ell("fused_ell_spmv", dvals, dcols, ovals, ocols, x_local,
-                x_ghost)
+    return _ell("fused_ell_spmv", dvals, dcols, dlens, ovals, ocols, olens,
+                x_local, x_ghost)
 
 
 def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
@@ -164,7 +198,12 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
 
     Flat slice-major streams ``(n_node, n_core, L)`` with per-slice
     ``start``/``width`` ``(n_node, n_core, n_slices)``;
-    ``x_ghost=None`` runs the diag-only kernel (halo-free plans)."""
+    ``x_ghost=None`` runs the diag-only kernel (halo-free plans).  The
+    kernel requires each shard's slices back to back, as
+    ``sell_arrays_from_csr`` lays them: ``start[s + 1] == start[s] +
+    slice_height * width[s]``.  It reads a warp's
+    slots as one contiguous range from its first slot, so other starts give
+    a wrong ``y``; the plain version takes any layout."""
     if _on_cpu(dvals):
         return ref.fused_sell_spmv_ref(dvals, dcols, dstart, dwidth, ovals,
                                        ocols, ostart, owidth, x_local,

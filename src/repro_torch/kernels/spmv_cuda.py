@@ -30,8 +30,8 @@ _LIB: ctypes.CDLL | None = None
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {
-    "repro_ell_spmv": [_i, _p, _p, _i, _p, _p, _i, _p, _i64, _p, _i64, _p,
-                       _i, _i, _i, _p],
+    "repro_ell_spmv": [_i, _p, _p, _p, _i, _p, _p, _p, _i, _p, _i64, _p,
+                       _i64, _p, _i, _i, _i, _p],
     "repro_sell_spmv": [_i, _p, _p, _p, _p, _i64, _p, _p, _p, _p, _i64, _i,
                         _i, _i, _p, _i64, _p, _i64, _p, _i, _i, _i, _p],
     "repro_balanced_spmv": [_i, _p, _p, _p, _p, _i64, _p, _p, _i, _i, _p],

@@ -29,7 +29,7 @@ import torch
 from repro_torch.util import align_up, resolve_device
 
 __all__ = ["CSRMatrix", "ELLMatrix", "BalancedCOO", "ell_arrays_from_csr",
-           "sell_arrays_from_csr"]
+           "ell_row_lens", "sell_arrays_from_csr"]
 
 
 @dataclasses.dataclass
@@ -197,6 +197,20 @@ def ell_arrays_from_csr(m: CSRMatrix, width: int | None = None,
     return cols, vals
 
 
+def ell_row_lens(cols: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """Per-row entry counts of ELL arrays ``(..., w)``: 1 + the last slot
+    ``k`` with ``vals != 0 or cols != 0``, 0 for a row with none; int32
+    ``(...)``.  Every slot past it is padding (``vals == cols == 0``), so
+    a kernel that stops there computes the same sum wherever ``x[0]`` is
+    finite (a read padding slot adds ``0 * x[0]``)."""
+    cols, vals = np.asarray(cols), np.asarray(vals)
+    if cols.shape[-1] == 0:
+        return np.zeros(cols.shape[:-1], dtype=np.int32)
+    real = (cols != 0) | (vals.astype(np.float32, copy=False) != 0)
+    last = real.shape[-1] - np.argmax(real[..., ::-1], axis=-1)
+    return np.where(real.any(axis=-1), last, 0).astype(np.int32)
+
+
 def sell_arrays_from_csr(m: CSRMatrix, slots: np.ndarray, slice_height: int
                          ) -> tuple[np.ndarray, ...]:
     """Host-side sliced-ELL (SELL-C) packing with a caller-provided row
@@ -275,12 +289,17 @@ class ELLMatrix:
     Padding entries have ``vals == 0`` and ``cols == 0`` so they contribute
     nothing.  Equal-*rows* work splitting over this format is the
     "vector-based threading" analogue from the paper.
+
+    ``row_lens`` is the port's own field: each row's entry count
+    (``ell_row_lens``) as an int32 tensor, so that ``ops.ell_spmv`` reads
+    no padding.  ``None`` (an ``ELLMatrix`` built by hand) reads every slot.
     """
 
     cols: torch.Tensor   # (n_rows_pad, width) int32
     vals: torch.Tensor   # (n_rows_pad, width) float32 or bfloat16
     n_rows: int
     n_cols: int
+    row_lens: torch.Tensor | None = None   # (n_rows_pad,) int32
 
     @property
     def width(self) -> int:
@@ -298,7 +317,8 @@ class ELLMatrix:
         cols, vals = ell_arrays_from_csr(m, width=width, n_rows_pad=n_rows_pad)
         return cls(cols=_index(cols, device),
                    vals=_values(vals, dtype, device),
-                   n_rows=m.n_rows, n_cols=m.n_cols)
+                   n_rows=m.n_rows, n_cols=m.n_cols,
+                   row_lens=_index(ell_row_lens(cols, vals), device))
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch SpMV (padding-safe) in the storage dtype, as the

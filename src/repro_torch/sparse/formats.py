@@ -26,8 +26,8 @@ A format owns
 
 ``fields`` are exactly the JAX package's packed arrays (same names, bytes,
 dtypes and shapes).  ``aux_fields`` are arrays the port's kernels need on
-top of them (SELL slice starts and widths); they stay out of ``fields`` so
-the plan's golden-hashed arrays are unchanged.
+top of them (ELL row lengths, SELL slice starts and widths); they stay out
+of ``fields`` so the plan's golden-hashed arrays are unchanged.
 
 ``ell``   row-padded ELLPACK, ``(rc_pad, width)`` blocks per shard.
 ``sell``  sliced ELL (SELL-C-σ): rows sorted by nnz within σ-row windows,
@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.sparse.csr import (CSRMatrix, ell_arrays_from_csr,
-                                    sell_arrays_from_csr)
+                                    ell_row_lens, sell_arrays_from_csr)
 from repro_torch.util import align_up, to_device
 
 __all__ = ["ShardFormat", "ELLFormat", "SELLFormat", "register_format",
@@ -122,10 +122,16 @@ def _max_width(blocks: list[CSRMatrix]) -> int:
 # --------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class ELLFormat(ShardFormat):
-    """Row-padded ELLPACK blocks, ``(rc_pad, width)`` per shard."""
+    """Row-padded ELLPACK blocks, ``(rc_pad, width)`` per shard.
+
+    ``aux_fields``: each block row's entry count (``ell_row_lens``), int32
+    ``(n_node, n_core, rc_pad)`` per stream, so the kernel reads no
+    padding.
+    """
 
     name = "ell"
     fields = ("diag_cols", "diag_vals", "offd_cols", "offd_vals")
+    aux_fields = ("diag_len", "offd_len")
 
     def pack(self, diag_nodes, offd_nodes, core_bounds, c_of_all, slots_all,
              rc_pad, device):
@@ -148,7 +154,13 @@ class ELLFormat(ShardFormat):
                 offd_vals[i, c_of, lr] = ov
         arrays = {"diag_cols": diag_cols, "diag_vals": diag_vals,
                   "offd_cols": offd_cols, "offd_vals": offd_vals}
+        arrays.update(self.derive_aux(arrays, rc_pad))
         return {k: to_device(a, device) for k, a in arrays.items()}
+
+    def derive_aux(self, data, rc_pad):
+        """Row lengths from the packed blocks alone (``ell_row_lens``)."""
+        return {f"{s}_len": ell_row_lens(data[f"{s}_cols"], data[f"{s}_vals"])
+                for s in ("diag", "offd")}
 
     def nnz_stored(self, data):
         return int(data["diag_cols"].numel() + data["offd_cols"].numel())
@@ -164,10 +176,12 @@ class ELLFormat(ShardFormat):
     def matvec_kernel(self, F, x_local, x_ghost, rc_pad):
         from repro_torch.kernels.ops import ell_spmv, fused_ell_spmv
         if x_ghost is None:
-            return ell_spmv(F["diag_vals"], F["diag_cols"], x_local)
+            return ell_spmv(F["diag_vals"], F["diag_cols"], x_local,
+                            lens=F["diag_len"])
         return fused_ell_spmv(F["diag_vals"], F["diag_cols"],
                               F["offd_vals"], F["offd_cols"],
-                              x_local, x_ghost)
+                              x_local, x_ghost, dlens=F["diag_len"],
+                              olens=F["offd_len"])
 
 
 # --------------------------------------------------------------------- #

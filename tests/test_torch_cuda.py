@@ -9,7 +9,10 @@ Tolerances: each kernel against its plain version on identical inputs
 within ``2e-5·max(1, max|y|)``, with f32 and with bf16 storage: both
 accumulate in f32 on the same values, so only the summation order differs
 (``tests/test_kernels.py``'s f32 bound); golden CG iterations within ±1 of
-the fixture; rows and bins with no entries exactly 0.
+the fixture; rows, slots and bins with no entries exactly 0; two launches
+on the same inputs, and the ELL kernel with and without row lengths,
+bitwise equal (each row is summed in entry order, and the padding the
+lengths skip adds exactly 0).
 """
 import dataclasses
 import json
@@ -26,6 +29,7 @@ from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
 from repro_torch.solvers import make_solver
 from repro_torch.sparse import (BalancedCOO, CSRMatrix, ELLMatrix, get_format,
                                 graded_extruded_mesh_matrix)
+from repro_torch.util import to_device
 
 pytestmark = pytest.mark.cuda
 
@@ -104,6 +108,150 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(golden):
 
 
 # --------------------------------------------------------------------- #
+# the ELL and SELL kernels: padding, empty rows, determinism, row lengths
+# --------------------------------------------------------------------- #
+def _random_csr(rng, n_rows, n_cols, max_nnz, empty):
+    """Rows of 0..max_nnz entries (``empty`` of them none), random columns
+    and values."""
+    nnz = rng.integers(0, max_nnz + 1, n_rows)
+    nnz[rng.choice(n_rows, empty, replace=False)] = 0
+    rows = np.repeat(np.arange(n_rows), nnz)
+    return CSRMatrix.from_coo(rows, rng.integers(0, n_cols, len(rows)),
+                              rng.standard_normal(len(rows)),
+                              (n_rows, n_cols))
+
+
+@pytest.mark.parametrize("fmt_name", ["ell", "sell"])
+def test_kernels_write_zeros_where_there_are_no_entries(fmt_name, golden):
+    """One node of two cores, packed by the format itself: rows with no
+    entries, the ``rc_pad`` tail of each core's bin, rows of up to 150
+    entries (a warp stages more than one chunk) -- against the plain
+    version, with every empty slot exactly 0 whatever the memory held."""
+    rng = np.random.default_rng(11)
+    n, n_ghost, rc_pad = 150, 7, 88
+    diag = _random_csr(rng, n, n, 150, 20)
+    offd = _random_csr(rng, n, n_ghost, 4, 60)
+    cb = np.array([0, 70, n])
+    c_of = np.searchsorted(cb, np.arange(n), side="right") - 1
+    fmt = get_format(fmt_name)
+    slots = fmt.slot_order(diag.row_nnz + offd.row_nnz, cb)
+    F = fmt.pack([diag], [offd], [cb], [c_of], [slots], rc_pad, "cuda")
+    xl = torch.from_numpy(rng.standard_normal((1, n)).astype(np.float32))
+    xg = torch.from_numpy(rng.standard_normal((1, n_ghost + 1))
+                          .astype(np.float32))
+    xl, xg = xl.cuda(), xg.cuda()
+    for ghost, nnz in ((xg, diag.row_nnz + offd.row_nnz),
+                       (None, diag.row_nnz)):
+        empty = np.ones((1, 2, rc_pad), dtype=bool)
+        empty[0, c_of, slots] = nnz == 0
+        torch.full((4 * rc_pad,), float("nan"), device="cuda")
+        y = fmt.matvec_kernel(F, xl, ghost, rc_pad)
+        want = fmt.matvec_plain(F, xl, ghost, rc_pad)
+        assert torch.isfinite(y).all()
+        assert (y[torch.from_numpy(empty).cuda()] == 0).all()
+        _close_to_plain(y, want)
+        assert torch.equal(fmt.matvec_kernel(F, xl, ghost, rc_pad), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernels_are_deterministic_and_zero_on_the_tail(case, dtype, golden):
+    A, x, _ = golden
+    plan, layout = _plan(case, A)
+    F = {k: (v.to(dtype) if v.is_floating_point() else v)
+         for k, v in plan.fmt_data.items()}
+    fmt = get_format(plan.format)
+    xl, xg = make_shard_body(plan).inputs(to_dist(x, layout, plan))
+    torch.full((plan.n_node * plan.n_core * plan.rc_pad,), float("nan"),
+               device="cuda")
+    y = fmt.matvec_kernel(F, xl, xg, plan.rc_pad)
+    assert torch.isfinite(y).all()
+    assert (y[plan.mask == 0] == 0).all()
+    for _ in range(2):
+        assert torch.equal(fmt.matvec_kernel(F, xl, xg, plan.rc_pad), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_kernel_without_lengths_equals_with_them(dtype, golden):
+    """Reading every slot gives the same bits as stopping at each row's
+    length: the skipped padding adds exactly 0 to the same fmaf chain."""
+    A, x, _ = golden
+    for case in ("ell/4x2", "ell/1x4"):
+        plan, layout = _plan(case, A)
+        F = {k: (v.to(dtype) if v.is_floating_point() else v)
+             for k, v in plan.fmt_data.items()}
+        xl, xg = make_shard_body(plan).inputs(to_dist(x, layout, plan))
+        dv, dc, dl = F["diag_vals"], F["diag_cols"], F["diag_len"]
+        if xg is None:
+            assert torch.equal(ops.ell_spmv(dv, dc, xl, lens=dl),
+                               ops.ell_spmv(dv, dc, xl))
+        else:
+            args = (dv, dc, F["offd_vals"], F["offd_cols"], xl, xg)
+            want = ops.fused_ell_spmv(*args)
+            assert torch.equal(ops.fused_ell_spmv(
+                *args, dlens=dl, olens=F["offd_len"]), want)
+            assert torch.equal(ops.fused_ell_spmv(*args, dlens=dl), want)
+    e = ELLMatrix.from_csr(A, dtype=dtype, device="cuda")
+    xd = torch.from_numpy(x).cuda()
+    y = ops.ell_spmv(e.vals, e.cols, xd, lens=e.row_lens)
+    assert torch.equal(y, ops.ell_spmv(e.vals, e.cols, xd))
+    _close_to_plain(y, ref.ell_spmv_ref(e.vals, e.cols, xd))
+
+
+def test_ell_kernel_with_lengths_skips_padding_that_reads_a_nan_x0(golden):
+    """The lengths' one departure from the plain version: padding slots
+    (value 0, column 0) read ``x[0]``, so a NaN there makes every padded
+    row NaN when all slots are read, and only the rows with a real entry
+    in column 0 when the kernel stops at each row's length."""
+    A, x, _ = golden
+    e = ELLMatrix.from_csr(A, device="cuda")
+    xd = torch.from_numpy(x).cuda()
+    xd[0] = float("nan")
+    uses_x0 = np.zeros(e.n_rows_pad, dtype=bool)
+    uses_x0[A._row_of_nnz()[A.indices == 0]] = True
+    padded = e.row_lens < e.width
+    assert padded.any() and uses_x0.any()
+    y = ops.ell_spmv(e.vals, e.cols, xd, lens=e.row_lens)
+    assert torch.equal(y.isnan(), torch.from_numpy(uses_x0).cuda())
+    y_all = ops.ell_spmv(e.vals, e.cols, xd)
+    assert torch.equal(y_all.isnan(),
+                       ref.ell_spmv_ref(e.vals, e.cols, xd).isnan())
+    assert y_all[padded].isnan().all()
+
+
+def test_ell_wrappers_raise_on_lengths_the_kernel_does_not_take(golden):
+    A, x, _ = golden
+    plan, _ = _plan("ell/4x2", A)
+    F = plan.fmt_data
+    xl = torch.zeros((plan.n_node, plan.nl_pad), device="cuda")
+    xg = torch.zeros((plan.n_node, plan.g_pad + 1), device="cuda")
+    args = (F["diag_vals"], F["diag_cols"], F["offd_vals"], F["offd_cols"],
+            xl, xg)
+    dl, ol = F["diag_len"], F["offd_len"]
+    wide = torch.zeros(dl.shape + (2,), dtype=torch.int32, device="cuda")
+    bad = {TypeError: [dl.long(), dl.float()],
+           ValueError: [dl[..., :-1].contiguous(), dl.cpu(), dl[None],
+                        wide[..., 0]]}
+    for err, lens in bad.items():
+        for t in lens:
+            with pytest.raises(err):
+                ops.fused_ell_spmv(*args, dlens=t, olens=ol)
+            with pytest.raises(err):
+                ops.fused_ell_spmv(*args, dlens=dl, olens=t)
+            with pytest.raises(err):
+                ops.ell_spmv(F["diag_vals"], F["diag_cols"], xl, lens=t)
+    e = ELLMatrix.from_csr(A, device="cuda")
+    xd = torch.from_numpy(x).cuda()
+    for err, t in ((TypeError, e.row_lens.long()),
+                   (ValueError, e.row_lens[:-1]),
+                   (ValueError, e.row_lens.cpu()),
+                   (ValueError, to_device(np.zeros((e.n_rows_pad, 2),
+                                                   np.int32), "cuda")[:, 0])):
+        with pytest.raises(err):
+            ops.ell_spmv(e.vals, e.cols, xd, lens=t)
+
+
+# --------------------------------------------------------------------- #
 # the single-device path: BalancedCOO -> balanced_spmv, ELLMatrix -> ell_spmv
 # --------------------------------------------------------------------- #
 def _close_to_plain(y, want):
@@ -135,7 +283,7 @@ def test_flat_ell_spmv_matches_plain_version(dtype, golden):
     for xd in (torch.from_numpy(x).cuda(),
                torch.from_numpy(x).cuda().to(torch.bfloat16)):
         reset_launches()
-        y = ops.ell_spmv(e.vals, e.cols, xd)
+        y = ops.ell_spmv(e.vals, e.cols, xd, lens=e.row_lens)
         torch.cuda.synchronize()
         assert LAUNCHES == {k: int(k == "ell_spmv") for k in LAUNCHES}
         _close_to_plain(y, ref.ell_spmv_ref(e.vals, e.cols, xd))

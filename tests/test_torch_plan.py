@@ -10,6 +10,7 @@
   the same ``a2a`` transport census.
 * ``to_dist``/``from_dist`` round trip; ``plan_from_arrays`` carries a
   plan across unchanged and re-derives the SELL slice descriptors.
+* SELL slices lie back to back in their stream, as the SELL kernel needs.
 """
 import functools
 import json
@@ -118,6 +119,24 @@ def test_plan_from_arrays_carries_a_plan_across(fmt, n_node, n_core):
         assert torch.equal(getattr(got, k), getattr(plan, k)), k
     for k in PORT_META:
         assert getattr(got, k) == getattr(plan, k), k
+
+
+@pytest.mark.parametrize("n_node,n_core", [(4, 2), (1, 4), (5, 1)])
+def test_sell_slices_lie_back_to_back(n_node, n_core):
+    """The SELL kernel reads a warp's slots as one contiguous range from its
+    first slot, so every shard's slices must follow each other with no gap:
+    ``start[s + 1] == start[s] + C * width[s]``, inside the stream."""
+    A = graded_extruded_mesh_matrix(60, 9, seed=3, max_span=4)
+    plan, _ = build_spmv_plan(A, n_node, n_core, format="sell", device="cpu")
+    C = get_format("sell").slice_height
+    for s in ("d", "o"):
+        start = plan.fmt_data[f"sell_{s}start"].numpy().astype(np.int64)
+        width = plan.fmt_data[f"sell_{s}width"].numpy().astype(np.int64)
+        end = start + C * width
+        assert (width >= 0).all()
+        np.testing.assert_array_equal(start[..., 1:], end[..., :-1])
+        assert (start[..., 0] == 0).all()
+        assert (end[..., -1] <= plan.fmt_data[f"sell_{s}vals"].shape[-1]).all()
 
 
 def test_build_rejects_what_it_cannot_plan():
