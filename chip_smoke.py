@@ -28,11 +28,17 @@ check raises, so the exit code is not 0.
             ``partition_equal_rows`` bounds, 16, 64 and 8 x SM-count bins)
             -> ``balanced_spmv`` (B5), and the global ``ELLMatrix`` -> flat
             ``ell_spmv`` with its ``row_lens`` (B3's kernel as one shard;
-            its bound counts real entries, as in phase 3), each against the host
-            float64 CSR matvec (rel <= 1e-5).  Launch counts are zeroed
-            just before this path and read just after it.  Then each
-            kernel against its plain version (2e-5·max|y|) and timed, f32
-            and bf16 storage, with its padding, imbalance and bound;
+            its bound counts real entries, as in phase 3), each against the
+            host float64 CSR matvec (rel <= 1e-5).  Launch counts are
+            zeroed just before this path and read just after it.  Then each
+            kernel against its plain version (2e-5·max|y|), two launches
+            bit for bit equal, and timed, f32 and bf16 storage, with its
+            padding, imbalance and bound.  B5 reads the real entries'
+            values and columns, the row lengths and the warp map (and x,
+            y); ``bound_coo_ms`` beside it counts the binned COO's value,
+            column and bin-local row per entry, the bin lengths and the row
+            map, as the TPU kernel's layout does.  Each B5 line also has its
+            launched warps and the host seconds of its warp map;
 4. golden   CG (jacobi, tol 1e-6, maxiter 400) on the golden matrix at 4x2,
             ell and sell: iterations within ±1 of the fixture's
             (``tests/golden_square_hashes.json``);
@@ -199,7 +205,7 @@ def build_plans(A) -> dict:
 
 
 def measure(phase: str, row: dict, kern, plain, in_bytes: int, flops: int,
-            bw: float, f32_peak: float, stored_bytes: int | None = None
+            bw: float, f32_peak: float, other_bytes: dict | None = None
             ) -> dict:
     """Hold ``kern()`` against ``plain()`` on the same inputs and time both;
     emit ``row`` with the results as one ``phase`` line and return it.
@@ -208,12 +214,14 @@ def measure(phase: str, row: dict, kern, plain, in_bytes: int, flops: int,
     so only the summation order differs: the limit is 2e-5·max|y|.  The
     bound is the larger of the bytes moved (``in_bytes`` read once, the
     output written once) over the memory rate and ``flops`` over the f32
-    rate.  ``stored_bytes`` (ELL: every stored slot) adds
-    ``bound_stored_ms``, those bytes and the output over the memory
-    rate."""
+    rate.  Each entry ``name: bytes`` of ``other_bytes`` (ELL's every
+    stored slot, B5's COO layout) adds ``bound_<name>_ms``, those bytes and
+    the output over the memory rate.  Two launches of ``kern`` must give the
+    same bits."""
     import torch
 
     y, want = kern(), plain()
+    same = torch.equal(kern(), y)
     torch.cuda.synchronize()
     err = float((y - want).abs().max())
     tol = 2e-5 * max(1.0, float(want.abs().max()))
@@ -223,12 +231,15 @@ def measure(phase: str, row: dict, kern, plain, in_bytes: int, flops: int,
            "plain_ms": time_ms(plain), "bytes": byts, "flops": flops,
            "bound_ms": max(bytes_ms, flops_ms),
            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
-    if stored_bytes is not None:
-        row["bound_stored_ms"] = (stored_bytes + nbytes(y)) / bw * 1e3
+    for name, b in (other_bytes or {}).items():
+        row[f"bound_{name}_ms"] = (b + nbytes(y)) / bw * 1e3
+    row["bitwise_repeat"] = same
     emit(phase, **row)
+    what = (f"{row['kernel']} {row.get('plan', row.get('matrix'))} "
+            f"{row['dtype']}")
     check(y.shape == want.shape and err <= tol,
-          f"{row['kernel']} {row.get('plan', row.get('matrix'))} "
-          f"{row['dtype']}: max|err| {err} > {tol}")
+          f"{what}: max|err| {err} > {tol}")
+    check(same, f"{what}: two launches differ")
     return row
 
 
@@ -265,7 +276,8 @@ def phase_kernels(plans, x, bw, f32_peak) -> dict:
                            "dtype": str(dtype)[6:]},
                 lambda: fmt.matvec_kernel(F, xl, xg, plan.rc_pad),
                 lambda: fmt.matvec_plain(F, xl, xg, plan.rc_pad),
-                byts, flops, bw, f32_peak, stored)
+                byts, flops, bw, f32_peak,
+                None if stored is None else {"stored": stored})
             results.setdefault(name, row)        # f32 first: the main path
             del F
     return results
@@ -284,7 +296,7 @@ def phase_balanced(A, x, bw, f32_peak) -> tuple[dict, dict]:
                                             partition_equal_rows)
     from repro_torch.kernels import (LAUNCHES, balanced_spmv, ell_spmv, ref,
                                      reset_launches)
-    from repro_torch.sparse import BalancedCOO, ELLMatrix
+    from repro_torch.sparse import BalancedCOO, ELLMatrix, balanced_warp_map
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     y_host = A.matvec(x.astype(np.float64))
@@ -304,8 +316,18 @@ def phase_balanced(A, x, bw, f32_peak) -> tuple[dict, dict]:
             rel = float(np.abs(y - y_host).max() / scale)
             check(y.shape == (A.n_rows,) and rel <= 1e-5,
                   f"balanced {kind}/{nbins}: rel err {rel} > 1e-5")
+            # the warp map alone, again from the host arrays
+            host = [t.cpu().numpy() for t in (bcoo.lrows, bcoo.bin_starts,
+                                              bcoo.out_gather)]
+            t0 = time.perf_counter()
+            balanced_warp_map(host[0], np.asarray(bcoo.bin_nnz), host[1],
+                              host[2], bcoo.n_rows, bcoo.rows_pad)
+            map_s = time.perf_counter() - t0
+            del host
             built[f"{kind}/{nbins}"] = (bcoo, {
                 "nbins": nbins, "bounds": kind, "build_s": build_s,
+                "map_s": map_s, "warps": bcoo.warp_map.shape[0],
+                "blocks": -(-bcoo.warp_map.shape[0] // 8),
                 "imbalance": imbalance(A.row_nnz, bounds),
                 "host_rel_err": rel})
     t0 = time.perf_counter()
@@ -325,9 +347,11 @@ def phase_balanced(A, x, bw, f32_peak) -> tuple[dict, dict]:
     for label, (bcoo, info) in built.items():
         for dtype in (torch.float32, torch.bfloat16):
             B = dataclasses.replace(bcoo, vals=bcoo.vals.to(dtype))
+            per = B.vals.element_size() + 4       # value + int32 column
             # the real entries only (the kernel never reads the padding):
-            # value, column and bin-local row each; the bin lengths, the
-            # row map and x
+            # value and column each, the row lengths, the warp map and x;
+            # the COO count adds the bin-local row per entry, the bin
+            # lengths and the row map, and drops the map and row lengths
             row = measure(
                 "balanced", {"kernel": "balanced_spmv", "matrix": label,
                              **info, "dtype": str(dtype)[6:],
@@ -337,11 +361,32 @@ def phase_balanced(A, x, bw, f32_peak) -> tuple[dict, dict]:
                                                     B.lrows)},
                 lambda: balanced_spmv(B, xd),
                 lambda: ref.balanced_spmv_ref(B, xd),
-                A.nnz * (B.vals.element_size() + 8)
-                + nbytes(B.bin_lens, B.out_gather, xd), 2 * A.nnz,
-                bw, f32_peak)
+                A.nnz * per + nbytes(B.row_lens, B.warp_map, xd),
+                2 * A.nnz, bw, f32_peak,
+                {"coo": A.nnz * (per + 4) + 4 * B.nbins
+                 + nbytes(B.out_gather, xd)})
             rows.setdefault(label, row)          # f32 first
             del B
+    # balanced against equal-row bins of one count, timed in turns
+    # (balanced, rows, rows, balanced, twice) so that a drift of the card
+    # falls on both
+    for nbins in (16, 64, 8 * sms):
+        for dtype in (torch.float32, torch.bfloat16):
+            Bs = {kind: dataclasses.replace(
+                built[f"{kind}/{nbins}"][0],
+                vals=built[f"{kind}/{nbins}"][0].vals.to(dtype))
+                for kind in ("balanced", "rows")}
+            times = {"balanced": [], "rows": []}
+            for kind in ("balanced", "rows", "rows", "balanced") * 2:
+                times[kind].append(time_ms(
+                    lambda: balanced_spmv(Bs[kind], xd)))
+            bal, eq = (statistics.median(times[k])
+                       for k in ("balanced", "rows"))
+            emit("balanced_vs_rows", nbins=nbins, dtype=str(dtype)[6:],
+                 balanced_ms=bal, rows_ms=eq, ratio=bal / eq,
+                 balanced_runs=times["balanced"], rows_runs=times["rows"],
+                 warps={k: B.warp_map.shape[0] for k, B in Bs.items()})
+            del Bs
     del built
     for dtype in (torch.float32, torch.bfloat16):
         vals = ell.vals.to(dtype)
@@ -354,7 +399,7 @@ def phase_balanced(A, x, bw, f32_peak) -> tuple[dict, dict]:
                          "padding_waste": 1.0 - A.nnz / vals.numel()},
             lambda: ell_spmv(vals, ell.cols, xd, lens=ell.row_lens),
             lambda: ref.ell_spmv_ref(vals, ell.cols, xd),
-            byts, flops, bw, f32_peak, stored)
+            byts, flops, bw, f32_peak, {"stored": stored})
         rows.setdefault(FLAT_ELL[2], row)        # f32 first
         del vals
     del ell

@@ -10,7 +10,8 @@
 // vectors x_local (nl_pad per node) and x_ghost (g_pad + 1 per node) are
 // shared by the node's cores, so a shard finds its node's slice through a
 // node stride (node = shard / n_core) instead of a per-shard copy.  The
-// balanced kernel's grid is (row blocks, bin) over one flat x.
+// balanced kernel's grid is one row of blocks over its warp map, on one
+// flat x.
 //
 // Storage is float32 or bfloat16; indices int32; x float32; accumulation
 // and output float32.  The kernels allocate nothing, launch on the caller's
@@ -30,23 +31,23 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 
 // ------------------------------------------------------------------------
-// The warp-segment sum shared by the ELL and SELL kernels.
+// The warp-segment sum shared by the ELL, SELL and balanced kernels.
 //
-// Each lane of a warp owns one output (an ELL row, a SELL slot) whose
-// entries are one contiguous segment [seg, seg + len) of vals/cols.  The
-// warp lays its 32 segments end to end (a prefix sum of len) and walks that
-// flat range with neighbouring lanes on neighbouring entries, kWarpChunk
-// entries at a time: each lane loads kUnroll entries' value and column
-// before it gathers their x, and stages the f32 value and x[col] in shared
-// memory.  Then each lane adds its own segment's part of the chunk onto acc
-// in entry order, one fmaf per entry -- the order of a thread that reads
-// its segment itself, so the sum is the same bit for bit.
+// Each lane of a warp owns one output (an ELL row, a SELL slot, a row of a
+// bin) whose entries are one contiguous segment [seg, seg + len) of
+// vals/cols.  The warp lays its 32 segments end to end (a prefix sum of
+// len) and walks that flat range with neighbouring lanes on neighbouring
+// entries, kWarpChunk entries at a time: each lane loads kUnroll entries'
+// value and column before it gathers their x, and stages the f32 value and
+// x[col] in shared memory.  Then each lane adds its own segment's part of
+// the chunk onto acc in entry order, one fmaf per entry -- the order of a
+// thread that reads its segment itself, so the sum is the same bit for bit.
 //
 // kBackToBack: the segments of neighbouring lanes are adjacent in memory
-// (SELL slots), so entry e of the flat range sits at seg(lane 0) + e.
-// Otherwise (ELL rows, whose padding lies between them) each lane finds
-// the owner of its entry by a binary search over the lanes' offsets,
-// five shuffles, and reads seg(owner) + (e - offset(owner)).
+// (SELL slots, the rows of a bin), so entry e of the flat range sits at
+// seg(lane 0) + e.  Otherwise (ELL rows, whose padding lies between them)
+// each lane finds the owner of its entry by a binary search over the
+// lanes' offsets, five shuffles, and reads seg(owner) + (e - offset(owner)).
 //
 // Geometry (PERF.md): 256 staged entries per warp (16 KB of shared memory
 // per block of 8 warps) and 4 loads in flight per lane ran fastest of the
@@ -132,10 +133,11 @@ __device__ __forceinline__ float warp_segment_sum(
 //
 // len[r] is 1 + the row's last slot holding an entry (ELLFormat's
 // diag_len/offd_len, ELLMatrix.row_lens); the slots past it are padding
-// (value 0, column 0), so for finite x stopping there is exact.  A null
-// lens reads all w slots, as the plain version and the TPU kernel do: the
-// same result for finite x, but a non-finite x[0] then makes every padded
-// row NaN (0 * Inf), which the kernel with lengths does not.
+// (value 0, column 0), so for finite x stopping there is exact.  A caller
+// without lengths passes w for every row (ops.py), which reads all slots,
+// as the plain version and the TPU kernel do: the same result for finite
+// x, but a non-finite x[0] then makes every padded row NaN (0 * Inf),
+// which the real lengths do not.
 //
 // Bound: device-memory bytes.  Each real entry costs 8 B in f32 (6 B in
 // bf16: value + int32 column) and two flops, far below the card's
@@ -173,13 +175,13 @@ ell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
   const int64_t row = static_cast<int64_t>(s) * rows + (live ? r : 0);
 
   int len = 0;
-  if (live) len = dlens ? min(max(dlens[row], 0), wd) : wd;
+  if (live) len = min(max(dlens[row], 0), wd);
   float acc = warp_segment_sum<T, false>(
       0.0f, dvals, dcols, x_local + node * xl_stride, row * wd, len,
       s_v[warp], s_x[warp]);
   if (wo > 0) {
     len = 0;
-    if (live) len = olens ? min(max(olens[row], 0), wo) : wo;
+    if (live) len = min(max(olens[row], 0), wo);
     acc = warp_segment_sum<T, false>(
         acc, ovals, ocols, x_ghost + node * xg_stride, row * wo, len,
         s_v[warp], s_x[warp]);
@@ -262,96 +264,53 @@ sell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
 // Balanced (nnz-binned COO): replaces balanced_spmv_pallas
 // (src/repro/kernels/spmv_bcsr.py:268, body _balanced_kernel :239).
 //
-//   y[t, r] = sum over k < bin_nnz[t] with lrows[t, k] == r
-//             of vals[t, k] * x[cols[t, k]]
+//   y[r] = sum over the entries k of row r of vals[k] * x[cols[k]]
 //
-// The TPU kernel reduces each nnz chunk into the bin's rows with a one-hot
-// MXU matmul, only because Mosaic has no scatter-add.  That is dropped.
-// Bins are contiguous CSR row ranges, so lrows is nondecreasing over a
-// bin's bin_nnz[t] real entries.  A block owns kThreads consecutive rows
-// [r0, r0 + kThreads) of one bin, one thread per row:
-//   1. two threads binary-search the block's entry range [k0, k1) in the
-//      bin's real prefix -- never in the padding, whose lrows of 0 would
-//      break the order;
-//   2. one coalesced pass over lrows[k0, k1) marks, in shared memory, each
-//      row's first and one-past-last entry where lrows changes;
-//   3. vals and cols stream in coalesced chunks of kChunk entries; each
-//      entry's product is staged in shared memory, and each thread adds
-//      its own row's part of the chunk, in entry order.
-// Rows with no entries and the rows_pad tail get 0.  Deterministic, no
-// atomics; the padding is never read.
+// over the flat (nbins * nnz_pad) streams, where bin t holds its rows'
+// entries in row order at [t * nnz_pad, t * nnz_pad + bin_nnz[t]).  The TPU
+// kernel reduces each nnz chunk into the bin's (rows_pad,) output with a
+// one-hot MXU matmul over lrows, only because Mosaic has no scatter-add,
+// and a gather (out_gather) picks the rows out after it.  Both are
+// dropped.  The port's warp map (BalancedCOO.warp_map, built on the host)
+// tiles each bin's real rows in runs of 32 that never cross a bin: warp w
+// reads (first row, row count, first entry), lane i < count takes row
+// first + i and its length row_lens[first + i], and since a bin's rows lie
+// back to back the warp's rows are one contiguous entry range, walked
+// coalesced by warp_segment_sum with no search.  Each lane writes its row
+// straight into the flat (n_rows,) y.  The launch covers the real rows
+// only -- no rows_pad tail, no (nbins, rows_pad) intermediate, no lrows
+// read -- and a warp waits on nothing but its own __syncwarp.
 //
-// Bound: device-memory bytes: 12 B per real entry in f32 (10 B in bf16:
-// value, column, bin-local row) and two flops, plus the x reads and one
-// 4 B write per row slot; every load of the matrix is coalesced and made
-// once.  The x gathers mostly hit L2 (columns sit near their row).  A
-// first version, one thread per row that binary-searched its own first
-// entry, spent most of its time in those ~log2(bin_nnz) dependent loads
-// per row (PERF.md).  Known limits: a block's rows share one bin, so a bin
-// with fewer rows than rows_pad launches blocks of tail that only search
-// and write zeros; with bf16 storage a warp's value loads are 64 B, half
-// a full transaction.
+// Each row is summed by one lane in entry order with fmaf and no atomics,
+// so y is the same bit for bit from launch to launch.  It can differ in
+// the last bits from the block-per-256-rows kernel it replaced, which
+// rounded each product before adding it (PERF.md).
+//
+// Bound: device-memory bytes, as ELL: 8 B per real entry in f32 (6 B in
+// bf16: value + int32 column) and two flops, plus the 4 B row length and
+// 4 B write per row, 12 B of map per warp and the x reads.  Known limits
+// (PERF.md): the staging round trip through shared memory, which the ELL
+// and SELL kernels share.
 // ------------------------------------------------------------------------
-constexpr int kChunk = 2048;     // staged products per pass (8 KB)
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 balanced_kernel(const T* __restrict__ vals, const int32_t* __restrict__ cols,
-                const int32_t* __restrict__ lrows,
-                const int32_t* __restrict__ bin_nnz, int64_t nnz_pad,
-                const float* __restrict__ x, float* __restrict__ y,
-                int rows_pad) {
-  __shared__ int s_range[2];
-  __shared__ int s_beg[kThreads];
-  __shared__ int s_end[kThreads];
-  __shared__ float s_prod[kChunk];
-
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kThreads;
-  const int64_t t = blockIdx.y;
-  const int64_t off = t * nnz_pad;
-  const int32_t* lr = lrows + off;
-  const int n = bin_nnz[t];
-
-  // 1. [k0, k1) = lower bounds of r0 and r0 + kThreads in lr[0, n); the
-  //    two searches run in different warps
-  if (tid == 0 || tid == 32) {
-    const int target = tid == 0 ? r0 : r0 + kThreads;
-    int lo = 0, hi = n;
-    while (lo < hi) {
-      const int mid = lo + ((hi - lo) >> 1);
-      if (lr[mid] < target) lo = mid + 1; else hi = mid;
-    }
-    s_range[tid == 0 ? 0 : 1] = lo;
-  }
-  s_beg[tid] = 0;
-  s_end[tid] = 0;
-  __syncthreads();
-  const int k0 = s_range[0], k1 = s_range[1];
-
-  // 2. each row's entries are [s_beg, s_end): mark where lrows changes
-  for (int k = k0 + tid; k < k1; k += kThreads) {
-    const int r = lr[k];
-    if (k == k0 || lr[k - 1] != r) s_beg[r - r0] = k;
-    if (k == k1 - 1 || lr[k + 1] != r) s_end[r - r0] = k + 1;
-  }
-  __syncthreads();
-  const int beg = s_beg[tid], end = s_end[tid];
-
-  // 3. coalesced chunks of products; each thread sums its row's part
-  const T* v = vals + off;
-  const int32_t* c = cols + off;
-  float acc = 0.0f;
-  for (int c0 = k0; c0 < k1; c0 += kChunk) {
-    const int c1 = min(c0 + kChunk, k1);
-    for (int k = c0 + tid; k < c1; k += kThreads)
-      s_prod[k - c0] = to_f32(v[k]) * x[c[k]];
-    __syncthreads();
-    const int hi = min(end, c1);
-    for (int k = max(beg, c0); k < hi; ++k) acc += s_prod[k - c0];
-    __syncthreads();
-  }
-  if (r0 + tid < rows_pad) y[t * rows_pad + r0 + tid] = acc;
+                const int32_t* __restrict__ row_lens,
+                const int32_t* __restrict__ warp_map, int n_warps,
+                const float* __restrict__ x, float* __restrict__ y) {
+  __shared__ float s_v[kWarps][kWarpChunk];
+  __shared__ float s_x[kWarps][kWarpChunk];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarps + warp;
+  if (w >= n_warps) return;            // the whole warp: no shuffle waits
+  const int first = warp_map[3 * w];
+  const int count = warp_map[3 * w + 1];
+  const int64_t entry = warp_map[3 * w + 2];
+  const int len = lane < count ? row_lens[first + lane] : 0;
+  const float acc = warp_segment_sum<T, true>(
+      0.0f, vals, cols, x, entry, len, s_v[warp], s_x[warp]);
+  if (lane < count) y[first + lane] = acc;
 }
 
 }  // namespace
@@ -360,7 +319,7 @@ extern "C" {
 
 // vals_bf16: 0 -> float32 storage, 1 -> bfloat16.  wo == 0 is the
 // halo-free kernel (ovals/ocols/olens/x_ghost are then not read).  dlens/
-// olens: per-row entry counts, or null to read every slot.
+// olens: per-row entry counts, clamped to [0, wd] / [0, wo].
 int repro_ell_spmv(int vals_bf16, const void* dvals, const int32_t* dcols,
                    const int32_t* dlens, int wd, const void* ovals,
                    const int32_t* ocols, const int32_t* olens, int wo,
@@ -415,22 +374,22 @@ int repro_sell_spmv(int vals_bf16, const void* dvals, const int32_t* dcols,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Output (nbins, rows_pad); bin_nnz[t] <= nnz_pad real entries per bin.
+// Output (n_rows,), every row written once: warp_map (n_warps, 3) tiles
+// the rows, its entry offsets index the flat vals/cols.
 int repro_balanced_spmv(int vals_bf16, const void* vals, const int32_t* cols,
-                        const int32_t* lrows, const int32_t* bin_nnz,
-                        int64_t nnz_pad, const float* x, float* y, int nbins,
-                        int rows_pad, void* stream) {
-  if (rows_pad <= 0 || nbins <= 0) return 0;
-  const dim3 grid((rows_pad + kThreads - 1) / kThreads, nbins);
+                        const int32_t* row_lens, const int32_t* warp_map,
+                        int n_warps, const float* x, float* y, void* stream) {
+  if (n_warps <= 0) return 0;
+  const int grid = (n_warps + kWarps - 1) / kWarps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16) {
     balanced_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(vals), cols, lrows, bin_nnz,
-        nnz_pad, x, y, rows_pad);
+        static_cast<const __nv_bfloat16*>(vals), cols, row_lens, warp_map,
+        n_warps, x, y);
   } else {
     balanced_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(vals), cols, lrows, bin_nnz, nnz_pad, x,
-        y, rows_pad);
+        static_cast<const float*>(vals), cols, row_lens, warp_map, n_warps,
+        x, y);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -89,11 +89,13 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _lens(name: str, lens, vals: torch.Tensor):
+def _lens(name: str, lens, vals: torch.Tensor) -> torch.Tensor:
     """Row lengths as the ELL kernel takes them: int32, contiguous, on the
-    values' device, one per row of ``vals``; ``None`` reads every slot."""
+    values' device, one per row of ``vals``; ``None`` gives every row the
+    full width, so the kernel reads every slot."""
     if lens is None:
-        return None
+        return torch.full(vals.shape[:-1], vals.shape[-1],
+                          dtype=torch.int32, device=vals.device)
     if lens.dtype != torch.int32:
         raise TypeError(f"{name}: row lengths must be int32, got "
                         f"{lens.dtype}")
@@ -134,7 +136,7 @@ def _ell(name, dvals, dcols, dlens, ovals, ocols, olens, x_local, x_ghost):
         return None if t is None else t.data_ptr()
 
     err = library().repro_ell_spmv(
-        code, dvals.data_ptr(), dcols.data_ptr(), ptr(dlens), wd,
+        code, dvals.data_ptr(), dcols.data_ptr(), dlens.data_ptr(), wd,
         ptr(ovals) if wo else None, ptr(ocols) if wo else None,
         ptr(olens) if wo else None, wo, x_local.data_ptr(),
         x_local.shape[1], ptr(x_ghost) if wo else None,
@@ -258,11 +260,12 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
 def balanced_spmv(bcoo, x: torch.Tensor) -> torch.Tensor:
     """Whole ``BalancedCOO`` SpMV -> flat ``(n_rows,)`` float32.
 
-    The kernel reduces each bin into its ``(nbins, rows_pad)`` block, then
-    ``out_gather`` picks the rows out in plain PyTorch, as the JAX package
-    does outside its kernel.  x ``(n_cols,)`` float32 or bfloat16.  The TPU
-    kernel's ``nnz_chunk`` has no counterpart: each block of 256 rows
-    streams its own entry range in chunks of the kernel's size."""
+    The kernel walks the ``BalancedCOO``'s ``warp_map`` (32 rows of one bin
+    per warp, ``row_lens`` for each row) and writes each row of ``y`` once,
+    so neither ``lrows`` nor ``out_gather`` is read on the card.  x
+    ``(n_cols,)`` float32 or bfloat16.  The TPU kernel's ``nnz_chunk`` has
+    no counterpart: each warp streams its rows' entries in chunks of the
+    kernel's size."""
     if _on_cpu(bcoo.vals):
         return ref.balanced_spmv_ref(bcoo, x)
     from repro_torch.kernels.spmv_cuda import library
@@ -271,30 +274,26 @@ def balanced_spmv(bcoo, x: torch.Tensor) -> torch.Tensor:
     nbins, nnz_pad = bcoo.vals.shape
     xf = _flat_x(name, x)
     if (bcoo.cols.shape != bcoo.vals.shape
-            or bcoo.lrows.shape != bcoo.vals.shape
-            or bcoo.bin_lens.shape != (nbins,)
-            or bcoo.out_gather.shape != (bcoo.n_rows,)
+            or bcoo.row_lens.shape != (bcoo.n_rows,)
+            or bcoo.warp_map.dim() != 2 or bcoo.warp_map.shape[1] != 3
             or xf.shape[1] != bcoo.n_cols):
         raise ValueError(f"{name}: shapes {tuple(bcoo.vals.shape)} "
                          f"{tuple(bcoo.cols.shape)} "
-                         f"{tuple(bcoo.lrows.shape)} "
-                         f"{tuple(bcoo.bin_lens.shape)} x {tuple(x.shape)} "
-                         f"for n_cols {bcoo.n_cols}")
-    if nbins > 65535:
-        raise ValueError(f"{name}: {nbins} bins > 65535")
-    if max(nnz_pad, bcoo.rows_pad) > 2**31 - 4096:
-        raise ValueError(f"{name}: a bin of {nnz_pad} entries and "
-                         f"{bcoo.rows_pad} rows overflows int32 offsets")
+                         f"{tuple(bcoo.row_lens.shape)} "
+                         f"{tuple(bcoo.warp_map.shape)} x {tuple(x.shape)} "
+                         f"for {bcoo.n_rows} rows, {bcoo.n_cols} columns")
+    if max(nbins * nnz_pad, bcoo.n_rows) >= 2**31:
+        raise ValueError(f"{name}: {nbins}x{nnz_pad} entries or "
+                         f"{bcoo.n_rows} rows overflow int32 offsets")
     code = _check(name, bcoo.vals.device, [bcoo.vals],
-                  [bcoo.cols, bcoo.lrows, bcoo.bin_lens, bcoo.out_gather],
-                  [xf])
-    y = torch.empty((nbins, bcoo.rows_pad), dtype=torch.float32,
+                  [bcoo.cols, bcoo.row_lens, bcoo.warp_map], [xf])
+    y = torch.empty(bcoo.n_rows, dtype=torch.float32,
                     device=bcoo.vals.device)
     err = library().repro_balanced_spmv(
         code, bcoo.vals.data_ptr(), bcoo.cols.data_ptr(),
-        bcoo.lrows.data_ptr(), bcoo.bin_lens.data_ptr(), nnz_pad,
-        xf.data_ptr(), y.data_ptr(), nbins, bcoo.rows_pad,
+        bcoo.row_lens.data_ptr(), bcoo.warp_map.data_ptr(),
+        bcoo.warp_map.shape[0], xf.data_ptr(), y.data_ptr(),
         _stream(bcoo.vals.device))
     _raise_on(name, err)
     LAUNCHES[name] += 1
-    return torch.index_select(y.view(-1), 0, bcoo.out_gather)
+    return y

@@ -34,7 +34,7 @@ _ARGTYPES = {
                        _i64, _p, _i, _i, _i, _p],
     "repro_sell_spmv": [_i, _p, _p, _p, _p, _i64, _p, _p, _p, _p, _i64, _i,
                         _i, _i, _p, _i64, _p, _i64, _p, _i, _i, _i, _p],
-    "repro_balanced_spmv": [_i, _p, _p, _p, _p, _i64, _p, _p, _i, _i, _p],
+    "repro_balanced_spmv": [_i, _p, _p, _p, _p, _i, _p, _p, _p],
 }
 
 

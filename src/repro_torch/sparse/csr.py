@@ -28,8 +28,8 @@ import torch
 
 from repro_torch.util import align_up, resolve_device
 
-__all__ = ["CSRMatrix", "ELLMatrix", "BalancedCOO", "ell_arrays_from_csr",
-           "ell_row_lens", "sell_arrays_from_csr"]
+__all__ = ["CSRMatrix", "ELLMatrix", "BalancedCOO", "balanced_warp_map",
+           "ell_arrays_from_csr", "ell_row_lens", "sell_arrays_from_csr"]
 
 
 @dataclasses.dataclass
@@ -333,15 +333,19 @@ class BalancedCOO:
 
     Rows are grouped into ``nbins`` contiguous bins with ~equal nonzeros
     (the paper's greedy + diffusion thread partition).  Each bin is padded
-    to ``nnz_pad`` entries and ``rows_pad`` rows so the kernel's grid is
-    static.  ``lrows`` holds *bin-local* row ids, nondecreasing over a
+    to ``nnz_pad`` entries and ``rows_pad`` rows so the TPU kernel's grid
+    is static.  ``lrows`` holds *bin-local* row ids, nondecreasing over a
     bin's ``bin_nnz[t]`` real entries (bins are contiguous CSR row ranges);
     padding past them has ``vals == cols == lrows == 0``.  ``out_gather``
-    maps the kernel's ``(nbins, rows_pad)`` output back to the flat row
-    vector.
+    maps the ``(nbins, rows_pad)`` output of the plain version (and of the
+    JAX package's kernel) back to the flat row vector.
 
-    ``bin_lens`` is the port's own field: ``bin_nnz`` as an int32 tensor
-    beside the others, where the kernel reads each bin's real entry count.
+    ``row_lens`` and ``warp_map`` are the port's own fields, which the CUDA
+    kernel reads in place of ``lrows`` and ``out_gather``
+    (:func:`balanced_warp_map`): each row's entry count in global row
+    order, and one ``(first row, row count, first entry)`` triple per warp
+    of up to 32 consecutive rows of one bin, the entry an offset into the
+    flat ``(nbins·nnz_pad)`` streams.
     """
 
     vals: torch.Tensor        # (nbins, nnz_pad) float32 or bfloat16
@@ -349,7 +353,8 @@ class BalancedCOO:
     lrows: torch.Tensor       # (nbins, nnz_pad) int32 — bin-local row id
     bin_starts: torch.Tensor  # (nbins,) int32 — first global row of each bin
     out_gather: torch.Tensor  # (n_rows,) int32 — flat index into (nbins*rows_pad)
-    bin_lens: torch.Tensor    # (nbins,) int32 — bin_nnz on the device
+    row_lens: torch.Tensor    # (n_rows,) int32 — entries of each row
+    warp_map: torch.Tensor    # (n_warps, 3) int32 — first row, rows, entry
     n_rows: int
     n_cols: int
     rows_pad: int
@@ -404,12 +409,14 @@ class BalancedCOO:
         package's ``BalancedCOO`` handed over as numpy (``vals``, ``cols``,
         ``lrows``, ``bin_starts``, ``out_gather``) with its meta
         (``n_rows``, ``n_cols``, ``rows_pad``, ``bin_nnz``), so that both
-        packages compute on the identical binned matrix.
+        packages compute on the identical binned matrix; ``row_lens`` and
+        ``warp_map`` are built here (:func:`balanced_warp_map`).
 
         ``dtype`` defaults to the values' own (float32 for float64 input).
         Raises unless what the kernel relies on holds: within each bin's
         real entries, ``lrows`` is nondecreasing and in ``[0, rows_pad)``
-        and ``cols`` in ``[0, n_cols)``."""
+        and ``cols`` in ``[0, n_cols)``; and what ``balanced_warp_map``
+        checks."""
         device = resolve_device(device)
         vals = np.asarray(arrays["vals"])
         cols, lrows = np.asarray(arrays["cols"]), np.asarray(arrays["lrows"])
@@ -427,6 +434,9 @@ class BalancedCOO:
             raise ValueError("BalancedCOO: bin-local rows must be "
                              "nondecreasing in [0, rows_pad) and columns in "
                              "[0, n_cols) over each bin's entries")
+        row_lens, warp_map = balanced_warp_map(
+            lrows, bin_nnz, arrays["bin_starts"], arrays["out_gather"],
+            int(meta["n_rows"]), rows_pad)
         if dtype is None:
             dtype = (torch.bfloat16 if vals.dtype.name == "bfloat16"
                      else torch.float32)
@@ -434,7 +444,8 @@ class BalancedCOO:
                    cols=_index(cols, device), lrows=_index(lrows, device),
                    bin_starts=_index(arrays["bin_starts"], device),
                    out_gather=_index(arrays["out_gather"], device),
-                   bin_lens=_index(bin_nnz, device),
+                   row_lens=_index(row_lens, device),
+                   warp_map=_index(warp_map, device),
                    n_rows=int(meta["n_rows"]), n_cols=n_cols,
                    rows_pad=rows_pad,
                    bin_nnz=tuple(int(k) for k in bin_nnz))
@@ -454,3 +465,59 @@ class BalancedCOO:
         total = self.nbins * self.nnz_pad
         real = int(sum(self.bin_nnz))
         return 1.0 - real / max(total, 1)
+
+
+def balanced_warp_map(lrows: np.ndarray, bin_nnz: np.ndarray,
+                      bin_starts: np.ndarray, out_gather: np.ndarray,
+                      n_rows: int, rows_pad: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """``(row_lens, warp_map)`` of a binned COO, as the CUDA kernel reads it.
+
+    Bin ``t`` holds the global rows ``[bin_starts[t], bin_starts[t + 1])``
+    (the last up to ``n_rows``) and their entries, in row order, at
+    ``[0, bin_nnz[t])`` of its ``nnz_pad = lrows.shape[1]`` slots.
+    ``row_lens`` (``(n_rows,)``) is each row's entry count, a per-bin
+    bincount of ``lrows``.  ``warp_map`` (``(n_warps, 3)``) tiles each
+    bin's rows in runs of 32 that never cross a bin: the first global row,
+    the row count (1–32) and the first entry, ``t·nnz_pad`` plus the lengths
+    of the bin's rows before it.  Bins with no rows give no warp; rows with
+    no entries have length 0.  int64 arrays; ``from_arrays`` stores them as
+    int32.
+
+    Raises unless the bins tile ``[0, n_rows)`` in order, each bin's
+    ``lrows`` are below its row count and at most ``rows_pad``,
+    ``out_gather[r] == t·rows_pad + r − bin_starts[t]`` for the bin ``t``
+    holding row ``r`` (the kernel writes ``y[r]`` where the plain version
+    reads that slot), and the flat entry offsets fit int32."""
+    nbins, nnz_pad = lrows.shape
+    starts = np.asarray(bin_starts, dtype=np.int64)
+    ends = np.append(starts, n_rows)[1:]
+    bin_rows = ends - starts
+    if (starts.shape != (nbins,) or np.any(bin_rows < 0)
+            or bin_rows.sum() != n_rows or np.any(bin_rows > rows_pad)):
+        raise ValueError(f"BalancedCOO: {len(starts)} bin starts for "
+                         f"{nbins} bins do not tile {n_rows} rows in "
+                         f"order, at most {rows_pad} each")
+    if nbins * nnz_pad >= 2**31:
+        raise ValueError(f"BalancedCOO: {nbins}x{nnz_pad} entries overflow "
+                         f"the warp map's int32 offsets")
+    live = np.arange(nnz_pad) < np.asarray(bin_nnz)[:, None]
+    bin_of = np.broadcast_to(np.arange(nbins)[:, None], lrows.shape)[live]
+    local = lrows[live].astype(np.int64)
+    if np.any(local >= bin_rows[bin_of]):
+        raise ValueError("BalancedCOO: a bin-local row past its bin's rows")
+    row_lens = np.bincount(starts[bin_of] + local, minlength=n_rows)
+    t_of = np.repeat(np.arange(nbins), bin_rows)
+    want = t_of * rows_pad + np.arange(n_rows) - starts[t_of]
+    if not np.array_equal(np.asarray(out_gather, dtype=np.int64), want):
+        raise ValueError("BalancedCOO: out_gather is not each row's slot "
+                         "t·rows_pad + (r − bin_starts[t]) of its bin t")
+    before = np.concatenate([[0], np.cumsum(row_lens)])   # entries < row r
+    n_w = -(-bin_rows // 32)
+    w_bin = np.repeat(np.arange(nbins), n_w)
+    j = np.arange(len(w_bin)) - np.repeat(np.cumsum(n_w) - n_w, n_w)
+    first = starts[w_bin] + 32 * j
+    warp_map = np.stack([first, np.minimum(32, ends[w_bin] - first),
+                         w_bin * nnz_pad + before[first]
+                         - before[starts[w_bin]]], axis=1)
+    return row_lens, warp_map

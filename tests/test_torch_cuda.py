@@ -289,9 +289,48 @@ def test_flat_ell_spmv_matches_plain_version(dtype, golden):
         _close_to_plain(y, ref.ell_spmv_ref(e.vals, e.cols, xd))
 
 
+def _ragged_rows(rng, n=400):
+    """Rows of 0..70 entries, a fifth of them none, and two rows longer
+    than a warp's 256-entry chunk (300 and 700 entries)."""
+    nnz = rng.integers(0, 71, n)
+    nnz[rng.choice(n, n // 5, replace=False)] = 0
+    nnz[[37, 250]] = [300, 700]
+    rows = np.repeat(np.arange(n), nnz)
+    return CSRMatrix.from_coo(rows, rng.integers(0, n, len(rows)),
+                              rng.standard_normal(len(rows)), (n, n))
+
+
+#: bounds for ``_ragged_rows``'s 400 rows: empty bins (repeated bounds),
+#: bins of 1-2 rows, and bins that leave partial warps
+RAGGED_BOUNDS = {"empty bins": [0, 0, 33, 33, 33, 100, 250, 251, 400, 400],
+                 "tiny bins": [0, 1, 3, 37, 38, 250, 400],
+                 "one bin": [0, 400]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(RAGGED_BOUNDS))
+def test_balanced_kernel_on_empty_bins_empty_rows_and_long_rows(case, dtype,
+                                                                golden):
+    """Against the plain version, and two launches bit for bit equal."""
+    A = _ragged_rows(np.random.default_rng(9))
+    bounds = np.array(RAGGED_BOUNDS[case])
+    b = BalancedCOO.from_csr(A, bounds, dtype=dtype, device="cuda")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(A.n_cols)
+                         .astype(np.float32)).cuda()
+    reset_launches()
+    y = ops.balanced_spmv(b, x)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {k: int(k == "balanced_spmv") for k in LAUNCHES}
+    assert y.shape == (A.n_rows,)
+    _close_to_plain(y, ref.balanced_spmv_ref(b, x))
+    for _ in range(2):
+        assert torch.equal(ops.balanced_spmv(b, x), y)
+
+
 def test_balanced_spmv_writes_zeros_where_there_are_no_entries(golden):
-    """Empty bins, rows with no entries and each bin's ``rows_pad`` tail
-    come out exactly 0, whatever the output's memory held before."""
+    """Rows with no entries, in empty and non-empty bins alike, come out
+    exactly 0 whatever the output's memory held before: the kernel writes
+    every row of the flat ``y`` once, none twice."""
     rng = np.random.default_rng(3)
     n = 40
     rows = np.repeat(np.arange(n), 3)
@@ -300,23 +339,15 @@ def test_balanced_spmv_writes_zeros_where_there_are_no_entries(golden):
                            rng.standard_normal(keep.sum()), (n, n))
     b = BalancedCOO.from_csr(A, np.array([0, 0, 10, 10, 25, 40, 40]),
                              device="cuda")
-    # the whole (nbins, rows_pad) output, through an identity row map
-    full = b.nbins * b.rows_pad
-    whole = dataclasses.replace(
-        b, n_rows=full,
-        out_gather=torch.arange(full, dtype=torch.int32, device="cuda"))
     x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
-    torch.full((full,), float("nan"), device="cuda")   # dirty the pool
-    y = ops.balanced_spmv(whole, x)
-    want = ref.binned_matvec_ref(b.vals, b.cols, b.lrows, x, b.rows_pad)
-    hit = torch.zeros(full, dtype=torch.bool, device="cuda")
-    for t, k in enumerate(b.bin_nnz):
-        hit[t * b.rows_pad + b.lrows[t, :k].long()] = True
+    torch.full((4 * n,), float("nan"), device="cuda")   # dirty the pool
+    y = ops.balanced_spmv(b, x)
+    empty = torch.from_numpy(A.row_nnz == 0).cuda()
     assert torch.isfinite(y).all()
-    assert (y[~hit] == 0).all()
-    _close_to_plain(y, want.reshape(-1))
+    assert (y[empty] == 0).all() and (y[~empty] != 0).all()
+    _close_to_plain(y, ref.balanced_spmv_ref(b, x))
     y_host = A.matvec(x.cpu().numpy().astype(np.float64))
-    np.testing.assert_allclose(ops.balanced_spmv(b, x).cpu().numpy(), y_host,
+    np.testing.assert_allclose(y.cpu().numpy(), y_host,
                                atol=1e-5 * max(1.0, np.abs(y_host).max()),
                                rtol=0)
 
@@ -326,23 +357,31 @@ def test_balanced_wrapper_raises_on_what_the_kernel_does_not_take(golden):
     b = BalancedCOO.from_csr(A, partition_balanced(A.row_nnz, 4),
                              device="cuda")
     xd = torch.from_numpy(x).cuda()
-    with pytest.raises(TypeError):
-        ops.balanced_spmv(dataclasses.replace(b, cols=b.cols.long()), xd)
-    with pytest.raises(TypeError):
-        ops.balanced_spmv(dataclasses.replace(b, lrows=b.lrows.long()), xd)
-    with pytest.raises(TypeError):
-        ops.balanced_spmv(dataclasses.replace(b, vals=b.vals.half()), xd)
+    bad = {TypeError: [dict(cols=b.cols.long()),
+                       dict(row_lens=b.row_lens.long()),
+                       dict(warp_map=b.warp_map.long()),
+                       dict(vals=b.vals.half())],
+           ValueError: [dict(row_lens=b.row_lens[:-1]),
+                        dict(row_lens=b.row_lens.cpu()),
+                        dict(warp_map=b.warp_map[:, :2].contiguous()),
+                        dict(warp_map=b.warp_map.reshape(-1)),
+                        dict(warp_map=b.warp_map.t()),
+                        dict(warp_map=b.warp_map.cpu())]}
+    for err, fields in bad.items():
+        for f in fields:
+            with pytest.raises(err):
+                ops.balanced_spmv(dataclasses.replace(b, **f), xd)
     with pytest.raises(TypeError):
         ops.balanced_spmv(b, xd.double())
     with pytest.raises(ValueError):
         ops.balanced_spmv(b, xd.cpu())
     with pytest.raises(ValueError):
         ops.balanced_spmv(b, xd[:-1])
-    nbins = 65536
-    z = torch.zeros((nbins, 128), dtype=torch.int32, device="cuda")
-    many = dataclasses.replace(
-        b, vals=z.float(), cols=z, lrows=z,
-        bin_starts=z[:, 0].contiguous(), bin_lens=z[:, 0].contiguous(),
-        bin_nnz=(0,) * nbins)
-    with pytest.raises(ValueError):
-        ops.balanced_spmv(many, xd)
+    # 2 x 2**30 entries: the map's int32 entry offsets would overflow
+    # (stride-0 views: nothing of that size is allocated)
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    huge = dataclasses.replace(b, vals=one.float().expand(2, 2**30),
+                               cols=one.expand(2, 2**30))
+    assert huge.vals.shape == (2, 2**30)
+    with pytest.raises(ValueError, match="int32"):
+        ops.balanced_spmv(huge, xd)

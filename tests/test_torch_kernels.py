@@ -124,8 +124,8 @@ def test_balanced_coo_byte_identical(nbins, kind, dt):
     assert (b.n_rows, b.n_cols, b.rows_pad, b.bin_nnz, b.nbins,
             b.nnz_pad) == (r.n_rows, r.n_cols, r.rows_pad, r.bin_nnz,
                            r.nbins, r.nnz_pad)
-    assert b.bin_lens.dtype == torch.int32
-    assert tuple(b.bin_lens.tolist()) == r.bin_nnz
+    assert b.row_lens.dtype == b.warp_map.dtype == torch.int32
+    assert np.array_equal(b.row_lens.numpy(), A.row_nnz)
     assert b.padding_waste == r.padding_waste
 
 

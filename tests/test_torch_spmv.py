@@ -190,7 +190,8 @@ def test_wrappers_refuse_other_devices_and_types():
         ops.fused_ell_spmv(v, c, v, c, x, x)
     b = BalancedCOO(vals=v[0, 0], cols=c[0, 0], lrows=c[0, 0],
                     bin_starts=c[0, 0, :, 0], out_gather=c[0, 0, :4, 0],
-                    bin_lens=c[0, 0, :, 0], n_rows=4, n_cols=4, rows_pad=8,
+                    row_lens=c[0, 0, :4, 0], warp_map=c[0, 0, :1, :],
+                    n_rows=4, n_cols=4, rows_pad=8,
                     bin_nnz=(0,) * 8)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.balanced_spmv(b, x[0])
