@@ -56,6 +56,32 @@ check raises, so the exit code is not 0.
 6. profile  ``torch.profiler`` device time by kernel over 64 fused-CG
             iterations on the 4x2 plans, against phase 5's unprofiled
             ms/iteration (the device's busy share);
+6b. transports  the halo-exchange layer on the full-size 4x2 ell and sell
+            plans (B1, B2): every registered transport x wire dtype (f32,
+            bf16, int8).  The ``make_exchange`` ghost buffer must be bit
+            for bit ``a2a``'s at the same wire dtype at every real slot,
+            and its ``host_exchange``'s; lossy ghosts within
+            ``rel_bound·max|x|`` of the f32 ghosts; ``make_spmv`` bit for
+            bit ``a2a``'s.  With f32 wire, the fused CG (jacobi, tol 1e-6)
+            gives ``a2a``'s iterations and ``x`` bit for bit.  Each line
+            has the SpMV's median ms (20 CUDA-event runs), the CG's
+            ms/iteration where run, the census's predicted wire bytes and
+            collective counts (as if each node were its own device: one
+            card has no wire) and the device launches per SpMV
+            (``torch.profiler``).  ``faulty`` (registered, then
+            unregistered) must fail the ghost and SpMV checks.
+            ``autotune_transport`` on each plan: its winner, min and
+            median times, and ``make_spmv(transport="auto")`` giving the
+            winner's output.  Launch counts are zeroed just before and
+            read just after;
+6c. refine   ``make_refine`` (cg + jacobi, inner tol 1e-4, tol 1e-7 against
+            the host f64 matvec; at most 2,000 inner iterations and 20
+            cycles) for each wire dtype on the full-size sell 4x2 plan:
+            cycles, inner iterations, the true residual and its history,
+            seconds.  f32 wire must converge; bf16/int8 at full
+            size are reported.  Then at ``refine_check``'s size (graded
+            80x6, 4x2, ell, its inner tolerances) every wire dtype must
+            reach 1e-7 and the f64 CG oracle.  Launch counts as in 6b;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL), the ``nvidia-smi``
    line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -432,6 +458,21 @@ def phase_golden() -> None:
               f"golden {fmt}: {int(iters)} iterations, fixture {want} ±1")
 
 
+def solve_timed(solve, bd):
+    """One solve to tol 1e-6: ``(x, iters, rel, wall ms, iterations
+    run)``.  Whole blocks of ``CHECK_EVERY`` gated iterations run, so up
+    to ``CHECK_EVERY - 1`` no-op iterations follow convergence."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs, iters, rel = solve(bd, tol=1e-6, maxiter=10_000)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    iters_run = -(-int(iters) // CHECK_EVERY) * CHECK_EVERY
+    return xs, int(iters), float(rel), ms, iters_run
+
+
 def phase_full(A, plans, x, b) -> tuple[dict, dict]:
     """The main path at full size; returns the launch counts and each
     plan's row of results."""
@@ -461,19 +502,12 @@ def phase_full(A, plans, x, b) -> tuple[dict, dict]:
             solvers["unfused"] = make_cg(plan, fused=False,
                                          check_every=CHECK_EVERY)
         for kind, solve in solvers.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            xs, iters, rel = solve(bd, tol=1e-6, maxiter=10_000)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
+            xs, iters, rel, ms, iters_run = solve_timed(solve, bd)
             xg = from_dist(xs, layout, plan).astype(np.float64)
             true_rel = float(np.linalg.norm(A.matvec(xg) - b64)
                              / np.linalg.norm(b64))
-            # whole blocks of CHECK_EVERY gated iterations run, so up to
-            # CHECK_EVERY - 1 no-op iterations follow convergence
-            iters_run = -(-int(iters) // CHECK_EVERY) * CHECK_EVERY
-            row[kind] = {"iters": int(iters), "iters_run": iters_run,
-                         "rel": float(rel), "true_rel": true_rel, "ms": ms,
+            row[kind] = {"iters": iters, "iters_run": iters_run,
+                         "rel": rel, "true_rel": true_rel, "ms": ms,
                          "ms_per_iter": ms / max(iters_run, 1)}
             check(np.isfinite(xg).all() and xg.shape == (A.n_rows,),
                   f"{key} {kind}: non-finite or misshapen solution")
@@ -529,6 +563,199 @@ def phase_profile(plans, b, full_rows, iters: int = 64) -> None:
              / iters)
 
 
+def device_launches(fn, calls: int = 5) -> float:
+    """Device launches per call of ``fn`` (``torch.profiler``: kernels,
+    copies and fills on the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / calls
+
+
+def phase_transports(plans, x, b) -> None:
+    """Every transport x wire dtype on the full-size 4x2 plans, held bit
+    for bit against a2a at the same wire dtype; faulty caught; autotune."""
+    from repro_torch.core import (make_exchange, make_spmv,
+                                  resolve_transport, to_dist)
+    from repro_torch.core.transport import (FaultyTransport,
+                                            autotune_transport,
+                                            available_transports,
+                                            available_wire_dtypes, get_codec,
+                                            register_transport,
+                                            transport_census,
+                                            unregister_transport)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.solvers import make_solver
+    from repro_torch.testing.transport_check import bits_equal
+
+    reset_launches()
+    wires = ("f32",) + tuple(w for w in available_wire_dtypes()
+                             if w != "f32")
+    for key in ("ell/4x2", "sell/4x2"):
+        plan, layout = plans[key]
+        xd, bd = to_dist(x, layout, plan), to_dist(b, layout, plan)
+        g = plan.g_pad
+        x_max = float(xd.abs().max())
+        exact = make_exchange(plan, transport="a2a",
+                              wire_dtype="f32")(xd)[..., :g]
+        cg_ref = None
+        for wd in wires:
+            codec = get_codec(wd)
+            ghost_ref = make_exchange(plan, transport="a2a",
+                                      wire_dtype=wd)(xd)[..., :g]
+            y_ref = make_spmv(plan, transport="a2a", wire_dtype=wd)(xd)
+            err = float((ghost_ref - exact).abs().max())
+            check(err == 0.0 if codec.exact
+                  else err <= codec.rel_bound * x_max,
+                  f"{key} {wd}: ghost error {err} over the codec's bound")
+            census = transport_census(plan, wire_dtype=wd)
+            for name in available_transports():
+                spmv = make_spmv(plan, transport=name, wire_dtype=wd)
+                ghost = make_exchange(plan, transport=name,
+                                      wire_dtype=wd)(xd)
+                tr, state = resolve_transport(name, plan, wire_dtype=wd)
+                host = tr.host_exchange(
+                    xd.cpu().numpy(), plan.send_own.cpu().numpy(),
+                    plan.recv_own.cpu().numpy(), g, state)
+                row = {"plan": key, "transport": name, "wire_dtype": wd,
+                       "ghost_bitwise": bits_equal(ghost[..., :g], ghost_ref),
+                       "host_bitwise": host[..., :g].tobytes()
+                       == ghost[..., :g].cpu().numpy().tobytes(),
+                       "spmv_bitwise": bits_equal(spmv(xd), y_ref),
+                       "ghost_err": err,
+                       "ghost_bound": codec.rel_bound * x_max,
+                       "spmv_ms": time_ms(lambda: spmv(xd)),
+                       "launches_per_spmv": device_launches(
+                           lambda: spmv(xd)),
+                       **{f"census_{k}": v
+                          for k, v in census[name].items()}}
+                if wd == "f32":
+                    solve = make_solver(plan, solver="cg", precond="jacobi",
+                                        transport=name,
+                                        check_every=CHECK_EVERY)
+                    xs, iters, rel, ms, iters_run = solve_timed(solve, bd)
+                    if cg_ref is None:
+                        cg_ref = (xs, iters)
+                    row.update(cg_iters=iters, cg_rel=rel,
+                               cg_ms_per_iter=ms / max(iters_run, 1),
+                               cg_x_bitwise=bits_equal(xs, cg_ref[0]))
+                    check(iters == cg_ref[1] and row["cg_x_bitwise"],
+                          f"{key} {name}: CG {iters} iterations / x differ "
+                          f"from a2a's {cg_ref[1]}")
+                    check(rel <= 1e-6, f"{key} {name}: CG rel {rel}")
+                emit("transports", **row)
+                for k in ("ghost_bitwise", "host_bitwise", "spmv_bitwise"):
+                    check(row[k], f"{key} {name} {wd}: {k} fails")
+            register_transport(FaultyTransport())
+            try:
+                bad_ghost = make_exchange(plan, transport="faulty",
+                                          wire_dtype=wd)(xd)[..., :g]
+                bad_y = make_spmv(plan, transport="faulty",
+                                  wire_dtype=wd)(xd)
+            finally:
+                unregister_transport("faulty")
+            caught = {"ghost": not bits_equal(bad_ghost, ghost_ref),
+                      "spmv": not bits_equal(bad_y, y_ref)}
+            emit("transports_faulty", plan=key, wire_dtype=wd, caught=caught,
+                 registered_after=sorted(available_transports()))
+            check(all(caught.values()), f"{key} {wd}: faulty not caught")
+        res = autotune_transport(plan)
+        stamped = plan.transport
+        # "auto" tunes again and stamps that run's winner
+        auto = make_spmv(plan, transport="auto")
+        same = (auto.transport == plan.transport
+                and bits_equal(auto(xd), make_spmv(
+                    plan, transport=auto.transport)(xd))
+                and bits_equal(auto(xd), res.spmv(xd)))
+        emit("autotune", plan=key, winner=res.winner, stamped=stamped,
+             min_us=res.timings_min_us, median_us=res.timings_us,
+             reps_us=res.reps_us, auto_winner=auto.transport,
+             auto_is_winner=same)
+        check(stamped == res.winner and same,
+              f"{key}: transport='auto' is not the autotune winner")
+        plan.transport = "a2a"          # later phases run the a2a stamp
+    launches = dict(LAUNCHES)
+    emit("transports_launches", **launches)
+    for name in ("fused_ell_spmv", "fused_sell_spmv"):
+        check(launches[name] > 0, f"{name} never launched in transports")
+
+
+def refine_row(A, plan, layout, b, wd, inner_tol, maxiter_inner,
+               max_cycles, xh=None) -> dict:
+    """One ``make_refine`` solve to 1e-7; the emitted row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.solvers import make_refine
+
+    refine = make_refine(plan, solver="cg", precond="jacobi", A=A,
+                         layout=layout, inner_tol=inner_tol,
+                         maxiter_inner=maxiter_inner, wire_dtype=wd,
+                         check_every=CHECK_EVERY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = refine(b, tol=1e-7, max_cycles=max_cycles)
+    seconds = time.perf_counter() - t0
+    true_rel = float(np.linalg.norm(b - A.matvec(res.x))
+                     / np.linalg.norm(b))
+    row = {"rows": A.n_rows, "plan": f"{plan.format}/{plan.n_node}x"
+           f"{plan.n_core}", "wire_dtype": wd, "inner_tol": inner_tol,
+           "cycles": res.cycles, "inner_iters": res.inner_iters,
+           "rel": res.rel, "true_rel": true_rel, "converged": res.converged,
+           "history": [r for _, r in res.history], "seconds": seconds}
+    if xh is not None:
+        row["dx_host"] = float(np.linalg.norm(res.x - xh)
+                               / np.linalg.norm(xh))
+    check(np.isfinite(res.x).all(), f"refine {wd}: non-finite solution")
+    return row
+
+
+def phase_refine(A, plans, b) -> None:
+    """f64 refinement over each wire dtype: full size on the sell 4x2
+    plan (f32 must converge), and at refine_check's size (all must)."""
+    import numpy as np
+
+    from repro_torch.core import build_spmv_plan
+    from repro_torch.core.transport import available_wire_dtypes
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.sparse import graded_extruded_mesh_matrix
+    from repro_torch.testing.refine_check import host_cg, inner_tol_for
+
+    reset_launches()
+    plan, layout = plans["sell/4x2"]
+    b64 = b.astype(np.float64)
+    for wd in available_wire_dtypes():
+        row = refine_row(A, plan, layout, b64, wd, 1e-4, 2000, 20)
+        emit("refine", size="full", **row)
+        if wd == "f32":
+            check(row["converged"] and row["true_rel"] <= 1e-7,
+                  f"refine f32 at full size: rel {row['rel']}")
+    # refine_check's size, where the reference set its bf16/int8 gate
+    As = graded_extruded_mesh_matrix(80, 6, seed=0)
+    bs = np.random.default_rng(1).normal(size=As.n_rows)
+    xh = host_cg(As, bs, tol=1e-12, maxiter=40_000)
+    for wd in available_wire_dtypes():
+        ps, ls = build_spmv_plan(As, 4, 2, wire_dtype=wd, device=DEVICE)
+        row = refine_row(As, ps, ls, bs, wd, inner_tol_for(wd), 1000, 40,
+                         xh=xh)
+        emit("refine", size="refine_check", **row)
+        check(row["converged"] and row["dx_host"] < 100 * 1e-7,
+              f"refine {wd} at refine_check size: rel {row['rel']}, "
+              f"dx {row['dx_host']}")
+    launches = dict(LAUNCHES)
+    emit("refine_launches", **launches)
+    for name in ("fused_ell_spmv", "fused_sell_spmv"):
+        check(launches[name] > 0, f"{name} never launched in refine")
+
+
 def library_ms(A, x) -> float:
     """One torch.sparse CSR matvec of the global matrix (the yardstick)."""
     import torch
@@ -575,6 +802,8 @@ def main() -> int:
     phase_golden()
     launches, rows = phase_full(A, plans, x, b)
     phase_profile(plans, b, rows)
+    phase_transports(plans, x, b)
+    phase_refine(A, plans, b)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
     entries.append((BALANCED[0], BALANCED[1], bal_launches[BALANCED[0]],

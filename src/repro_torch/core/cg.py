@@ -77,18 +77,26 @@ def cg_solve(spmv: Callable, b: torch.Tensor, m_inv: torch.Tensor,
     return x, k, rel
 
 
-def make_cg(plan: SpMVPlan, fused: bool = False, check_every: int = 16):
+def make_cg(plan: SpMVPlan, fused: bool = False, check_every: int = 16,
+            transport: str | None = None, neighbor_offsets=None,
+            wire_dtype: str | None = None):
     """Bundle a plan into ``solve(b, tol=..., maxiter=...)`` returning
     ``(x, iters, rel_residual)`` with ``x`` in CG layout.
 
     ``fused=True`` returns the registry ``cg`` solver with the ``jacobi``
-    preconditioner instead — same return contract.
+    preconditioner instead — same return contract.  ``transport`` /
+    ``neighbor_offsets`` / ``wire_dtype`` select the halo exchange as in
+    ``make_spmv`` (``"auto"`` autotunes first).
     """
     if fused:
         from repro_torch.solvers.base import make_solver
         return make_solver(plan, solver="cg", precond="jacobi",
-                           check_every=check_every)
-    spmv = make_spmv(plan)
+                           transport=transport,
+                           neighbor_offsets=neighbor_offsets,
+                           wire_dtype=wire_dtype, check_every=check_every)
+    spmv = make_spmv(plan, transport=transport,
+                     neighbor_offsets=neighbor_offsets,
+                     wire_dtype=wire_dtype)
     m_inv = jacobi_inverse(plan.diag_a, plan.mask)
 
     def solve(b: torch.Tensor, tol: float = 1e-8, maxiter: int = 10_000):
@@ -97,4 +105,5 @@ def make_cg(plan: SpMVPlan, fused: bool = False, check_every: int = 16):
 
     solve.spmv = spmv
     solve.transport = spmv.transport
+    solve.wire_dtype = spmv.wire_dtype
     return solve

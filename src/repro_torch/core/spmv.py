@@ -17,8 +17,14 @@ by the ``x_gather`` index.  The modes ``vector``/``task``/``balanced``
 differ only in the partition here: one stream has no schedule to pin, so
 the ``vector`` mode's barrier has no counterpart.
 
+The exchange strategy is pluggable (``repro_torch.core.transport``): the
+plan stamps a transport name (``a2a`` | ``ring`` | ``pairwise`` | ``hier``)
+and a halo wire dtype (``f32`` | ``bf16`` | ``int8``), ``make_shard_body``
+dispatches the owner-split exchange to it, and ``transport="auto"``
+times the candidates on the plan's device and stamps the winner.
+
 Square plans only so far (``n_cols == n``); the rectangular column space
-and the other transports wait for later work.
+waits for later work.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import torch
 
 from repro_torch.core.halo import HaloPlan, build_halo_plan
 from repro_torch.core.partition import partition_stats, partition_two_level
-from repro_torch.core.transport import (HaloTransport, WireCodec,
+from repro_torch.core.transport import (HaloTransport, get_codec,
                                         resolve_transport, transport_census,
                                         transport_stamp)
 from repro_torch.sparse.csr import CSRMatrix
@@ -137,24 +143,30 @@ def plan_shard_arrays(plan: SpMVPlan) -> tuple[torch.Tensor, ...]:
 def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
                     mode: str = "balanced",
                     format: str | ShardFormat = "ell",
-                    transport: str | HaloTransport = "a2a", device=None
+                    transport: str | HaloTransport = "a2a",
+                    wire_dtype: str = "f32",
+                    node_partition: str | None = None, device=None
                     ) -> tuple[SpMVPlan, dict]:
     """Partition square ``A``, split diag/offdiag, pack shard blocks + halo
     plan, and place them on ``device`` (default ``cuda``) in float32.
 
     ``mode="balanced"`` balances non-zeros on **both** mesh axes
     (``partition_two_level``); ``vector``/``task`` use equal rows.
-    ``format`` selects the shard-local storage (``"ell"`` | ``"sell"``),
-    ``transport`` the halo exchange (``"a2a"``); the halo wire codec is
-    the exact ``f32`` one.
+    ``node_partition`` (``"rows"`` | ``"nnz"``) overrides the node-axis
+    split independently of ``mode``.  ``format`` selects the shard-local
+    storage (``"ell"`` | ``"sell"``).  ``transport`` stamps the halo
+    exchange (any registered name, validated here; ``"auto"`` defers the
+    choice to ``autotune_transport`` at the first ``make_spmv`` /
+    ``make_solver``), ``wire_dtype`` the halo wire codec (``"f32"`` |
+    ``"bf16"`` | ``"int8"``, validated here).
 
     Returns ``(plan, layout)``: ``layout`` carries the host index arrays
     ``to_dist``/``from_dist`` use, the partition, the halo plan, a
     ``stats`` dict (per-axis imbalance, padding waste) and the
-    ``transport_census``.  Every plan array is byte-identical to the JAX
-    package's ``build_spmv_plan`` for the same arguments (its defaults
-    ``rows_align=8``, ``width_align=1``, ``node_partition`` following
-    ``mode``, ``dtype=float32``, ``wire_dtype="f32"``).
+    ``transport_census`` and the populated ``neighbor_offsets``.  Every
+    plan array is byte-identical to the JAX package's ``build_spmv_plan``
+    for the same arguments (its defaults ``rows_align=8``,
+    ``width_align=1``, ``dtype=float32``).
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -171,13 +183,20 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
                 "build_spmv_plan: stored column index out of range for "
                 f"shape {A.shape}: indices span [{c_lo}, {c_hi}]")
     device = resolve_device(device)
-    transport = transport_stamp(transport)        # fail fast on typos
+    if transport != "auto":
+        transport = transport_stamp(transport)    # fail fast on typos
+    wire_dtype = get_codec(wire_dtype).name       # fail fast on typos
+    core_partition = "nnz" if mode == "balanced" else "rows"
+    if node_partition is None:
+        node_partition = core_partition
+    if node_partition not in ("rows", "nnz"):
+        raise ValueError("node_partition must be 'rows' or 'nnz', got "
+                         f"{node_partition!r}")
     fmt = get_format(format)
     n = A.n_rows
-    partition = "nnz" if mode == "balanced" else "rows"
     node_bounds, core_bounds_all = partition_two_level(
-        A.row_nnz, n_node, n_core, node_partition=partition,
-        core_partition=partition)
+        A.row_nnz, n_node, n_core, node_partition=node_partition,
+        core_partition=core_partition)
 
     diag_nodes: list[CSRMatrix] = []
     offd_nodes: list[CSRMatrix] = []
@@ -246,16 +265,17 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
         n=n, n_node=n_node, n_core=n_core,
         rc_pad=rc_pad, nl_pad=nl_pad, g_pad=halo.g_pad, hs=halo.h_own,
         mode=mode, format=fmt.name, transport=transport,
-        wire_dtype=WireCodec.name)
+        wire_dtype=wire_dtype)
     stats = partition_stats(A.row_nnz, node_bounds, core_bounds_all)
     stats["padding_waste"] = fmt.padding_waste(fmt_data, A.nnz)
     layout = {
         "node_bounds": node_bounds,
         "core_bounds": core_bounds_all,
-        "node_partition": partition,
+        "node_partition": node_partition,
         "format": fmt.name,
         "global_row_of": global_row_of,
         "halo": halo,
+        "neighbor_offsets": halo.neighbor_offsets(),
         "transport_census": transport_census(plan),
         "stats": stats,
     }
@@ -270,12 +290,17 @@ def plan_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
     the arrays of a plan built elsewhere — the JAX package's, handed over
     as numpy; ``meta`` holds :data:`PLAN_META`.  The format's
     ``aux_fields`` are derived from its fields
-    (``ShardFormat.derive_aux``).  This carries a reference plan across
-    unchanged, so SpMV and CG can be held against the reference on the
-    identical plan, independently of the port's planner.
+    (``ShardFormat.derive_aux``); the transport stamp may be any registered
+    name or ``"auto"``, the wire dtype any registered codec.  This carries
+    a reference plan across unchanged, so SpMV and CG can be held against
+    the reference on the identical plan, independently of the port's
+    planner.
     """
     device = resolve_device(device)
     fmt = get_format(meta["format"])
+    if str(meta["transport"]) != "auto":
+        transport_stamp(str(meta["transport"]))
+    get_codec(str(meta["wire_dtype"]))
     data = {k: np.asarray(arrays[k]) for k in fmt.fields}
     data.update(fmt.derive_aux(data, int(meta["rc_pad"])))
 
@@ -317,29 +342,46 @@ def from_dist(vd: torch.Tensor, layout: dict, plan: SpMVPlan) -> np.ndarray:
 # ---------------------------------------------------------------------- #
 # the distributed SpMV body (shared by make_spmv and the solvers)
 # ---------------------------------------------------------------------- #
-def make_shard_body(plan: SpMVPlan):
+def make_shard_body(plan: SpMVPlan,
+                    transport: str | HaloTransport | None = None,
+                    neighbor_offsets: list[int] | None = None,
+                    wire_dtype: str | None = None):
     """Build the two-phase SpMV over the whole virtual mesh:
     ``body(x) -> y``, both ``(n_node, n_core, rc_pad)``.
 
-    1. halo exchange through the plan's stamped transport (skipped for
-       halo-free plans, ``plan.hs == 0``) -> ``x_ghost``
-       ``(n_node, g_pad + 1)``;
+    1. halo exchange through the transport (skipped for halo-free plans,
+       ``plan.hs == 0``) -> ``x_ghost`` ``(n_node, g_pad + 1)``;
     2. the core-axis gather of each node's slice -> ``x_local``
        ``(n_node, nl_pad)``;
     3. the format's local diag + offd matvec over all shards, through the
        kernel wrappers: the CUDA kernels on the card, their plain versions
        on the CPU.
 
-    The body carries ``body.transport`` and ``body.wire_dtype`` (resolved
-    names), and ``body.inputs(x) -> (x_local, x_ghost)``: steps 1-2 alone,
-    what the local matvec gets.
+    ``transport=None`` follows ``plan.transport``, ``wire_dtype=None``
+    follows ``plan.wire_dtype``; ``neighbor_offsets`` overrides the
+    offsets ring/pairwise derive from the plan.  Names and overrides are
+    validated here, up front; ``"auto"`` is refused (``make_spmv`` and
+    ``make_solver`` resolve it).  The body carries ``body.transport`` and
+    ``body.wire_dtype`` (resolved names), ``body.extra`` (the transport's
+    device index tensors) and ``body.inputs(x) -> (x_local, x_ghost)``:
+    steps 1-2 alone, what the local matvec gets.
     """
     n_node, n_core, rc_pad = plan.n_node, plan.n_core, plan.rc_pad
     g_pad = plan.g_pad
     has_halo = plan.hs > 0
-    tr, tstate = resolve_transport(plan)
+    transport = transport if transport is not None else plan.transport
+    if transport == "auto":
+        raise ValueError("transport='auto' is resolved by make_spmv/"
+                         "make_solver (it times the candidates on the "
+                         "plan's device); make_shard_body takes a concrete "
+                         "transport")
+    tr, tstate = resolve_transport(transport, plan,
+                                   neighbor_offsets=neighbor_offsets,
+                                   wire_dtype=wire_dtype)
+    extra = tr.extra_arrays(plan, tstate) if has_halo else {}
     local_matvec = get_format(plan.format).matvec_kernel
-    F = dict(plan.fmt_data, send_own=plan.send_own, recv_own=plan.recv_own)
+    F = dict(plan.fmt_data, send_own=plan.send_own, recv_own=plan.recv_own,
+             **extra)
     # x_gather is replicated over the core axis: one row per node, int64
     # and offset into the node's flattened (n_core * rc_pad) view
     x_gather = plan.x_gather[:, 0, :].long()
@@ -358,13 +400,31 @@ def make_shard_body(plan: SpMVPlan):
     body.inputs = inputs
     body.transport = tr.name
     body.wire_dtype = tstate["wire_codec"].name
+    body.extra = extra
     return body
 
 
-def make_spmv(plan: SpMVPlan):
+def make_spmv(plan: SpMVPlan,
+              transport: str | HaloTransport | None = None,
+              neighbor_offsets: list[int] | None = None,
+              wire_dtype: str | None = None):
     """The distributed SpMV ``plan.x_shape -> plan.cg_shape`` on the
-    plan's device.  Carries ``spmv.transport`` / ``spmv.wire_dtype``."""
-    body = make_shard_body(plan)
+    plan's device.
+
+    ``transport`` selects the halo exchange by name (``None`` follows the
+    plan's stamp); ``"auto"`` runs ``autotune_transport`` on the plan's
+    device, stamps the winner into the plan and returns the winner's SpMV.
+    ``wire_dtype`` selects the halo wire codec (``None`` follows
+    ``plan.wire_dtype``).  Carries ``spmv.transport`` /
+    ``spmv.wire_dtype`` (the resolved names)."""
+    transport = transport if transport is not None else plan.transport
+    if transport == "auto":     # explicit, or a deferred plan stamp
+        from repro_torch.core.transport import autotune_transport
+        return autotune_transport(plan, neighbor_offsets=neighbor_offsets,
+                                  wire_dtype=wire_dtype).spmv
+    body = make_shard_body(plan, transport=transport,
+                           neighbor_offsets=neighbor_offsets,
+                           wire_dtype=wire_dtype)
 
     def spmv(xd: torch.Tensor) -> torch.Tensor:
         if tuple(xd.shape) != plan.x_shape:

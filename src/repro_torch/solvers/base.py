@@ -86,6 +86,13 @@ class Solver:
 
     name: str = ""
 
+    def lossy_wire_options(self) -> dict:
+        """Option defaults for a lossy halo wire codec (bf16/int8): a
+        quantised SpMV is a different perturbed operator on every call,
+        and a solver whose recurrences amplify that would tighten its
+        options here.  ``cg`` needs none."""
+        return {}
+
     def loop_setup(self, ctx: SolverCtx, b, tol, maxiter):
         """``(aux, initial state)``."""
         raise NotImplementedError
@@ -175,6 +182,9 @@ def from_dist_batch(xd: torch.Tensor, layout: dict, plan) -> np.ndarray:
 # --------------------------------------------------------------------- #
 def make_solver(plan, *, solver: str | Solver = "cg",
                 precond: str | Preconditioner = "jacobi",
+                transport: str | None = None,
+                neighbor_offsets: list[int] | None = None,
+                wire_dtype: str | None = None,
                 nrhs: int | None = None, check_every: int = 16):
     """Bundle a plan and a registered solver/preconditioner pair into
     ``solve(b, tol=..., maxiter=...)`` on the plan's device.
@@ -184,13 +194,30 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     the batched layout ``(n_node, n_core, k, rc_pad)``
     (:func:`to_dist_batch`) and ``iters``/``rel`` are ``(k,)``.
 
+    ``transport`` selects the halo exchange by name (``None`` follows the
+    plan's stamp; ``"auto"`` autotunes the SpMV on the plan's device first
+    and uses the stamped winner), ``neighbor_offsets`` overrides
+    ring/pairwise's offsets, ``wire_dtype`` the halo wire codec (``None``
+    follows ``plan.wire_dtype``); exposed as ``solve.transport`` /
+    ``solve.wire_dtype``.
+
     ``check_every`` is the number of gated iterations between host syncs.
     """
     from repro_torch.core.spmv import make_shard_body
 
+    # resolve every name first: an unknown solver/precond raises before
+    # transport="auto" spends time on candidate SpMVs
     sol = get_solver(solver)
     pre = get_precond(precond)
-    body = make_shard_body(plan)
+    transport = transport if transport is not None else plan.transport
+    if transport == "auto":     # explicit, or a deferred plan stamp
+        from repro_torch.core.transport import autotune_transport
+        transport = autotune_transport(
+            plan, neighbor_offsets=neighbor_offsets,
+            wire_dtype=wire_dtype).winner
+    body = make_shard_body(plan, transport=transport,
+                           neighbor_offsets=neighbor_offsets,
+                           wire_dtype=wire_dtype)
     pdata = pre.build(plan)
     ctx = SolverCtx(spmv=lambda v: torch.stack([body(vj) for vj in v]),
                     precond=lambda r: pre.apply(pdata, r))

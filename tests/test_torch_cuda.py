@@ -385,3 +385,57 @@ def test_balanced_wrapper_raises_on_what_the_kernel_does_not_take(golden):
     assert huge.vals.shape == (2, 2**30)
     with pytest.raises(ValueError, match="int32"):
         ops.balanced_spmv(huge, xd)
+
+
+@pytest.mark.parametrize("wd", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("fmt", ["ell", "sell"])
+def test_transports_bit_equal_to_a2a_on_the_card(fmt, wd, golden):
+    """Every transport's SpMV and ghost buffer bit for bit a2a's at one
+    wire dtype, and equal to the host reference's ghosts; ``faulty``
+    differs from both."""
+    from repro_torch.core import make_exchange, resolve_transport
+    from repro_torch.core.transport import (FaultyTransport,
+                                            available_transports)
+
+    A, x, _ = golden
+    plan, layout = _plan(f"{fmt}/4x2", A)
+    xd = to_dist(x, layout, plan)
+    g = plan.g_pad
+    y_ref = make_spmv(plan, transport="a2a", wire_dtype=wd)(xd)
+    ghost_ref = make_exchange(plan, wire_dtype=wd)(xd)[..., :g]
+    for name in available_transports():
+        y = make_spmv(plan, transport=name, wire_dtype=wd)(xd)
+        assert torch.equal(y.view(torch.int32), y_ref.view(torch.int32)), \
+            name
+        ghost = make_exchange(plan, transport=name, wire_dtype=wd)(xd)
+        assert torch.equal(ghost[..., :g], ghost_ref), name
+        tr, state = resolve_transport(name, plan, wire_dtype=wd)
+        host = tr.host_exchange(xd.cpu().numpy(), plan.send_own.cpu().numpy(),
+                                plan.recv_own.cpu().numpy(), g, state)
+        assert host[..., :g].tobytes() == ghost[..., :g].cpu().numpy() \
+            .tobytes(), name
+    faulty = FaultyTransport()
+    assert not torch.equal(make_spmv(plan, transport=faulty,
+                                     wire_dtype=wd)(xd), y_ref)
+    assert not torch.equal(make_exchange(plan, transport=faulty,
+                                         wire_dtype=wd)(xd)[..., :g],
+                           ghost_ref)
+
+
+@pytest.mark.parametrize("wd", ["bf16", "int8"])
+def test_wire_codecs_encode_on_the_card_as_on_the_host(wd, golden):
+    """The encoded payload on the card is the CPU's byte for byte (the
+    int8 scale divides by a tensor: CUDA would turn a division by a
+    Python scalar into a multiplication by its reciprocal)."""
+    from repro_torch.core.transport import get_codec
+
+    codec = get_codec(wd)
+    rng = np.random.default_rng(5)
+    ch = torch.from_numpy(rng.standard_normal((64, 8, 4, 200))
+                          .astype(np.float32))
+    ch[0, 0, 0] = 0.0
+    host, card = codec.encode(ch), codec.encode(ch.cuda()).cpu()
+    assert host.dtype == card.dtype
+    as_int = torch.int16 if wd == "bf16" else torch.int8
+    assert torch.equal(host.view(as_int), card.view(as_int))
+    assert torch.equal(codec.decode(card.cuda()).cpu(), codec.decode(host))

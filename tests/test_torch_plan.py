@@ -1,13 +1,13 @@
 """The port's plan builder against the JAX package's.
 
 * All 8 entries of ``tests/golden_square_hashes.json`` (ell/sell × the
-  reference's four transports, whose plan arrays are identical): the port
-  builds its ``a2a`` plan and must reproduce every ``plan`` hash and the
-  ``meta`` — hashed with the fixture's own ``square_golden._hash`` (dtype,
-  shape and bytes).
+  four transports, whose plan arrays are identical): the port builds each
+  entry with its own transport and must reproduce every ``plan`` hash and
+  the ``meta`` — hashed with the fixture's own ``square_golden._hash``
+  (dtype, shape and bytes).
 * Against the reference builder in-process across modes, formats and
   grids: every plan array byte-identical, same meta, same layout maps and
-  the same ``a2a`` transport census.
+  the same census of all four transports.
 * ``to_dist``/``from_dist`` round trip; ``plan_from_arrays`` carries a
   plan across unchanged and re-derives the SELL slice descriptors.
 * SELL slices lie back to back in their stream, as the SELL kernel needs.
@@ -37,17 +37,19 @@ GOLDEN = json.loads((pathlib.Path(__file__).parent
 
 
 @functools.cache
-def _golden_plan(fmt):
+def _golden_plan(fmt, transport):
     A = graded_extruded_mesh_matrix(48, 6, seed=0)
     return build_spmv_plan(A, GOLDEN["n_node"], GOLDEN["n_core"],
-                           mode="balanced", format=fmt, transport="a2a",
+                           mode="balanced", format=fmt, transport=transport,
                            device="cpu")[0]
 
 
 @pytest.mark.parametrize("key", sorted(GOLDEN["entries"]))
 def test_golden_plan_hashes_and_meta(key):
     want = GOLDEN["entries"][key]
-    plan = _golden_plan(key.split("/")[0])
+    fmt, transport = key.split("/")
+    plan = _golden_plan(fmt, transport)
+    assert (plan.format, plan.transport) == (fmt, transport)
     assert {k: int(getattr(plan, k)) for k in PLAN_META} == want["meta"]
     got = {name: _hash(t.numpy())
            for name, t in zip(plan_fields(plan), plan_shard_arrays(plan))}
@@ -82,8 +84,9 @@ def test_plan_matches_reference_builder(mode, fmt, n_node, n_core):
     np.testing.assert_array_equal(layout["global_row_of"],
                                   rlayout["global_row_of"])
     assert layout["stats"] == pytest.approx(rlayout["stats"])
-    assert layout["transport_census"]["a2a"] == \
-        rlayout["transport_census"]["a2a"]
+    assert set(layout["transport_census"]) == {"a2a", "hier", "pairwise",
+                                                "ring"}
+    assert layout["transport_census"] == rlayout["transport_census"]
 
 
 @pytest.mark.parametrize("fmt", ["ell", "sell"])
@@ -148,6 +151,8 @@ def test_build_rejects_what_it_cannot_plan():
     zero = CSRMatrix.from_dense(np.array([[0.0, 1.0], [1.0, 2.0]]))
     with pytest.raises(ValueError, match="diagonal"):
         build_spmv_plan(zero, 1, 1, device="cpu")
-    for kw in ({"transport": "ring"}, {"format": "csr"}, {"mode": "fast"}):
+    for kw in ({"transport": "bogus"}, {"wire_dtype": "f16"},
+               {"format": "csr"}, {"mode": "fast"},
+               {"node_partition": "cols"}):
         with pytest.raises(ValueError):
             build_spmv_plan(A, 2, 2, device="cpu", **kw)

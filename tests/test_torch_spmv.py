@@ -72,9 +72,10 @@ def _plans(case, A, reference):
 def test_ghost_buffer_bit_equal(case, reference, golden):
     A, x = golden
     plan, layout, _ = _plans(case, A, reference)
-    tr, state = resolve_transport(plan)
+    tr, state = resolve_transport(plan.transport, plan)
     xd = to_dist(x, layout, plan)
-    F = {"send_own": plan.send_own, "recv_own": plan.recv_own}
+    F = {"send_own": plan.send_own, "recv_own": plan.recv_own,
+         **tr.extra_arrays(plan, state)}
     ghost = tr.exchange(xd, F, state=state, n_node=plan.n_node,
                         g_pad=plan.g_pad).numpy()
     want = reference[f"{case}/ghost"]                # (n_node, n_core, g+1)

@@ -1,6 +1,8 @@
 """Dump the JAX reference's results for the port's parity tests.
 
 Usage:  python tests/torch_reference.py OUT.npz [CASE ...]
+        python tests/torch_reference.py OUT.npz --transports
+        python tests/torch_reference.py OUT.npz --refine
 
 A case is ``FORMAT/N_NODExN_CORE`` (default: ``ell/4x2 sell/4x2 ell/1x4
 sell/1x4``) on ``graded_extruded_mesh_matrix(48, 6, seed=0)`` — the golden
@@ -18,6 +20,18 @@ set by the caller).  Writes, per case, under ``"<case>/<name>"``:
   cg_<tol>_iters maxiter 400) of ``b`` at each tol of ``TOLS``,
                  distributed layout;
   cgu_<tol>_...  the same through the unfused ``make_cg``.
+
+``--transports`` dumps, for each case of ``repro.testing.transport_check``
+with halo traffic (ell, 4×2, its seeded ``x``, ``default_rng(7)``), under
+``"<case>/<transport>/<wire dtype>/<name>"``: ``ghost``, the
+``make_exchange`` probe ``(n_node, n_core, g_pad + 1)``, and ``host``,
+the transport's ``host_exchange``.
+
+``--refine`` dumps ``make_refine`` (cg + jacobi, ``refine_check``'s inner
+tolerance per wire dtype, maxiter_inner 1000) on
+``graded_extruded_mesh_matrix(80, 6)`` at 4×2, ell and sell, for each wire
+dtype, of ``refine_check``'s RHS (``default_rng(1)``) to tol 1e-7, under
+``"<format>/<wire dtype>/<name>"``: ``cycles``, ``rel``, ``x``.
 """
 import json
 import sys
@@ -70,8 +84,72 @@ def dump_case(case: str, A, x, b) -> dict:
     return out
 
 
+def dump_transports() -> dict:
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.core import available_transports, resolve_transport, to_dist
+    from repro.core.transport import available_wire_dtypes, make_exchange
+    from repro.testing.transport_check import CASES as TCASES
+    from repro.testing.transport_check import build_case
+
+    out = {}
+    for case in TCASES:
+        A, plan, layout = build_case(case, 4, 2, "ell")
+        if not plan.hs:
+            continue
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2),
+                    ("node", "core"))
+        x = np.random.default_rng(7).normal(size=A.n_rows)
+        xd = to_dist(x, layout, plan)
+        xd_np, g = np.asarray(xd), plan.g_pad
+        for name in available_transports():
+            for wd in available_wire_dtypes():
+                key = f"{case}/{name}/{wd}"
+                out[f"{key}/ghost"] = np.asarray(make_exchange(
+                    plan, mesh, transport=name, wire_dtype=wd)(xd))
+                tr, state = resolve_transport(name, plan, wire_dtype=wd)
+                out[f"{key}/host"] = tr.host_exchange(
+                    xd_np, np.asarray(plan.send_own),
+                    np.asarray(plan.recv_own), g, state)
+    return out
+
+
+def dump_refine() -> dict:
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.core import build_spmv_plan
+    from repro.core.transport import available_wire_dtypes
+    from repro.solvers import make_refine
+    from repro.sparse import graded_extruded_mesh_matrix
+
+    A = graded_extruded_mesh_matrix(80, 6, seed=0)
+    b = np.random.default_rng(1).normal(size=A.n_rows)
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("node", "core"))
+    out = {}
+    for fmt in ("ell", "sell"):
+        for wd in available_wire_dtypes():
+            plan, layout = build_spmv_plan(A, 4, 2, format=fmt,
+                                           wire_dtype=wd)
+            res = make_refine(
+                plan, mesh, A=A, layout=layout,
+                inner_tol={"f32": 1e-5, "bf16": 1e-4}.get(wd, 1e-3),
+                maxiter_inner=1000)(b, tol=1e-7)
+            out[f"{fmt}/{wd}/cycles"] = np.asarray(res.cycles)
+            out[f"{fmt}/{wd}/rel"] = np.asarray(res.rel)
+            out[f"{fmt}/{wd}/x"] = res.x
+    return out
+
+
 def main() -> int:
     path, cases = sys.argv[1], sys.argv[2:] or CASES
+    if cases == ["--transports"]:
+        np.savez(path, **dump_transports())
+        return 0
+    if cases == ["--refine"]:
+        np.savez(path, **dump_refine())
+        return 0
     from repro.sparse import graded_extruded_mesh_matrix
 
     A = graded_extruded_mesh_matrix(48, 6, seed=0)
