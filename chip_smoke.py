@@ -82,6 +82,39 @@ check raises, so the exit code is not 0.
             size are reported.  Then at ``refine_check``'s size (graded
             80x6, 4x2, ell, its inner tolerances) every wire dtype must
             reach 1e-7 and the f64 CG oracle.  Launch counts as in 6b;
+6d. solvers  the registry solvers ``cg``, ``pipelined_cg`` and ``chebyshev``
+            (jacobi, a2a, f32) on the full-size ell and sell 4x2 plans at
+            tol 1e-5: iterations, wall ms/iteration (host clock around the
+            solve, blocks of ``CHECK_EVERY``), device ms/iteration and device
+            launches per iteration (``torch.profiler`` over 64 iterations),
+            the reduction census (one loop body), the true relative
+            residual; for chebyshev its bounds and the host seconds of the
+            f64 Lanczos estimate (made once, on the first plan, and passed
+            to the second as ``options``).  cg and pipelined_cg must reach
+            tol; chebyshev must run its a-priori budget (at this size the
+            estimated bounds miss the bottom of the spectrum and the budget
+            ends above tol).  Then the golden matrix at 4x2, ell and sell,
+            with the RHS ``default_rng(7).normal``: chebyshev exactly 906 /
+            994 iterations at 1e-5 / 3e-6 with the reference's bounds, cg
+            within ±1 of 39 / 40, every solver converged with a true
+            residual on the f32 plateau (< 1e-3).  pipelined_cg's counts
+            are printed beside the reference's 84 / 86 (ell) and 84 / 85
+            (sell) and not gated: below the plateau its count is set by
+            rounding (the reference's own moves by 3 between its plans).
+            Launch counts as in 6b;
+6e. resilience  ``resilient_solve`` on the full-size sell 4x2 plan with
+            ``check_every`` 50, per solver: the clean chunked ``x`` bit for
+            bit the monolithic ``make_solver``'s, ``nan@60`` rolled back and
+            converged, one ``bitflip`` chunk (``FaultyTransport`` on the
+            card) caught and converged (chebyshev: at the clean run's
+            residual), and chunked against monolithic ms/iteration.  The guard reads the chunk's device probe (no
+            host matrix: a host f64 matvec per chunk would dominate).  Then
+            ``python -m repro_torch.testing.resilience_check --device cuda``
+            (48x6, victim SIGKILLed, resume on 2x2 sell ring) must print
+            ``OK``.  Launch counts as in 6b, for the in-process part;
+6f. example  ``examples/cg_solve_torch.py --device cuda`` at its default size
+            as a subprocess: its closing assert holds and its JSON line
+            parses;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL), the ``nvidia-smi``
    line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -458,15 +491,15 @@ def phase_golden() -> None:
               f"golden {fmt}: {int(iters)} iterations, fixture {want} ±1")
 
 
-def solve_timed(solve, bd):
-    """One solve to tol 1e-6: ``(x, iters, rel, wall ms, iterations
+def solve_timed(solve, bd, tol: float = 1e-6):
+    """One solve to ``tol``: ``(x, iters, rel, wall ms, iterations
     run)``.  Whole blocks of ``CHECK_EVERY`` gated iterations run, so up
     to ``CHECK_EVERY - 1`` no-op iterations follow convergence."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    xs, iters, rel = solve(bd, tol=1e-6, maxiter=10_000)
+    xs, iters, rel = solve(bd, tol=tol, maxiter=10_000)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     iters_run = -(-int(iters) // CHECK_EVERY) * CHECK_EVERY
@@ -524,32 +557,52 @@ def phase_full(A, plans, x, b) -> tuple[dict, dict]:
     return launches, rows
 
 
+def device_profile(fn) -> tuple[dict, int]:
+    """``torch.profiler`` over one call of ``fn`` (then a synchronise):
+    device ms by kernel name and the number of device launches (kernels,
+    copies and fills on the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, launches = {}, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.device_time_total / 1e3)
+            launches += 1
+    return by_name, launches
+
+
+def profile_solve(solve, bd, iters: int = 64) -> tuple[dict, int]:
+    """Device time by kernel and launches over exactly ``iters``
+    iterations of ``solve`` (tol 0, after a warm block)."""
+    solve(bd, tol=0.0, maxiter=CHECK_EVERY)             # warm
+    box = {}
+
+    def run():
+        box["k"] = int(solve(bd, tol=0.0, maxiter=iters)[1])
+    by_name, launches = device_profile(run)
+    check(box["k"] == iters, f"profile: {box['k']} != {iters} iterations")
+    return by_name, launches
+
+
 def phase_profile(plans, b, full_rows, iters: int = 64) -> None:
     """Device time by kernel over ``iters`` fused-CG iterations of each 4x2
     plan (``torch.profiler``), against the unprofiled ms/iteration of
     phase ``full``: their ratio is the device's busy share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import to_dist
     from repro_torch.solvers import make_solver
 
     for key in ("ell/4x2", "sell/4x2"):
         plan, layout = plans[key]
         solve = make_solver(plan, check_every=CHECK_EVERY)
-        bd = to_dist(b, layout, plan)
-        solve(bd, tol=0.0, maxiter=CHECK_EVERY)         # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, k, _ = solve(bd, tol=0.0, maxiter=iters)
-            torch.cuda.synchronize()
-        check(int(k) == iters, f"profile {key}: {int(k)} != {iters} iters")
-        by_name = {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                                    + ev.device_time_total / 1e3)
+        by_name, launches = profile_solve(solve, to_dist(b, layout, plan),
+                                          iters)
         device_ms = sum(by_name.values()) / iters
         wall = full_rows[key]["fused"]["ms_per_iter"]
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -557,27 +610,15 @@ def phase_profile(plans, b, full_rows, iters: int = 64) -> None:
              device_ms_per_iter=device_ms, ms_per_iter_unprofiled=wall,
              busy_share=device_ms / wall,
              kernels_ms_per_iter={n[:60]: t / iters for n, t in top},
-             launches_per_iter=sum(1 for ev in prof.events()
-                                   if ev.device_type
-                                   == torch.autograd.DeviceType.CUDA)
-             / iters)
+             launches_per_iter=launches / iters)
 
 
 def device_launches(fn, calls: int = 5) -> float:
     """Device launches per call of ``fn`` (``torch.profiler``: kernels,
     copies and fills on the card)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(1 for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) / calls
+    _, launches = device_profile(lambda: [fn() for _ in range(calls)])
+    return launches / calls
 
 
 def phase_transports(plans, x, b) -> None:
@@ -756,6 +797,224 @@ def phase_refine(A, plans, b) -> None:
         check(launches[name] > 0, f"{name} never launched in refine")
 
 
+SOLVERS = ("cg", "pipelined_cg", "chebyshev")
+#: the reference's iteration counts on the golden matrix (4x2, jacobi,
+#: RHS default_rng(7).normal) at tol 1e-5 / 3e-6, and its bounds
+GOLDEN_REF = {"ell": {"cg": (39, 40), "pipelined_cg": (84, 86),
+                      "chebyshev": (906, 994)},
+              "sell": {"cg": (39, 40), "pipelined_cg": (84, 85),
+                       "chebyshev": (906, 994)}}
+#: the gate on each count; pipelined_cg's is reported and not gated: below
+#: the f32 plateau its count is set by rounding (PERF.md, Findings)
+GOLDEN_SLACK = {"cg": 1, "pipelined_cg": None, "chebyshev": 0}
+GOLDEN_BOUNDS = (1.127487e-4, 1.703558)
+
+
+def phase_solvers(A, plans, b) -> dict:
+    """The three registry solvers on the full-size 4x2 plans, then the
+    golden gates; returns Chebyshev's options (its bounds) for later
+    phases."""
+    import numpy as np
+
+    from repro_torch.core import build_spmv_plan, from_dist, to_dist
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.solvers import (chebyshev_iters_for_tol, make_solver,
+                                     reduction_census)
+    from repro_torch.sparse import graded_extruded_mesh_matrix
+
+    b64 = b.astype(np.float64)
+    cheb_opts = None
+    reset_launches()
+    for key in ("sell/4x2", "ell/4x2"):
+        plan, layout = plans[key]
+        bd = to_dist(b, layout, plan)
+        for name in SOLVERS:
+            t0 = time.perf_counter()
+            solve = make_solver(plan, solver=name, precond="jacobi", A=A,
+                                layout=layout, check_every=CHECK_EVERY,
+                                options=(cheb_opts if name == "chebyshev"
+                                         else None))
+            build_s = time.perf_counter() - t0
+            xs, iters, rel, ms, iters_run = solve_timed(solve, bd, tol=1e-5)
+            xg = from_dist(xs, layout, plan).astype(np.float64)
+            true_rel = float(np.linalg.norm(A.matvec(xg) - b64)
+                             / np.linalg.norm(b64))
+            by_name, launches = profile_solve(solve, bd)
+            row = {"plan": key, "solver": name, "iters": iters,
+                   "iters_run": iters_run, "rel": rel, "true_rel": true_rel,
+                   "ms": ms, "ms_per_iter": ms / max(iters_run, 1),
+                   "device_ms_per_iter": sum(by_name.values()) / 64,
+                   "launches_per_iter": launches / 64,
+                   "census": reduction_census(solve, bd, tol=1e-5),
+                   "build_s": build_s}
+            if name == "chebyshev":
+                row.update(lmin=solve.options["lmin"],
+                           lmax=solve.options["lmax"],
+                           estimate_s=build_s if cheb_opts is None else None)
+                cheb_opts = dict(solve.options)
+            emit("solvers", **row)
+            check(np.isfinite(xg).all(), f"{key} {name}: non-finite x")
+            if name == "chebyshev":
+                # the a-priori budget; where the estimated bounds miss the
+                # bottom of the spectrum it ends above tol (PERF.md)
+                want = chebyshev_iters_for_tol(row["lmin"], row["lmax"],
+                                               1e-5)
+                check(iters == want, f"{key} chebyshev: {iters} iterations, "
+                      f"budget {want}")
+            else:
+                check(rel <= 1e-5, f"{key} {name}: {iters} iterations, "
+                      f"rel {rel}")
+            check(row["census"] == {"cg": 2, "pipelined_cg": 1,
+                                    "chebyshev": 0}[name],
+                  f"{key} {name}: census {row['census']}")
+            check(true_rel < (1.0 if name == "chebyshev" else 1e-3),
+                  f"{key} {name}: true rel {true_rel}")
+    launches = dict(LAUNCHES)
+    emit("solvers_launches", **launches)
+    for kname in ("fused_ell_spmv", "fused_sell_spmv"):
+        check(launches[kname] > 0, f"{kname} never launched in solvers")
+
+    # the golden matrix, against the reference's counts
+    Ag = graded_extruded_mesh_matrix(48, 6, seed=0)
+    bg = np.random.default_rng(7).normal(size=Ag.n_rows)
+    for fmt in ("ell", "sell"):
+        plan, layout = build_spmv_plan(Ag, 4, 2, mode="balanced",
+                                       node_partition="nnz", format=fmt,
+                                       device=DEVICE)
+        bd = to_dist(bg, layout, plan)
+        for name in SOLVERS:
+            solve = make_solver(plan, solver=name, precond="jacobi", A=Ag,
+                                layout=layout)
+            runs = [solve(bd, tol=tol, maxiter=2000) for tol in (1e-5, 3e-6)]
+            iters = [int(it) for _, it, _ in runs]
+            rels = [float(rel) for _, _, rel in runs]
+            xg = from_dist(runs[0][0], layout, plan).astype(np.float64)
+            true_rel = float(np.linalg.norm(Ag.matvec(xg) - bg)
+                             / np.linalg.norm(bg))
+            want, slack = GOLDEN_REF[fmt][name], GOLDEN_SLACK[name]
+            emit("solvers_golden", format=fmt, solver=name, iters=iters,
+                 reference_iters=list(want), slack=slack, rel=rels,
+                 true_rel=true_rel,
+                 **({"lmin": solve.options["lmin"],
+                     "lmax": solve.options["lmax"]}
+                    if name == "chebyshev" else {}))
+            check(slack is None or all(abs(i - w) <= slack
+                                       for i, w in zip(iters, want)),
+                  f"golden {fmt} {name}: {iters} vs the reference's {want} "
+                  f"± {slack}")
+            check(all(r <= t for r, t in zip(rels, (1e-5, 3e-6)))
+                  and true_rel < 1e-3,
+                  f"golden {fmt} {name}: rel {rels}, true rel {true_rel}")
+            if name == "chebyshev":
+                for got, ref in zip((solve.options["lmin"],
+                                     solve.options["lmax"]), GOLDEN_BOUNDS):
+                    check(abs(got - ref) <= 1e-6 * ref,
+                          f"golden {fmt} chebyshev bound {got} vs {ref}")
+    return cheb_opts
+
+
+def phase_resilience(plans, b, cheb_opts) -> None:
+    """Chunked solves on the full sell 4x2 plan against the monolithic
+    ones, NaN and bitflip faults caught, then the kill-and-resume CLI."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import from_dist, to_dist
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.solvers import (make_resilient, make_solver,
+                                     resilient_solve)
+
+    plan, layout = plans["sell/4x2"]
+    bd = to_dist(b, layout, plan)
+    b64 = b.astype(np.float64)
+    every = 50
+    reset_launches()
+    for name in SOLVERS:
+        opts = cheb_opts if name == "chebyshev" else None
+        solve = make_solver(plan, solver=name, options=opts,
+                            check_every=CHECK_EVERY)
+        xs, iters, _, mono_ms, _ = solve_timed(solve, bd, tol=1e-5)
+        rs = make_resilient(plan, solver=name, layout=layout, options=opts)
+        kw = dict(layout=layout, tol=1e-5, maxiter=10_000,
+                  check_every=every, programs=rs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean = resilient_solve(plan, b64, **kw)
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        same = (int(clean.iters) == iters
+                and np.array_equal(clean.x, from_dist(xs, layout, plan)))
+        nan = resilient_solve(plan, b64, injector=FaultInjector.parse(
+            "nan@60", shard=(1, 1)), **kw)
+        flip = resilient_solve(plan, b64, injector=FaultInjector.parse(
+            "bitflip@60"), **kw)
+        row = {"plan": "sell/4x2", "solver": name, "check_every": every,
+               "iters": iters, "chunks": clean.chunks, "rel": float(clean.rel),
+               "converged": clean.converged,
+               "x_bitwise_monolithic": same,
+               "chunked_ms_per_iter": chunk_ms / max(iters, 1),
+               "monolithic_ms_per_iter": mono_ms / max(iters, 1),
+               "nan_rollbacks": nan.rollbacks, "nan_converged": nan.converged,
+               "nan_rel": float(nan.rel),
+               "nan_iters": int(nan.iters), "nan_true_rel": nan.true_rel,
+               "bitflip_rollbacks": flip.rollbacks,
+               "bitflip_converged": flip.converged, "bitflip_rel": float(flip.rel),
+               "bitflip_iters": int(flip.iters),
+               "bitflip_true_rel": flip.true_rel}
+        emit("resilience", **row)
+        check(same, f"resilience {name}: chunked x/iterations differ from "
+              f"the monolithic solve's ({int(clean.iters)} vs {iters})")
+        for kind, res in (("nan@60", nan), ("bitflip@60", flip)):
+            # Chebyshev's budget may end above tol at this size (its
+            # bounds): a faulted run is held to the clean run's residual
+            ok = res.converged or (name == "chebyshev"
+                                   and res.rel <= 1.01 * clean.rel)
+            check(res.rollbacks >= 1 and ok,
+                  f"resilience {name}: {kind} not rolled back, or rel "
+                  f"{res.rel} (clean {clean.rel})")
+    launches = dict(LAUNCHES)
+    emit("resilience_launches", **launches)
+    check(launches["fused_sell_spmv"] > 0,
+          "fused_sell_spmv never launched in resilience")
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.testing.resilience_check",
+         "--device", "cuda"], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    emit("resilience_check", rc=res.returncode, seconds=time.perf_counter()
+         - t0, lines=lines, stderr_tail=res.stderr[-2000:])
+    check(res.returncode == 0 and lines and lines[-1] == "OK",
+          "resilience_check --device cuda did not print OK")
+
+
+def phase_example() -> None:
+    """``examples/cg_solve_torch.py --device cuda`` at its default size."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "cg_solve_torch.py"),
+         "--device", "cuda"], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=900)
+    seconds = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    check(res.returncode == 0 and lines,
+          f"example failed ({res.returncode}): {res.stderr[-3000:]}")
+    results = json.loads(lines[-1])
+    emit("example", seconds=seconds, lines=lines[:-1], results=results)
+    check(results["resilient/cg"]["faulted_rollbacks"] > 0
+          and results["resilient/cg"]["faulted_converged"],
+          "example: nan@60 not rolled back")
+    check([results[f"solver/{n}"]["allreduce_per_iter"] for n in SOLVERS]
+          == [2, 1, 0], "example: reduction census is not 2 / 1 / 0")
+
+
 def library_ms(A, x) -> float:
     """One torch.sparse CSR matvec of the global matrix (the yardstick)."""
     import torch
@@ -804,6 +1063,9 @@ def main() -> int:
     phase_profile(plans, b, rows)
     phase_transports(plans, x, b)
     phase_refine(A, plans, b)
+    cheb_opts = phase_solvers(A, plans, b)
+    phase_resilience(plans, b, cheb_opts)
+    phase_example()
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
     entries.append((BALANCED[0], BALANCED[1], bal_launches[BALANCED[0]],

@@ -7,10 +7,12 @@
   test files: under ``pytest-xdist --dist loadfile`` a patch applied by one
   file would make other files pass or fail by worker placement.
 * Registers the ``cuda`` marker for tests that need an NVIDIA card.
-* Restores the reference's solver and preconditioner registries after
-  each test, for the same reason: ``tests/test_solvers.py`` registers
-  names that ``tests/test_precond.py``'s conformance sweep would then
-  expect in its subprocess's output when both files share a worker.
+* Restores the solver and preconditioner registries of both packages
+  after each test, for the same reason: ``tests/test_solvers.py``
+  registers names that ``tests/test_precond.py``'s conformance sweep
+  would then expect in its subprocess's output when both files share a
+  worker, and a solver a port test registers would leak into another
+  file's ``available_solvers()``.
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ import pytest
 #: module -> registry dict restored after every test (if the module is
 #: loaded; this file never imports the JAX package itself)
 _REGISTRIES = (("repro.solvers.base", "_SOLVERS"),
-               ("repro.solvers.precond", "_PRECONDS"))
+               ("repro.solvers.precond", "_PRECONDS"),
+               ("repro_torch.solvers.base", "_SOLVERS"),
+               ("repro_torch.solvers.precond", "_PRECONDS"))
 
 _SHIM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests", "_jaxcompat")

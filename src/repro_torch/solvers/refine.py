@@ -27,7 +27,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.solvers.base import make_solver
+from repro_torch.solvers.base import get_solver, make_solver
 
 __all__ = ["RefineResult", "make_refine", "refine_solve"]
 
@@ -52,7 +52,9 @@ def make_refine(plan, *, solver="cg", precond="jacobi",
                 A=None, layout: dict | None = None,
                 inner_tol: float = 1e-4, maxiter_inner: int = 10_000,
                 transport=None, neighbor_offsets=None,
-                wire_dtype: str | None = None, check_every: int = 16):
+                wire_dtype: str | None = None, check_every: int = 16,
+                options: dict | None = None,
+                precond_options: dict | None = None):
     """Wrap a registry solver in the f64 iterative-refinement outer loop.
 
     ``A`` (host ``CSRMatrix``) and ``layout`` (the dict ``build_spmv_plan``
@@ -60,6 +62,11 @@ def make_refine(plan, *, solver="cg", precond="jacobi",
     on the host every cycle.  ``inner_tol`` is the per-cycle inner target;
     it should sit just above the inner solve's attainable floor for the
     chosen ``wire_dtype`` (1e-4 suits bf16/int8).
+
+    ``options``/``precond_options`` go to ``make_solver``.  When the wire
+    codec (``wire_dtype``, else the plan's stamp) is lossy, the solver's
+    ``lossy_wire_options`` are merged under ``options``: explicit options
+    win.
 
     Returns ``refine(b, tol=1e-7, max_cycles=40) -> RefineResult`` for a
     single global ``(n,)`` RHS.  The inner solver is built once and shared
@@ -70,11 +77,21 @@ def make_refine(plan, *, solver="cg", precond="jacobi",
         raise ValueError("make_refine needs A= (host matrix with matvec) "
                          "and layout= for the f64 outer residual recompute")
     from repro_torch.core.spmv import from_dist, to_dist
+    from repro_torch.core.transport import get_codec, plan_wire_dtype
 
+    codec = get_codec(wire_dtype if wire_dtype is not None
+                      else plan_wire_dtype(plan))
+    if not codec.exact:
+        # solver-specific stability defaults for a quantised SpMV
+        # (pipelined CG's tighter residual-replacement period)
+        options = {**get_solver(solver).lossy_wire_options(),
+                   **(options or {})}
     solve = make_solver(plan, solver=solver, precond=precond,
                         transport=transport,
                         neighbor_offsets=neighbor_offsets,
-                        wire_dtype=wire_dtype, check_every=check_every)
+                        wire_dtype=wire_dtype, check_every=check_every,
+                        A=A, layout=layout, options=options,
+                        precond_options=precond_options)
 
     def refine(b, tol: float = 1e-7,
                max_cycles: int = 40) -> RefineResult:
@@ -128,7 +145,8 @@ def refine_solve(A, b, *, n_node: int = 1, n_core: int = 1,
                  transport=None, wire_dtype: str = "f32",
                  inner_tol: float = 1e-4, maxiter_inner: int = 10_000,
                  tol: float = 1e-7, max_cycles: int = 40,
-                 device=None) -> RefineResult:
+                 device=None, options: dict | None = None,
+                 precond_options: dict | None = None) -> RefineResult:
     """One-shot convenience: build the plan on ``device`` (default
     ``cuda``), refine, return the result."""
     from repro_torch.core.spmv import build_spmv_plan
@@ -141,5 +159,6 @@ def refine_solve(A, b, *, n_node: int = 1, n_core: int = 1,
     refine = make_refine(plan, solver=solver, precond=precond,
                          A=A, layout=layout, inner_tol=inner_tol,
                          maxiter_inner=maxiter_inner, transport=transport,
-                         neighbor_offsets=layout["neighbor_offsets"])
+                         neighbor_offsets=layout["neighbor_offsets"],
+                         options=options, precond_options=precond_options)
     return refine(b, tol=tol, max_cycles=max_cycles)

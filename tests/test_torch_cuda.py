@@ -439,3 +439,56 @@ def test_wire_codecs_encode_on_the_card_as_on_the_host(wd, golden):
     as_int = torch.int16 if wd == "bf16" else torch.int8
     assert torch.equal(host.view(as_int), card.view(as_int))
     assert torch.equal(codec.decode(card.cuda()).cpu(), codec.decode(host))
+
+
+@pytest.mark.parametrize("name", ["cg", "pipelined_cg", "chebyshev"])
+@pytest.mark.parametrize("fmt", ["ell", "sell"])
+def test_chunked_equals_monolithic_on_the_card(fmt, name, golden):
+    """A chunked resilient solve from x = 0 gives the monolithic
+    ``make_solver`` solve's x and count bit for bit on the card, and the
+    chunked loop still launches the plan's kernel."""
+    from repro_torch.core import from_dist
+    from repro_torch.solvers import resilient_solve
+
+    A, _, b = golden
+    plan, layout = _plan(f"{fmt}/4x2", A)
+    solve = make_solver(plan, solver=name, A=A, layout=layout)
+    xd, its, _ = solve(to_dist(b, layout, plan), tol=1e-5, maxiter=2000)
+    reset_launches()
+    res = resilient_solve(plan, b.astype(np.float64), layout=layout, A=A,
+                          solver=name, tol=1e-5, maxiter=2000,
+                          check_every=17, options=solve.options)
+    torch.cuda.synchronize()
+    assert LAUNCHES[CASES[f"{fmt}/4x2"]] > 0
+    assert int(res.iters) == int(its) and res.rollbacks == 0
+    np.testing.assert_array_equal(res.x, from_dist(xd, layout, plan))
+
+
+@pytest.mark.parametrize("fmt", ["ell", "sell"])
+def test_reduction_census_on_the_card(fmt, golden):
+    from repro_torch.solvers import get_solver, reduction_census
+
+    A, _, b = golden
+    plan, layout = _plan(f"{fmt}/4x2", A)
+    bd = to_dist(b, layout, plan)
+    for name in ("cg", "pipelined_cg", "chebyshev"):
+        solve = make_solver(plan, solver=name, A=A, layout=layout)
+        assert reduction_census(solve, bd, tol=1e-5) == \
+            get_solver(name).reductions_per_iter == \
+            {"cg": 2, "pipelined_cg": 1, "chebyshev": 0}[name]
+
+
+@pytest.mark.parametrize("kind", ["nan@30", "bitflip@30"])
+@pytest.mark.parametrize("name", ["cg", "pipelined_cg", "chebyshev"])
+def test_faults_rolled_back_on_the_card(name, kind, golden):
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.solvers import resilient_solve
+
+    A, _, b = golden
+    plan, layout = _plan("sell/4x2", A)
+    res = resilient_solve(plan, b.astype(np.float64), layout=layout, A=A,
+                          solver=name, tol=1e-5, maxiter=3000,
+                          check_every=20,
+                          injector=FaultInjector.parse(kind, shard=(2, 1)))
+    assert res.rollbacks >= 1 and res.converged
+    assert all(np.isfinite(w) for _, w in res.trajectory)

@@ -1,7 +1,7 @@
 """The port stands apart from the JAX package and imports without a card.
 
-* An AST scan of every module under ``src/repro_torch/`` and of
-  ``chip_smoke.py``: no ``jax`` or ``repro`` import anywhere, no ``triton``
+* An AST scan of every module under ``src/repro_torch/``, of
+  ``chip_smoke.py`` and of ``examples/cg_solve_torch.py``: no ``jax`` or ``repro`` import anywhere, no ``triton``
   import at module level, and no ``torch.sparse`` on the port's path.
 * Importing every ``repro_torch`` module in a fresh interpreter on this
   CPU-only machine works and pulls in neither ``jax`` nor ``repro``.
@@ -20,7 +20,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "src" / "repro_torch"
 MODULES = sorted(PKG.rglob("*.py"))
-FILES = MODULES + [REPO / "chip_smoke.py"]
+FILES = MODULES + [REPO / "chip_smoke.py",
+                   REPO / "examples" / "cg_solve_torch.py"]
 
 
 def _imports(tree):

@@ -9,6 +9,12 @@ RHS.  The port runs the same with ``device="cpu"``.
 Tolerances:
   * true relative residual ``<= 1e-7`` (f64, host) and ``x`` within
     ``100 · 1e-7`` of the f64 CG oracle, as ``refine_check`` holds them;
+  * ``pipelined_cg`` over a lossy codec: the options ``make_refine`` hands
+    the inner solver equal the reference's (``lossy_wire_options``, i.e.
+    ``replace_every`` 10, merged under the caller's options).  Its cycle
+    count is not compared: pipelined CG over int8 wire converges on about
+    half of the RHS seeds in either package (ROADMAP C), so the count is
+    set by rounding.
   * cycles within ±1 of the reference's.  Over lossy wire the reference's
     own count moves with the format (int8: 7 on ell, 6 on sell — the two
     plans are the same operator with another summation order): one
@@ -18,10 +24,12 @@ Tolerances:
     few iterations.  The port's count must lie within ±1 of the range the
     reference spans over its ell and sell plans.
 """
+import json
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import run_subprocess
 from repro_torch.core import build_spmv_plan
@@ -30,6 +38,16 @@ from repro_torch.sparse import graded_extruded_mesh_matrix
 from repro_torch.testing import refine_check
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The shapes here are tiny: one intra-op thread runs them faster than
+    a pool, and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -94,6 +112,44 @@ def test_refine_solve_and_refine_check_cli(system, capsys):
     assert res.converged and res.rel <= 1e-7
     assert (res.transport, res.wire_dtype) == ("pairwise", "int8")
     assert refine_check.main(["--device", "cpu", "--n-surface", "40",
-                              "--format", "sell", "--transport", "hier"]) == 0
+                              "--format", "sell", "--transport", "hier",
+                              "--solvers", "cg"]) == 0
     out = capsys.readouterr().out
     assert out.count("REFINE cg WIRE") == 3 and out.rstrip().endswith("OK")
+    # the resilient half: an int8-wire chunked solve, no rollback
+    assert "RESILIENT cg WIRE int8" in out and "ROLLBACKS 0" in out
+
+
+@pytest.mark.parametrize("wd", ["bf16", "f32", "int8"])
+def test_lossy_wire_options_merge_under_the_callers(wd, system, reference):
+    A, b, _ = system
+    plan, layout = build_spmv_plan(A, 4, 2, wire_dtype=wd, device="cpu")
+    refine = make_refine(plan, solver="pipelined_cg", A=A, layout=layout)
+    want = json.loads(str(reference[f"ell/{wd}/pipelined_cg/options"]))
+    assert refine.solve.options == want
+    assert want == ({} if wd == "f32" else {"replace_every": 10})
+    # explicit options win over the codec's defaults
+    mine = make_refine(plan, solver="pipelined_cg", A=A, layout=layout,
+                       options={"replace_every": 25})
+    assert mine.solve.options == {"replace_every": 25}
+    # an f32-wire override on an int8 plan merges nothing
+    exact = make_refine(plan, solver="pipelined_cg", A=A, layout=layout,
+                        wire_dtype="f32")
+    assert exact.solve.options == {} and exact.wire_dtype == "f32"
+
+
+def test_pipelined_cg_refines_over_int8_wire_with_the_merged_period(system):
+    """The merge is all that separates the default from an explicit
+    ``replace_every=10``: the same cycles and the same ``x`` (two cycles
+    suffice to show it)."""
+    A, b, _ = system
+    plan, layout = build_spmv_plan(A, 4, 2, format="sell", wire_dtype="int8",
+                                   device="cpu")
+    kw = dict(solver="pipelined_cg", A=A, layout=layout, maxiter_inner=300,
+              inner_tol=refine_check.inner_tol_for("int8", "pipelined_cg"))
+    merged = make_refine(plan, **kw)(b, tol=1e-7, max_cycles=2)
+    explicit = make_refine(plan, options={"replace_every": 10}, **kw)(
+        b, tol=1e-7, max_cycles=2)
+    assert merged.cycles == explicit.cycles
+    np.testing.assert_array_equal(merged.x, explicit.x)
+    assert np.isfinite(merged.x).all() and merged.inner_iters > 0

@@ -3,6 +3,8 @@
 Usage:  python tests/torch_reference.py OUT.npz [CASE ...]
         python tests/torch_reference.py OUT.npz --transports
         python tests/torch_reference.py OUT.npz --refine
+        python tests/torch_reference.py OUT.npz --solvers
+        python tests/torch_reference.py OUT.npz --resilient PORT_CKPT REF_CKPT
 
 A case is ``FORMAT/N_NODExN_CORE`` (default: ``ell/4x2 sell/4x2 ell/1x4
 sell/1x4``) on ``graded_extruded_mesh_matrix(48, 6, seed=0)`` — the golden
@@ -31,7 +33,33 @@ the transport's ``host_exchange``.
 tolerance per wire dtype, maxiter_inner 1000) on
 ``graded_extruded_mesh_matrix(80, 6)`` at 4×2, ell and sell, for each wire
 dtype, of ``refine_check``'s RHS (``default_rng(1)``) to tol 1e-7, under
-``"<format>/<wire dtype>/<name>"``: ``cycles``, ``rel``, ``x``.
+``"<format>/<wire dtype>/<name>"``: ``cycles``, ``rel``, ``x``; and the
+options ``make_refine`` gives ``pipelined_cg`` over each wire dtype (its
+``lossy_wire_options`` merged in on a lossy codec) under
+``"<format>/<wire dtype>/pipelined_cg/options"`` (a JSON string).
+
+``--solvers`` dumps, for each golden case (the default ``CASES``, the
+golden matrix and ``b``), ``make_solver(A=, layout=)`` with jacobi for each
+of ``SOLVERS`` at each tol of ``SOLVER_TOLS`` (maxiter 2000), under
+``"<case>/<solver>/<name>"``: ``<tol>_x`` (distributed layout),
+``<tol>_iters``, ``<tol>_rel``, ``lmin``/``lmax`` (chebyshev's resolved
+options), ``reductions_per_iter`` and ``census``, the all-reduce count of
+the compiled while body (``repro.util.while_body_collective_counts``);
+and, at ``examples/cg_solve.py``'s size and plan
+(``extruded_mesh_matrix(1500, 12)``, 4×2 balanced sell, RHS
+``default_rng(1)``), each solver's count at tol 1e-5 under
+``"example/<solver>/iters"``.
+
+``--resilient PORT_CKPT REF_CKPT`` works on ``resilience_check``'s system
+(``graded_extruded_mesh_matrix(48, 6)``, RHS ``default_rng(1)``, jacobi,
+tol 1e-5, check_every 10).  Under ``"<solver>/<name>"``, a clean chunked
+``resilient_solve`` per solver at 4×2, ell, a2a: ``iters``, ``x``,
+``chunks``, ``rollbacks``, ``true_rel``.  Then cg: a solve cut at maxiter
+25 writes its checkpoints to ``REF_CKPT`` (``ckpt/x``, ``ckpt/step``);
+the reference resumes from ``REF_CKPT`` and from ``PORT_CKPT`` (written by
+the port) at 2×2, sell, ring, to tol: ``resume_ref/*`` and
+``resume_port/*`` (``iters``, ``x``, ``resumed_from``, ``converged``,
+``true_rel``).
 """
 import json
 import sys
@@ -42,6 +70,10 @@ CASES = ("ell/4x2", "sell/4x2", "ell/1x4", "sell/1x4")
 #: 1e-6 is the golden fixture's tolerance; 3e-6 and 1e-5 sit above the
 #: float32 plateau where iteration counts at 1e-6 depend on rounding order
 TOLS = (1e-6, 3e-6, 1e-5)
+SOLVERS = ("cg", "pipelined_cg", "chebyshev")
+#: --solvers' tolerances: 1e-3 sits above the f32 plateau, where even
+#: pipelined_cg's count is set by the operator and not by rounding
+SOLVER_TOLS = (1e-3,) + TOLS
 PLAN_META = ("n", "n_node", "n_core", "rc_pad", "nl_pad", "g_pad", "hs",
              "mode", "format", "transport", "wire_dtype")
 
@@ -139,6 +171,103 @@ def dump_refine() -> dict:
             out[f"{fmt}/{wd}/cycles"] = np.asarray(res.cycles)
             out[f"{fmt}/{wd}/rel"] = np.asarray(res.rel)
             out[f"{fmt}/{wd}/x"] = res.x
+            refine = make_refine(plan, mesh, solver="pipelined_cg", A=A,
+                                 layout=layout)
+            out[f"{fmt}/{wd}/pipelined_cg/options"] = np.asarray(
+                json.dumps(refine.solve.options))
+    return out
+
+
+def _mesh(n_node: int, n_core: int):
+    import jax
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:n_node * n_core]).reshape(
+        n_node, n_core), ("node", "core"))
+
+
+def dump_solvers(A, b) -> dict:
+    import jax.numpy as jnp
+
+    from repro.core import build_spmv_plan, to_dist
+    from repro.solvers import get_solver, make_solver
+    from repro.sparse import extruded_mesh_matrix
+    from repro.util import while_body_collective_counts
+
+    out = {}
+    for case in CASES:
+        fmt, grid = case.split("/")
+        n_node, n_core = (int(v) for v in grid.split("x"))
+        mesh = _mesh(n_node, n_core)
+        plan, layout = build_spmv_plan(A, n_node, n_core, mode="balanced",
+                                       node_partition="nnz", format=fmt)
+        bd = to_dist(b, layout, plan)
+        for name in SOLVERS:
+            key = f"{case}/{name}"
+            solve = make_solver(plan, mesh, solver=name, precond="jacobi",
+                                A=A, layout=layout)
+            for tol in SOLVER_TOLS:
+                xs, iters, rel = solve(bd, tol=tol, maxiter=2000)
+                out[f"{key}/{tol:g}_x"] = np.asarray(xs)
+                out[f"{key}/{tol:g}_iters"] = np.asarray(iters)
+                out[f"{key}/{tol:g}_rel"] = np.asarray(rel)
+            if name == "chebyshev":
+                out[f"{key}/lmin"] = np.asarray(solve.options["lmin"])
+                out[f"{key}/lmax"] = np.asarray(solve.options["lmax"])
+            out[f"{key}/reductions_per_iter"] = np.asarray(
+                get_solver(name).reductions_per_iter)
+            out[f"{key}/census"] = np.asarray(while_body_collective_counts(
+                solve.jitted, bd, jnp.asarray(1e-5, jnp.float32),
+                jnp.asarray(2000, jnp.int32))["all-reduce"])
+    Ae = extruded_mesh_matrix(n_surface=1500, layers=12, seed=0)
+    be = np.random.default_rng(1).normal(size=Ae.n_rows)
+    plan, layout = build_spmv_plan(Ae, 4, 2, mode="balanced", format="sell")
+    for name in SOLVERS:
+        solve = make_solver(plan, _mesh(4, 2), solver=name, A=Ae,
+                            layout=layout)
+        out[f"example/{name}/iters"] = np.asarray(
+            solve(to_dist(be, layout, plan), tol=1e-5, maxiter=10_000)[1])
+    return out
+
+
+def _resilient_row(res) -> dict:
+    return {"iters": np.asarray(res.iters), "x": res.x,
+            "chunks": np.asarray(res.chunks),
+            "rollbacks": np.asarray(res.rollbacks),
+            "true_rel": np.asarray(res.true_rel),
+            "converged": np.asarray(res.converged),
+            "resumed_from": np.asarray(-1 if res.resumed_from is None
+                                       else res.resumed_from)}
+
+
+def dump_resilient(port_ckpt: str, ref_ckpt: str) -> dict:
+    from repro.checkpoint import latest_step, load
+    from repro.solvers import resilient_solve
+    from repro.sparse import graded_extruded_mesh_matrix
+
+    A = graded_extruded_mesh_matrix(48, 6, seed=0)
+    b = np.random.default_rng(1).normal(size=A.n_rows)
+    kw = dict(precond="jacobi", tol=1e-5, check_every=10)
+    out = {}
+    for name in SOLVERS:
+        res = resilient_solve(A, b, solver=name, n_node=4, n_core=2,
+                              format="ell", transport="a2a",
+                              mesh=_mesh(4, 2), maxiter=5000, **kw)
+        out.update({f"{name}/{k}": v for k, v in _resilient_row(res).items()})
+    resilient_solve(A, b, solver="cg", n_node=4, n_core=2, format="ell",
+                    transport="a2a", mesh=_mesh(4, 2), maxiter=25,
+                    checkpoint_dir=ref_ckpt, **kw)
+    step = latest_step(ref_ckpt)
+    gstate, _ = load(ref_ckpt, step,
+                     {"x": np.zeros((1, A.n_rows), np.float32)})
+    out["ckpt/step"] = np.asarray(step)
+    out["ckpt/x"] = np.asarray(gstate["x"])
+    for tag, ck in (("resume_ref", ref_ckpt), ("resume_port", port_ckpt)):
+        res = resilient_solve(A, b, solver="cg", n_node=2, n_core=2,
+                              format="sell", transport="ring",
+                              mesh=_mesh(2, 2), maxiter=5000,
+                              resume_from=ck, **kw)
+        out.update({f"{tag}/{k}": v for k, v in _resilient_row(res).items()})
     return out
 
 
@@ -150,12 +279,18 @@ def main() -> int:
     if cases == ["--refine"]:
         np.savez(path, **dump_refine())
         return 0
+    if cases[0] == "--resilient":
+        np.savez(path, **dump_resilient(*cases[1:]))
+        return 0
     from repro.sparse import graded_extruded_mesh_matrix
 
     A = graded_extruded_mesh_matrix(48, 6, seed=0)
     rng = np.random.default_rng(7)
     x = rng.standard_normal(A.n_rows).astype(np.float32)
     b = rng.standard_normal(A.n_rows).astype(np.float32)
+    if cases == ["--solvers"]:
+        np.savez(path, **dump_solvers(A, b))
+        return 0
     arrays = {}
     for case in cases:
         for name, arr in dump_case(case, A, x, b).items():
