@@ -115,8 +115,39 @@ check raises, so the exit code is not 0.
 6f. example  ``examples/cg_solve_torch.py --device cuda`` at its default size
             as a subprocess: its closing assert holds and its JSON line
             parses;
-7. the ``kernels`` line (B1-B4, B5 and the flat ELL), the ``nvidia-smi``
-   line, and the last line ``{"ok": true, "device": {...}}``.
+6g. rect     rectangular plans at full size: ``check_plan`` and
+            ``check_kernel_streams`` (what ``verify=True`` runs) on the 4x2
+            ell and sell plans with no error; the agg-16 restriction R
+            (80,000 x 1.28M, columns pinned to A's row space) and P = Rᵀ
+            (rows pinned to A's, columns to R's) built with
+            ``verify=True``, each against a host f64 CSR matvec (rel <=
+            1e-5), every transport bit for bit ``a2a``, a pinned rebuild
+            bit for bit; ``rect_check --device cuda`` at 4x2 and
+            halo-free 1x8 printing ``OK``.  Launch counts are zeroed
+            before and read after that path: every kernel must have
+            launched.  Then the kernel at each of R's and P's shapes
+            against its plain version (2e-5·max|y|), timed as in phase 3,
+            with the library's time for the same R or P;
+6h. precond  (TF32 matmuls must be off) ``precond_check --device cuda`` on
+            graded, single and halofree printing ``OK``, and failing with
+            ``--include-faulty``; ``--scaling`` with its counts beside the
+            reference's (two_level gated within ±1 of 24 / 26 / 25 and
+            flat; block_jacobi's, on the f32 plateau at the first mesh,
+            printed); cg to tol 1e-6 with jacobi, block_jacobi and
+            two_level (agg 8, block_jacobi smoother) on
+            ``graded_extruded_mesh_matrix(500, 64)`` (32,000 rows) at 4x2
+            ell and sell, and jacobi then two_level (agg 256, jacobi
+            smoother) on the full sell 4x2 plan.  Each solve: iterations,
+            wall and device ms/iteration, launches per iteration, the
+            census (2), the true residual (< 1e-4), the host seconds of
+            the build; for two_level one apply's device time by kernel,
+            and the coarse correction's device ms per iteration (its
+            solve's less its smoother's alone) and share.  Launch counts
+            as in 6b;
+7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
+   and P's shapes with phase 6g's launches and the library's time on R or
+   P), the ``nvidia-smi`` line, and the last line ``{"ok": true,
+   "device": {...}}``.
 
 ``library_ms`` is one ``torch.sparse`` CSR matvec of the same global
 matrix (cuSPARSE) — the yardstick only; the port never calls it.
@@ -205,6 +236,32 @@ def ell_bytes(vals, cols, lens, xs) -> tuple[int, int, int]:
     per = vals[0].element_size() + cols[0].element_size()
     return (real * per + nbytes(*lens, *xs), 2 * real,
             nbytes(*vals, *cols, *xs))
+
+
+def kernel_cost(fmt, F, xl, xg) -> tuple[int, int, int | None]:
+    """``(bytes, flops, stored bytes or None)`` of one local matvec on
+    ``F``: ELL as ``ell_bytes`` counts it; SELL its stored entries and
+    slice descriptors, one multiply and one add per stored entry (f32,
+    outside the tensor cores)."""
+    fields = read_fields(fmt, xg)
+    if fmt.name == "ell":
+        return ell_bytes(*([F[k] for k in fields if k.endswith(f)]
+                           for f in ("vals", "cols", "len")), [xl, xg])
+    return (nbytes(*(F[k] for k in fields), xl, xg),
+            2 * sum(F[k].numel() for k in fields if k.endswith("vals")),
+            None)
+
+
+def run_cli(main, argv) -> tuple[int, list[str]]:
+    """A checker's ``main(argv)`` in this process: ``(exit code, stdout
+    lines)``."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue().strip().splitlines()
 
 
 # ---------------------------------------------------------------------- #
@@ -318,18 +375,7 @@ def phase_kernels(plans, x, bw, f32_peak) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             F = {k: (v.to(dtype) if v.is_floating_point() else v)
                  for k, v in plan.fmt_data.items()}
-            fields = read_fields(fmt, xg)
-            if fmt.name == "ell":
-                byts, flops, stored = ell_bytes(
-                    *([F[k] for k in fields if k.endswith(f)]
-                      for f in ("vals", "cols", "len")), [xl, xg])
-            else:
-                # one multiply and one add per stored entry, f32 outside
-                # the tensor cores
-                byts = nbytes(*(F[k] for k in fields), xl, xg)
-                flops = 2 * sum(F[k].numel() for k in fields
-                                if k.endswith("vals"))
-                stored = None
+            byts, flops, stored = kernel_cost(fmt, F, xl, xg)
             row = measure(
                 "kernel", {"kernel": name, "plan": key,
                            "dtype": str(dtype)[6:]},
@@ -1015,6 +1061,288 @@ def phase_example() -> None:
           == [2, 1, 0], "example: reduction census is not 2 / 1 / 0")
 
 
+#: fine rows per aggregate of phase rect's restriction R (80,000 x 1.28M)
+RECT_AGG = 16
+
+
+def restriction(n: int, agg: int):
+    """The two-level preconditioner's 0/1 restriction: row ``a`` sums
+    fine rows ``[a * agg, (a + 1) * agg)``."""
+    import numpy as np
+
+    from repro_torch.sparse import CSRMatrix
+
+    agg_of = np.arange(n, dtype=np.int64) // agg
+    return CSRMatrix.from_coo(agg_of, np.arange(n, dtype=np.int64),
+                              np.ones(n), (int(agg_of[-1]) + 1, n))
+
+
+def phase_rect(A, plans, bw, f32_peak) -> tuple[dict, dict]:
+    """Rectangular plans at full size: the static checks on A's 4x2 plans,
+    R (agg 16, columns pinned to A's rows) and P = Rᵀ (rows pinned to A's,
+    columns to R's) built with ``verify=True``, each against a host f64
+    matvec, every transport bit for bit a2a, a pinned rebuild bit for bit;
+    then ``rect_check --device cuda``.  Launch counts are zeroed before
+    and read after that path.  Then each kernel at R's and P's shapes
+    against its plain version, timed, with its bound and the library's
+    time for the same matrix.  Returns the path's launch counts and the
+    kernel rows by label."""
+    import numpy as np
+
+    from repro_torch.analysis import check_kernel_streams, check_plan
+    from repro_torch.core import (available_transports, build_spmv_plan,
+                                  from_dist, make_shard_body, make_spmv,
+                                  to_dist)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.sparse import get_format
+    from repro_torch.testing import rect_check
+    from repro_torch.testing.transport_check import bits_equal
+
+    R = restriction(A.n_rows, RECT_AGG)
+    mats = {"R": R, "P": R.transpose()}
+    rng = np.random.default_rng(SEED + 2)
+    xs = {k: rng.standard_normal(M.n_cols).astype(np.float32)
+          for k, M in mats.items()}
+    built = {}
+    reset_launches()
+    for fmt in ("ell", "sell"):
+        plan_A, layout_A = plans[f"{fmt}/4x2"]
+        t0 = time.perf_counter()
+        rep = check_plan(plan_A, layout_A)
+        rep.extend(check_kernel_streams(plan_A).violations)
+        emit("rect_verify", plan=f"{fmt}/4x2", checks=rep.checks,
+             errors=len(rep.errors), warnings=len(rep.warnings),
+             seconds=time.perf_counter() - t0)
+        check(not rep.errors, f"{fmt}/4x2: {rep.summary()}")
+        pins = {"R": {"col_space": layout_A["row_space"]}}
+        for key in ("R", "P"):
+            M, x = mats[key], xs[key]
+            if key == "P":
+                pins["P"] = {"row_space": layout_A["row_space"],
+                             "col_space": built[(fmt, "R")][1]["row_space"]}
+            t0 = time.perf_counter()
+            plan, layout = build_spmv_plan(
+                M, 4, 2, mode="balanced", node_partition="nnz", format=fmt,
+                verify=True, device=DEVICE, **pins[key])
+            build_s = time.perf_counter() - t0
+            built[(fmt, key)] = (plan, layout)
+            xd = to_dist(x, layout, plan, space="col")
+            y_ref = make_spmv(plan, transport="a2a")(xd)
+            y_host = M.matvec(x.astype(np.float64))
+            y = from_dist(y_ref, layout, plan, space="row")
+            rel = float(np.abs(y - y_host).max() / np.abs(y_host).max())
+            xident = {t: bits_equal(make_spmv(plan, transport=t)(xd), y_ref)
+                      for t in available_transports()}
+            t0 = time.perf_counter()
+            plan2, layout2 = build_spmv_plan(
+                M, 4, 2, mode="balanced", node_partition="nnz", format=fmt,
+                row_space=layout["row_space"],
+                col_space=layout["col_space"], device=DEVICE)
+            pin_s = time.perf_counter() - t0
+            pin = bits_equal(make_spmv(plan2)(
+                to_dist(x, layout2, plan2, space="col")), y_ref)
+            del plan2, layout2
+            emit("rect", plan=f"{fmt}/4x2", matrix=key, shape=list(M.shape),
+                 nnz=M.nnz, rc_pad=plan.rc_pad, cc_pad=plan.cc_pad,
+                 nl_pad=plan.nl_pad, g_pad=plan.g_pad, hs=plan.hs,
+                 fields={k: list(v.shape) for k, v in plan.fmt_data.items()},
+                 build_verify_s=build_s, pinned_build_s=pin_s,
+                 host_rel_err=rel, xident=xident, pinned_bitwise=pin)
+            check(rel <= 1e-5, f"rect {fmt} {key}: rel err {rel} > 1e-5")
+            check(all(xident.values()), f"rect {fmt} {key}: {xident}")
+            check(pin, f"rect {fmt} {key}: pinned rebuild differs")
+    # rect_check's grid, then halo-free (1x8: B3, B4)
+    for grid in ((4, 2), (1, 8)):
+        t0 = time.perf_counter()
+        rc, lines = run_cli(rect_check.main, [
+            "--device", "cuda", "--n-node", str(grid[0]),
+            "--n-core", str(grid[1])])
+        emit("rect_check", grid=list(grid), rc=rc,
+             seconds=time.perf_counter() - t0,
+             lines=[ln for ln in lines if not ln.startswith("  ")])
+        check(rc == 0 and lines and lines[-1] == "OK",
+              f"rect_check --device cuda at {grid} did not print OK")
+    launches = dict(LAUNCHES)
+    emit("rect_launches", **launches)
+    for name in KERNELS:
+        check(launches[name] > 0, f"{name} never launched in rect")
+
+    rows = {}
+    for (fmt, key), (plan, layout) in built.items():
+        fobj = get_format(fmt)
+        xl, xg = make_shard_body(plan).inputs(
+            to_dist(xs[key], layout, plan, space="col"))
+        F = plan.fmt_data
+        byts, flops, stored = kernel_cost(fobj, F, xl, xg)
+        kname = {("ell", True): "fused_ell_spmv", ("ell", False): "ell_spmv",
+                 ("sell", True): "fused_sell_spmv",
+                 ("sell", False): "sell_spmv"}[(fmt, xg is not None)]
+        row = measure(
+            "rect_kernel", {"kernel": kname, "plan": f"{fmt}/4x2/{key}",
+                            "dtype": "float32",
+                            "x_local": list(xl.shape),
+                            "x_ghost": None if xg is None else list(xg.shape)},
+            lambda: fobj.matvec_kernel(F, xl, xg, plan.rc_pad),
+            lambda: fobj.matvec_plain(F, xl, xg, plan.rc_pad),
+            byts, flops, bw, f32_peak,
+            None if stored is None else {"stored": stored})
+        row["library_ms"] = library_ms(mats[key], xs[key])
+        emit("rect_library", plan=row["plan"], ms=row["library_ms"])
+        rows[f"{fmt}/{key}"] = row
+    del built
+    return launches, rows
+
+
+#: the reference's scaling counts under jax 0.9.0 (ROADMAP A0): CG tol
+#: 1e-6 on graded (48, 6/12/24), 4x2 rows-partition ell
+SCALING_REF = {"block_jacobi": [43, 37, 41], "two_level": [24, 26, 25]}
+
+
+def precond_solve(A, plan, layout, b, label: str, pname: str,
+                  po: dict | None, base: dict | None = None) -> dict:
+    """One cg solve to 1e-6 with a preconditioner: the emitted row.  For
+    two_level, the device time of one apply by kernel (10 warm calls),
+    and, given ``base`` (the row of its smoother alone on the same plan),
+    the coarse correction's device ms per iteration: the difference of
+    the two solves' device ms per iteration, and its share."""
+    import numpy as np
+
+    from repro_torch.core import from_dist, to_dist
+    from repro_torch.solvers import make_solver, reduction_census
+
+    t0 = time.perf_counter()
+    solve = make_solver(plan, solver="cg", precond=pname, A=A,
+                        layout=layout, precond_options=po,
+                        check_every=CHECK_EVERY)
+    build_s = time.perf_counter() - t0
+    bd = to_dist(b, layout, plan)
+    xs, iters, rel, ms, iters_run = solve_timed(solve, bd)
+    xg = from_dist(xs, layout, plan).astype(np.float64)
+    b64 = b.astype(np.float64)
+    true_rel = float(np.linalg.norm(A.matvec(xg) - b64)
+                     / np.linalg.norm(b64))
+    by_name, launches = profile_solve(solve, bd)
+    device_ms = sum(by_name.values()) / 64
+    row = {"plan": label, "precond": pname, "options": po, "iters": iters,
+           "iters_run": iters_run, "rel": rel, "true_rel": true_rel,
+           "ms_per_iter": ms / max(iters_run, 1),
+           "device_ms_per_iter": device_ms,
+           "launches_per_iter": launches / 64,
+           "census": reduction_census(solve, bd, tol=1e-6),
+           "build_s": build_s,
+           "host_s": getattr(solve.papply, "host_seconds", None)}
+    if pname == "two_level":
+        r = bd[None]
+
+        def apply():
+            return solve.papply(solve.pdata, r)
+        apply()
+        per, _ = device_profile(lambda: [apply() for _ in range(10)])
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+        row.update(apply_device_ms=sum(per.values()) / 10,
+                   apply_kernels_ms={n[:60]: t / 10 for n, t in top},
+                   nc=int(solve.pdata["ainv_c"].shape[-1]),
+                   **{f"{k}_plan": {"rc_pad": pl.rc_pad, "cc_pad": pl.cc_pad,
+                                    "hs": pl.hs, "g_pad": pl.g_pad}
+                      for k, (pl, _) in solve.papply.plans.items()})
+        if base is not None:
+            coarse = device_ms - base["device_ms_per_iter"]
+            row.update(coarse_device_ms=coarse,
+                       coarse_share=coarse / device_ms if device_ms else None,
+                       coarse_against=base["precond"])
+    emit("precond", **row)
+    check(np.isfinite(xg).all(), f"precond {label} {pname}: non-finite x")
+    check(rel <= 1e-6, f"precond {label} {pname}: {iters} iterations, "
+          f"rel {rel}")
+    check(true_rel < 1e-4, f"precond {label} {pname}: true rel {true_rel}")
+    check(row["census"] == 2, f"precond {label} {pname}: census "
+          f"{row['census']}")
+    return row
+
+
+def phase_precond(A, plans, b) -> dict:
+    """The preconditioners on the card: ``precond_check`` (graded, single,
+    halofree; faulty caught), the scaling regression beside the
+    reference's counts, cg with jacobi / block_jacobi / two_level on the
+    32,000-row 4x2 plans, and jacobi then two_level (agg 256, jacobi
+    smoother) on the full sell 4x2 plan.  Launch counts are zeroed before
+    and read after; returns them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_spmv_plan
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.sparse import graded_extruded_mesh_matrix
+    from repro_torch.testing import precond_check
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the dense products must run in f32")
+    reset_launches()
+    for case in precond_check.CASES:
+        t0 = time.perf_counter()
+        rc, lines = run_cli(precond_check.main,
+                            ["--device", "cuda", "--case", case])
+        emit("precond_check", case=case, rc=rc, lines=lines,
+             seconds=time.perf_counter() - t0)
+        check(rc == 0 and lines[-1] == "OK",
+              f"precond_check --case {case} did not print OK")
+    rc, lines = run_cli(precond_check.main,
+                        ["--device", "cuda", "--include-faulty"])
+    emit("precond_check", case="graded", include_faulty=True, rc=rc,
+         lines=[ln for ln in lines if "faulty" in ln or ln == lines[-1]])
+    check(rc == 1 and lines[-1] == "FAIL",
+          "precond_check --include-faulty did not fail")
+
+    rc, lines = run_cli(precond_check.main, ["--device", "cuda",
+                                             "--scaling"])
+    sc = json.loads(next(ln for ln in lines
+                         if ln.startswith("SCALING "))[len("SCALING "):])
+    emit("precond_scaling", rc=rc, last=lines[-1],
+         block_jacobi=sc["block_jacobi"]["iters"],
+         two_level=sc["two_level"]["iters"], reference=SCALING_REF,
+         tl_flat_ratio=sc["tl_flat_ratio"])
+    check(sc["tl_flat_ratio"] <= sc["flat_bound"]
+          and all(abs(i - w) <= 1 for i, w in
+                  zip(sc["two_level"]["iters"], SCALING_REF["two_level"])),
+          f"scaling: two_level {sc['two_level']['iters']} against "
+          f"{SCALING_REF['two_level']} ± 1")
+
+    Am = graded_extruded_mesh_matrix(500, 64, seed=0)
+    bm = np.random.default_rng(SEED + 3).standard_normal(
+        Am.n_rows).astype(np.float32)
+    for fmt in ("ell", "sell"):
+        t0 = time.perf_counter()
+        plan, layout = build_spmv_plan(Am, 4, 2, mode="balanced",
+                                       node_partition="rows", format=fmt,
+                                       device=DEVICE)
+        emit("precond_plan", plan=f"{fmt}/4x2", rows=Am.n_rows, nnz=Am.nnz,
+             rc_pad=plan.rc_pad, seconds=time.perf_counter() - t0)
+        rows = {}
+        for pname, po in (("jacobi", None), ("block_jacobi", None),
+                          ("two_level", {"agg_size": 8,
+                                         "smoother": "block_jacobi"})):
+            rows[pname] = precond_solve(Am, plan, layout, bm,
+                                        f"{fmt}/4x2/{Am.n_rows}", pname, po,
+                                        base=rows.get("block_jacobi"))
+        del plan, layout
+    plan, layout = plans["sell/4x2"]
+    jacobi = precond_solve(A, plan, layout, b, "sell/4x2", "jacobi", None)
+    row = precond_solve(A, plan, layout, b, "sell/4x2", "two_level",
+                        {"agg_size": 256, "smoother": "jacobi"}, base=jacobi)
+    emit("precond_full", two_level_iters=row["iters"],
+         jacobi_iters=jacobi["iters"], ratio=row["iters"] / jacobi["iters"],
+         time_to_tol_ms={"jacobi": jacobi["ms_per_iter"]
+                         * jacobi["iters_run"],
+                         "two_level": row["ms_per_iter"] * row["iters_run"]})
+    launches = dict(LAUNCHES)
+    emit("precond_launches", **launches)
+    # two_level's R and P are ELL plans, halo-free on halofree's 1x8 grid;
+    # the solves run A's own kernel (sell_spmv runs on no plan here)
+    for name in ("fused_ell_spmv", "ell_spmv", "fused_sell_spmv"):
+        check(launches[name] > 0, f"{name} never launched in precond")
+    return launches
+
+
 def library_ms(A, x) -> float:
     """One torch.sparse CSR matvec of the global matrix (the yardstick)."""
     import torch
@@ -1066,8 +1394,15 @@ def main() -> int:
     cheb_opts = phase_solvers(A, plans, b)
     phase_resilience(plans, b, cheb_opts)
     phase_example()
+    rect_launches, rect = phase_rect(A, plans, bw, f32_peak)
+    phase_precond(A, plans, b)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
+    # each kernel at R's and P's shapes, with its launches in phase rect
+    for label, row in rect.items():
+        name = row["kernel"]
+        entries.append((f"{name}/{label}", KERNELS[name][1],
+                        rect_launches[name], row))
     entries.append((BALANCED[0], BALANCED[1], bal_launches[BALANCED[0]],
                     bal[BALANCED[2]]))
     entries.append((FLAT_ELL[0], FLAT_ELL[1], bal_launches["ell_spmv"],
@@ -1077,7 +1412,8 @@ def main() -> int:
          "replaces": replaces, "launches": n,
          **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by")},
-         "library_ms": lib} for name, replaces, n, row in entries]}),
+         "library_ms": row.get("library_ms", lib)}
+        for name, replaces, n, row in entries]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,11 @@ and a halo wire dtype (``f32`` | ``bf16`` | ``int8``), ``make_shard_body``
 dispatches the owner-split exchange to it, and ``transport="auto"``
 times the candidates on the plan's device and stamps the winner.
 
-Square plans only so far (``n_cols == n``); the rectangular column space
-waits for later work.
+Plans may be rectangular (``n_cols != n``): outputs and Krylov vectors
+live in the **row space** ``(n_node, n_core, rc_pad)``, SpMV inputs in the
+**column space** ``(n_node, n_core, cc_pad)``, whose own partition keys
+the halo plan and ``x_gather``.  A square plan with no column-space
+override has one space for both, array for array the historical plan.
 """
 from __future__ import annotations
 
@@ -48,6 +51,10 @@ __all__ = ["SpMVPlan", "build_spmv_plan", "plan_from_arrays", "make_spmv",
 
 MODES = ("vector", "task", "balanced")
 
+#: local matvec of the shard body: the kernel wrappers or their plain
+#: versions
+BACKENDS = ("kernel", "plain")
+
 #: shard slot counts are multiples of this (the JAX package's default)
 ROWS_ALIGN = 8
 
@@ -65,15 +72,20 @@ class SpMVPlan:
     """Device-ready distributed matrix + halo plan.
 
     Leading axes of every tensor are ``(n_node, n_core, ...)``.  Vectors in
-    "CG layout" are ``(n_node, n_core, rc_pad)``.  Field names, dtypes,
-    shapes and meta are the JAX package's ``SpMVPlan``'s, so every array
-    and every vector compares slot for slot with the reference.
+    "CG layout" (the row space: SpMV outputs, Krylov iterates) are
+    ``(n_node, n_core, rc_pad)``; SpMV inputs live in the column space,
+    ``(n_node, n_core, cc_pad)`` (``x_shape``).  On a square plan with the
+    default column space the two coincide (``cc_pad == rc_pad``,
+    ``mask_col is mask``).  Field names, dtypes, shapes and meta are the
+    JAX package's ``SpMVPlan``'s, so every array and every vector compares
+    slot for slot with the reference.
     """
 
     # format-owned local matrix blocks: the format's ``fields`` and its
     # ``aux_fields``
     fmt_data: dict[str, torch.Tensor]
-    # owner-split halo plan (indices into the core's own (rc_pad,) shard)
+    # owner-split halo plan (indices into the core's own (cc_pad,) input
+    # shard)
     send_own: torch.Tensor    # (n_node, n_core, n_node, hs) int32
     recv_own: torch.Tensor    # (n_node, n_core, n_node, hs) int32 -> slot
     # vector layout maps
@@ -92,9 +104,11 @@ class SpMVPlan:
     format: str
     transport: str = "a2a"
     wire_dtype: str = "f32"
-    # square plans: the column space is the row space
+    # column-space meta (-1: the row space's, as on a square plan)
     n_cols: int = -1
     cc_pad: int = -1
+    # (n_node, n_core, cc_pad) 1 valid / 0 padding in the input layout;
+    # ``mask`` itself on a square plan with the default column space
     mask_col: torch.Tensor | None = None
 
     def __post_init__(self):
@@ -104,9 +118,6 @@ class SpMVPlan:
             self.cc_pad = self.rc_pad
         if self.mask_col is None:
             self.mask_col = self.mask
-        if self.n_cols != self.n or self.cc_pad != self.rc_pad:
-            raise ValueError("only square plans are supported "
-                             f"(n={self.n}, n_cols={self.n_cols})")
 
     @property
     def cg_shape(self) -> tuple[int, int, int]:
@@ -145,9 +156,12 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
                     format: str | ShardFormat = "ell",
                     transport: str | HaloTransport = "a2a",
                     wire_dtype: str = "f32",
-                    node_partition: str | None = None, device=None
+                    node_partition: str | None = None,
+                    row_space: dict | None = None,
+                    col_space: dict | None = None,
+                    verify: bool = False, device=None
                     ) -> tuple[SpMVPlan, dict]:
-    """Partition square ``A``, split diag/offdiag, pack shard blocks + halo
+    """Partition ``A``, split diag/offdiag, pack shard blocks + halo
     plan, and place them on ``device`` (default ``cuda``) in float32.
 
     ``mode="balanced"`` balances non-zeros on **both** mesh axes
@@ -160,28 +174,46 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
     ``make_solver``), ``wire_dtype`` the halo wire codec (``"f32"`` |
     ``"bf16"`` | ``"int8"``, validated here).
 
+    ``A`` may be **rectangular** (``n_rows != n_cols``): the row partition
+    keys the output slot layout, mask and diagonal, while a separate
+    column-space partition (the same two-level split over per-column nnz)
+    keys column ownership: the halo plan, ``x_gather`` and the input
+    layout ``plan.x_shape``.  A square ``A`` with no ``col_space`` takes
+    the historical square path unchanged.  ``row_space`` / ``col_space``
+    pin a partition to another plan's ``layout["row_space"]`` /
+    ``layout["col_space"]`` (``node_bounds``, ``core_bounds``, ``lr`` the
+    per-node bin slots, ``pad`` the slot count) instead of computing one:
+    how a restriction or prolongation locks onto the fine operator's exact
+    slot layout, a SELL plan's σ-window permutation included.
+    ``verify=True`` runs the static checker's host layers
+    (``repro_torch.analysis``: plan invariants and kernel index-stream
+    bounds) on the finished plan and raises ``ValueError`` on any
+    error-severity violation.
+
     Returns ``(plan, layout)``: ``layout`` carries the host index arrays
-    ``to_dist``/``from_dist`` use, the partition, the halo plan, a
-    ``stats`` dict (per-axis imbalance, padding waste) and the
-    ``transport_census`` and the populated ``neighbor_offsets``.  Every
-    plan array is byte-identical to the JAX package's ``build_spmv_plan``
-    for the same arguments (its defaults ``rows_align=8``,
-    ``width_align=1``, ``dtype=float32``).
+    ``to_dist``/``from_dist`` use (``global_row_of``, ``global_col_of``),
+    the partition and both exported spaces, the halo plan, a ``stats``
+    dict (per-axis imbalance, padding waste), the ``transport_census`` and
+    the populated ``neighbor_offsets``.  Every plan array is
+    byte-identical to the JAX package's ``build_spmv_plan`` for the same
+    arguments (its defaults ``rows_align=8``, ``width_align=1``,
+    ``dtype=float32``).
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if A.n_rows < 1:
         raise ValueError("build_spmv_plan: empty row space "
                          f"(A.shape = {A.shape})")
-    if A.n_cols != A.n_rows:
-        raise ValueError(f"build_spmv_plan: only square matrices are "
-                         f"supported, got shape {A.shape}")
+    if A.n_cols < 1:
+        raise ValueError("build_spmv_plan: empty column space "
+                         f"(A.shape = {A.shape})")
     if A.indices.size:
         c_lo, c_hi = int(A.indices.min()), int(A.indices.max())
         if c_lo < 0 or c_hi >= A.n_cols:
             raise ValueError(
                 "build_spmv_plan: stored column index out of range for "
-                f"shape {A.shape}: indices span [{c_lo}, {c_hi}]")
+                f"shape {A.shape}: indices span [{c_lo}, {c_hi}] but "
+                f"n_cols = {A.n_cols}")
     device = resolve_device(device)
     if transport != "auto":
         transport = transport_stamp(transport)    # fail fast on typos
@@ -194,16 +226,52 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
                          f"{node_partition!r}")
     fmt = get_format(format)
     n = A.n_rows
-    node_bounds, core_bounds_all = partition_two_level(
-        A.row_nnz, n_node, n_core, node_partition=node_partition,
-        core_partition=core_partition)
+    if row_space is not None:
+        node_bounds = np.asarray(row_space["node_bounds"], dtype=np.int64)
+        core_bounds_all = [np.asarray(cb, dtype=np.int64)
+                           for cb in row_space["core_bounds"]]
+        if len(node_bounds) != n_node + 1 or int(node_bounds[-1]) != n:
+            raise ValueError(
+                f"row_space pin inconsistent with A: node_bounds covers "
+                f"[0, {int(node_bounds[-1])}] over {len(node_bounds) - 1} "
+                f"node(s), matrix has {n} rows on {n_node} node(s)")
+    else:
+        node_bounds, core_bounds_all = partition_two_level(
+            A.row_nnz, n_node, n_core, node_partition=node_partition,
+            core_partition=core_partition)
+
+    # the column-space partition: the row partition itself for a square
+    # A with no override (the historical plan, bit for bit), else pinned
+    # or a two-level split over per-column nnz
+    square_default = A.n_cols == n and col_space is None
+    if square_default:
+        col_node_bounds, col_core_bounds = node_bounds, core_bounds_all
+    elif col_space is not None:
+        col_node_bounds = np.asarray(col_space["node_bounds"],
+                                     dtype=np.int64)
+        col_core_bounds = [np.asarray(cb, dtype=np.int64)
+                           for cb in col_space["core_bounds"]]
+        if (len(col_node_bounds) != n_node + 1
+                or int(col_node_bounds[-1]) != A.n_cols):
+            raise ValueError(
+                f"col_space pin inconsistent with A: node_bounds covers "
+                f"[0, {int(col_node_bounds[-1])}] over "
+                f"{len(col_node_bounds) - 1} node(s), matrix has "
+                f"{A.n_cols} columns on {n_node} node(s)")
+    else:
+        col_nnz = np.bincount(A.indices.astype(np.int64),
+                              minlength=A.n_cols)
+        col_node_bounds, col_core_bounds = partition_two_level(
+            col_nnz, n_node, n_core, node_partition=node_partition,
+            core_partition=core_partition)
 
     diag_nodes: list[CSRMatrix] = []
     offd_nodes: list[CSRMatrix] = []
     ghost_cols: list[np.ndarray] = []
     for i in range(n_node):
         lo, hi = int(node_bounds[i]), int(node_bounds[i + 1])
-        diag_i, offd_i, ghosts = A.row_slice(lo, hi).col_split(lo, hi)
+        clo, chi = int(col_node_bounds[i]), int(col_node_bounds[i + 1])
+        diag_i, offd_i, ghosts = A.row_slice(lo, hi).col_split(clo, chi)
         ghost_cols.append(ghosts)
         diag_nodes.append(diag_i)
         offd_nodes.append(offd_i)
@@ -211,24 +279,46 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
     # uniform static shapes across every (node, core) shard
     rc_pad = align_up(max(int(np.diff(cb).max()) for cb in core_bounds_all),
                       ROWS_ALIGN)
-    nl_pad = align_up(max(int(node_bounds[i + 1] - node_bounds[i])
+    if row_space is not None and row_space.get("pad") is not None:
+        if int(row_space["pad"]) < rc_pad:
+            raise ValueError(f"row_space pad {row_space['pad']} smaller "
+                             f"than the largest core bin ({rc_pad} slots)")
+        rc_pad = int(row_space["pad"])
+    if square_default:
+        cc_pad = rc_pad
+    else:
+        cc_pad = align_up(max(int(np.diff(cb).max())
+                              for cb in col_core_bounds), ROWS_ALIGN)
+        if col_space is not None and col_space.get("pad") is not None:
+            if int(col_space["pad"]) < cc_pad:
+                raise ValueError(
+                    f"col_space pad {col_space['pad']} smaller than the "
+                    f"largest column core bin ({cc_pad} slots)")
+            cc_pad = int(col_space["pad"])
+    # x_gather width: the widest node-local column count
+    nl_pad = align_up(max(int(col_node_bounds[i + 1] - col_node_bounds[i])
                           for i in range(n_node)), ROWS_ALIGN)
 
     x_gather = np.zeros((n_node, n_core, nl_pad), dtype=np.int32)
     mask = np.zeros((n_node, n_core, rc_pad), dtype=np.float64)
     diag_a = np.ones((n_node, n_core, rc_pad), dtype=np.float64)
     global_row_of = np.full((n_node, n_core, rc_pad), -1, dtype=np.int64)
-    # bin-local row id -> vector-layout slot, per shard (for the halo remap)
-    slot_of = np.zeros((n_node, n_core, rc_pad), dtype=np.int32)
+    # bin-local column id -> input-layout slot, per shard (for the halo
+    # remap)
+    slot_of = np.zeros((n_node, n_core, cc_pad), dtype=np.int32)
 
-    diag_full = A.diagonal()
-    zero_diag = np.flatnonzero(diag_full == 0)
-    if zero_diag.size:
-        raise ValueError(
-            f"A has a zero or missing diagonal entry on {zero_diag.size} "
-            f"owned row(s) (first: row {int(zero_diag[0])}); the Jacobi "
-            "preconditioner 1/diag(A) would be infinite there.  Add a "
-            "diagonal shift or fix the assembly.")
+    if A.n_cols == n:       # square: diag(A) exists and Jacobi needs it
+        diag_full = A.diagonal()
+        zero_diag = np.flatnonzero(diag_full == 0)
+        if zero_diag.size:
+            raise ValueError(
+                f"A has a zero or missing diagonal entry on "
+                f"{zero_diag.size} owned row(s) (first: row "
+                f"{int(zero_diag[0])}); the Jacobi preconditioner "
+                "1/diag(A) would be infinite there.  Add a diagonal shift "
+                "or fix the assembly.")
+    else:                   # rectangular: no diagonal; diag_a stays ones
+        diag_full = None
     c_of_all: list[np.ndarray] = []
     lr_all: list[np.ndarray] = []
     for i in range(n_node):
@@ -237,22 +327,52 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
         cb = core_bounds_all[i]
         ar = np.arange(nl, dtype=np.int64)
         c_of = np.searchsorted(cb, ar, side="right") - 1   # owning core
-        lr = fmt.slot_order(A.row_nnz[lo:lo + nl], cb)     # slot in the bin
+        if row_space is not None and row_space.get("lr") is not None:
+            lr = np.asarray(row_space["lr"][i], dtype=np.int64)  # pinned
+        else:
+            lr = fmt.slot_order(A.row_nnz[lo:lo + nl], cb)  # slot in bin
         c_of_all.append(c_of)
         lr_all.append(lr)
         mask[i, c_of, lr] = 1.0
-        diag_a[i, c_of, lr] = diag_full[lo:lo + nl]
+        if diag_full is not None:
+            diag_a[i, c_of, lr] = diag_full[lo:lo + nl]
         global_row_of[i, c_of, lr] = lo + ar
-        x_gather[i, :, :nl] = (c_of * rc_pad + lr)[None, :]
-        slot_of[i, c_of, ar - cb[c_of]] = lr
+        if square_default:
+            x_gather[i, :, :nl] = (c_of * rc_pad + lr)[None, :]
+            slot_of[i, c_of, ar - cb[c_of]] = lr
+
+    if square_default:
+        col_lr_all = lr_all
+        mask_col = None
+        global_col_of = global_row_of
+    else:
+        col_lr_all = []
+        mask_col = np.zeros((n_node, n_core, cc_pad), dtype=np.float64)
+        global_col_of = np.full((n_node, n_core, cc_pad), -1,
+                                dtype=np.int64)
+        for i in range(n_node):
+            clo = int(col_node_bounds[i])
+            ncl = int(col_node_bounds[i + 1]) - clo
+            ccb = col_core_bounds[i]
+            ar = np.arange(ncl, dtype=np.int64)
+            c_of = np.searchsorted(ccb, ar, side="right") - 1
+            if col_space is not None and col_space.get("lr") is not None:
+                lr = np.asarray(col_space["lr"][i], dtype=np.int64)
+            else:
+                lr = ar - ccb[c_of]     # identity slot order in the bin
+            col_lr_all.append(lr)
+            x_gather[i, :, :ncl] = (c_of * cc_pad + lr)[None, :]
+            mask_col[i, c_of, lr] = 1.0
+            global_col_of[i, c_of, lr] = clo + ar
+            slot_of[i, c_of, ar - ccb[c_of]] = lr
 
     fmt_data = fmt.pack(diag_nodes, offd_nodes, core_bounds_all,
                         c_of_all, lr_all, rc_pad, device)
 
-    halo: HaloPlan = build_halo_plan(ghost_cols, node_bounds, n_core,
-                                     core_bounds=core_bounds_all)
-    # halo send indices are bin-local row ids; route them through the
-    # format's slot assignment (identity for ELL)
+    halo: HaloPlan = build_halo_plan(ghost_cols, col_node_bounds, n_core,
+                                     core_bounds=col_core_bounds)
+    # halo send indices are bin-local column ids; route them through the
+    # input layout's slot assignment (identity for ELL)
     send_own = slot_of[np.arange(n_node)[:, None, None, None],
                        np.arange(n_core)[None, :, None, None],
                        halo.send_own]
@@ -265,7 +385,8 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
         n=n, n_node=n_node, n_core=n_core,
         rc_pad=rc_pad, nl_pad=nl_pad, g_pad=halo.g_pad, hs=halo.h_own,
         mode=mode, format=fmt.name, transport=transport,
-        wire_dtype=wire_dtype)
+        wire_dtype=wire_dtype, n_cols=A.n_cols, cc_pad=cc_pad,
+        mask_col=None if mask_col is None else to_device(mask_col, device))
     stats = partition_stats(A.row_nnz, node_bounds, core_bounds_all)
     stats["padding_waste"] = fmt.padding_waste(fmt_data, A.nnz)
     layout = {
@@ -274,11 +395,29 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
         "node_partition": node_partition,
         "format": fmt.name,
         "global_row_of": global_row_of,
+        "global_col_of": global_col_of,
         "halo": halo,
         "neighbor_offsets": halo.neighbor_offsets(),
         "transport_census": transport_census(plan),
         "stats": stats,
+        # the spaces another plan can pin its own to
+        "row_space": {"node_bounds": node_bounds,
+                      "core_bounds": core_bounds_all,
+                      "lr": lr_all, "pad": rc_pad},
+        "col_space": {"node_bounds": col_node_bounds,
+                      "core_bounds": col_core_bounds,
+                      "lr": col_lr_all, "pad": cc_pad},
     }
+    if verify:
+        # late import: the checker sits above core
+        from repro_torch.analysis import check_kernel_streams, check_plan
+        rep = check_plan(plan, layout)
+        rep.extend(check_kernel_streams(plan).violations)
+        if rep.errors:
+            raise ValueError(
+                "build_spmv_plan(verify=True): plan violates "
+                f"{len(rep.errors)} static contract(s):\n  "
+                + "\n  ".join(str(v) for v in rep.errors))
     return plan, layout
 
 
@@ -316,24 +455,39 @@ def plan_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
 # ---------------------------------------------------------------------- #
 # vector layout conversion (host)
 # ---------------------------------------------------------------------- #
-def to_dist(v: np.ndarray, layout: dict, plan: SpMVPlan) -> torch.Tensor:
-    """Global vector ``(n,)`` -> distributed layout ``plan.cg_shape`` on the
-    plan's device, driven by the layout's slot table."""
-    g = layout["global_row_of"]
+def _space(layout: dict, plan: SpMVPlan, space: str):
+    """``(slot table, distributed shape, global length)`` of a space."""
+    if space == "col":
+        return layout["global_col_of"], plan.x_shape, plan.n_cols
+    if space == "row":
+        return layout["global_row_of"], plan.cg_shape, plan.n
+    raise ValueError(f"space must be 'row' or 'col', got {space!r}")
+
+
+def to_dist(v: np.ndarray, layout: dict, plan: SpMVPlan,
+            space: str = "col") -> torch.Tensor:
+    """Global vector -> distributed layout on the plan's device, driven by
+    the layout's slot tables.  ``space="col"`` (default) gives the SpMV
+    input layout, ``(n_cols,)`` -> ``plan.x_shape``; ``space="row"`` the
+    output / Krylov layout, ``(n,)`` -> ``plan.cg_shape``.  The two are
+    one on a square plan."""
+    g, shape, _ = _space(layout, plan, space)
     v = np.asarray(v)
-    out = np.zeros(plan.cg_shape, dtype=v.dtype)
+    out = np.zeros(shape, dtype=v.dtype)
     valid = g >= 0
     out[valid] = v[g[valid]]
     return torch.from_numpy(out).to(device=plan.device,
                                     dtype=plan.mask.dtype)
 
 
-def from_dist(vd: torch.Tensor, layout: dict, plan: SpMVPlan) -> np.ndarray:
-    """Distributed layout -> global vector ``(n,)`` (inverse of
-    ``to_dist``)."""
-    g = layout["global_row_of"]
+def from_dist(vd: torch.Tensor, layout: dict, plan: SpMVPlan,
+              space: str = "row") -> np.ndarray:
+    """Distributed layout -> global vector (inverse of ``to_dist``;
+    ``space="row"`` (default) reads ``plan.cg_shape`` outputs,
+    ``space="col"`` ``plan.x_shape`` inputs)."""
+    g, _, n = _space(layout, plan, space)
     vd = vd.detach().cpu().numpy()
-    out = np.zeros(plan.n, dtype=vd.dtype)
+    out = np.zeros(n, dtype=vd.dtype)
     valid = g >= 0
     out[g[valid]] = vd[valid]
     return out
@@ -345,17 +499,21 @@ def from_dist(vd: torch.Tensor, layout: dict, plan: SpMVPlan) -> np.ndarray:
 def make_shard_body(plan: SpMVPlan,
                     transport: str | HaloTransport | None = None,
                     neighbor_offsets: list[int] | None = None,
-                    wire_dtype: str | None = None):
+                    wire_dtype: str | None = None,
+                    backend: str = "kernel"):
     """Build the two-phase SpMV over the whole virtual mesh:
-    ``body(x) -> y``, both ``(n_node, n_core, rc_pad)``.
+    ``body(x) -> y``, ``x`` in ``plan.x_shape`` ``(n_node, n_core,
+    cc_pad)`` and ``y`` in ``plan.cg_shape`` ``(n_node, n_core,
+    rc_pad)``.
 
     1. halo exchange through the transport (skipped for halo-free plans,
        ``plan.hs == 0``) -> ``x_ghost`` ``(n_node, g_pad + 1)``;
     2. the core-axis gather of each node's slice -> ``x_local``
        ``(n_node, nl_pad)``;
     3. the format's local diag + offd matvec over all shards, through the
-       kernel wrappers: the CUDA kernels on the card, their plain versions
-       on the CPU.
+       kernel wrappers (``backend="kernel"``: the CUDA kernels on the
+       card, their plain versions on the CPU) or the plain versions
+       everywhere (``backend="plain"``, the yardstick).
 
     ``transport=None`` follows ``plan.transport``, ``wire_dtype=None``
     follows ``plan.wire_dtype``; ``neighbor_offsets`` overrides the
@@ -367,7 +525,7 @@ def make_shard_body(plan: SpMVPlan,
     steps 1-2 alone, what the local matvec gets.
     """
     n_node, n_core, rc_pad = plan.n_node, plan.n_core, plan.rc_pad
-    g_pad = plan.g_pad
+    cc_pad, g_pad = plan.cc_pad, plan.g_pad
     has_halo = plan.hs > 0
     transport = transport if transport is not None else plan.transport
     if transport == "auto":
@@ -379,18 +537,23 @@ def make_shard_body(plan: SpMVPlan,
                                    neighbor_offsets=neighbor_offsets,
                                    wire_dtype=wire_dtype)
     extra = tr.extra_arrays(plan, tstate) if has_halo else {}
-    local_matvec = get_format(plan.format).matvec_kernel
+    fmt = get_format(plan.format)
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    local_matvec = (fmt.matvec_kernel if backend == "kernel"
+                    else fmt.matvec_plain)
     F = dict(plan.fmt_data, send_own=plan.send_own, recv_own=plan.recv_own,
              **extra)
     # x_gather is replicated over the core axis: one row per node, int64
-    # and offset into the node's flattened (n_core * rc_pad) view
+    # and offset into the node's flattened (n_core * cc_pad) input view
     x_gather = plan.x_gather[:, 0, :].long()
 
     def inputs(x: torch.Tensor):
         """Steps 1-2: ``(x_local, x_ghost)`` for the local matvec."""
         x_ghost = (tr.exchange(x, F, state=tstate, n_node=n_node,
                                g_pad=g_pad) if has_halo else None)
-        x_local = torch.gather(x.reshape(n_node, n_core * rc_pad), 1,
+        x_local = torch.gather(x.reshape(n_node, n_core * cc_pad), 1,
                                x_gather)
         return x_local, x_ghost
 

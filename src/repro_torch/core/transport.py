@@ -104,10 +104,10 @@ class HaloTransport:
     # -- the exchange --------------------------------------------------- #
     def exchange(self, x: torch.Tensor, F: dict, *, state: dict,
                  n_node: int, g_pad: int) -> torch.Tensor:
-        """``x`` ``(n_node, n_core, rc_pad)`` -> the assembled ghost buffer
-        of every node, ``(n_node, g_pad + 1)``.  Real slots ``< g_pad``
-        hold exactly the owners' bits, up to the wire codec; slot ``g_pad``
-        is write-only."""
+        """``x`` ``(n_node, n_core, cc_pad)`` (the plan's input layout) ->
+        the assembled ghost buffer of every node, ``(n_node, g_pad + 1)``.
+        Real slots ``< g_pad`` hold exactly the owners' bits, up to the
+        wire codec; slot ``g_pad`` is write-only."""
         raise NotImplementedError
 
     # -- numpy reference of the same dataflow -------------------------- #
@@ -328,7 +328,7 @@ def _permute_tables(plan, pairs_by_offset: dict) -> dict[str, torch.Tensor]:
     for d, pairs in pairs_by_offset.items():
         src = np.array([s for s, _ in pairs])[:, None, None]
         dst = np.array([t for _, t in pairs])[:, None, None]
-        take = ((src * plan.n_core + c) * plan.rc_pad
+        take = ((src * plan.n_core + c) * plan.cc_pad
                 + send[src[..., 0], c[..., 0], dst[..., 0]])
         put = ((dst * plan.n_core + c) * (plan.g_pad + 1)
                + recv[dst[..., 0], c[..., 0], src[..., 0]])
@@ -721,10 +721,10 @@ def transport_census(plan, itemsize: int = 4, wire_dtype=None) -> dict:
 # --------------------------------------------------------------------- #
 def make_exchange(plan, transport: str | HaloTransport = "a2a",
                   neighbor_offsets=None, wire_dtype=None) -> Callable:
-    """Ghost-buffer probe: CG-layout ``x`` -> ``(n_node, n_core, g_pad +
-    1)``, the reference's per-shard shape, each node's assembled buffer
-    repeated over the core axis — exactly what the shard body feeds the
-    off-diagonal matvec.  Raises on halo-free plans (there is no exchange
+    """Ghost-buffer probe: input-layout ``x`` (``plan.x_shape``) ->
+    ``(n_node, n_core, g_pad + 1)``, the reference's per-shard shape, each
+    node's assembled buffer repeated over the core axis — exactly what the
+    shard body feeds the off-diagonal matvec.  Raises on halo-free plans (there is no exchange
     to probe)."""
     if plan.hs == 0:
         raise ValueError("plan has no halo traffic (hs == 0): "
@@ -791,7 +791,7 @@ def autotune_transport(plan, candidates: tuple[str, ...] | None = None,
         if on_card:
             torch.cuda.synchronize(plan.device)
 
-    x = plan.mask                       # any full CG-layout vector works
+    x = plan.mask_col                   # any full input-layout vector
     timings: dict[str, float] = {}
     timings_min: dict[str, float] = {}
     reps_us: dict[str, list[float]] = {}

@@ -52,7 +52,7 @@ from repro_torch.solvers.precond import Preconditioner, get_precond
 __all__ = ["local_dot", "pdot", "pdot_stack", "SolverCtx", "Solver",
            "register_solver", "get_solver", "available_solvers",
            "make_solver", "to_dist_batch", "from_dist_batch",
-           "count_reductions", "reduction_census"]
+           "count_reductions", "reduction_census", "make_precond_apply"]
 
 
 # --------------------------------------------------------------------- #
@@ -316,7 +316,9 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     ``A``/``layout`` (the host matrix and the layout dict from
     ``build_spmv_plan``) are needed only by build-time host work:
     ``solver="chebyshev"`` estimates its eigenvalue bounds from them when
-    ``options`` does not pin ``lmin``/``lmax``.  ``options`` are the
+    ``options`` does not pin ``lmin``/``lmax``, and ``block_jacobi`` /
+    ``two_level`` build their blocks and coarse space from them (through
+    ``Preconditioner.bind``).  ``options`` are the
     solver's (``pipelined_cg``'s ``replace_every``, Chebyshev's bounds),
     resolved by ``Solver.prepare`` and exposed as ``solve.options``;
     ``precond_options`` the preconditioner's.  Every ``maxiter`` is capped
@@ -327,7 +329,8 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     and uses the stamped winner), ``neighbor_offsets`` overrides
     ring/pairwise's offsets, ``wire_dtype`` the halo wire codec (``None``
     follows ``plan.wire_dtype``); exposed as ``solve.transport`` /
-    ``solve.wire_dtype``.
+    ``solve.wire_dtype``.  ``solve.pdata`` / ``solve.papply`` are what
+    ``Preconditioner.bind`` returned.
 
     ``check_every`` is the number of gated iterations between host syncs.
     ``solve.parts(b, tol, maxiter)`` returns ``(solver, ctx, b block, tol,
@@ -341,7 +344,8 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     sol = get_solver(solver)
     pre = get_precond(precond)
     pre.validate_options(precond_options)
-    pdata = pre.build(plan, layout=layout, A=A)
+    pdata, papply = pre.bind(plan, layout=layout, A=A,
+                             options=precond_options)
     opts = sol.prepare(plan, pre, pdata, A=A, layout=layout, options=options)
     transport = transport if transport is not None else plan.transport
     if transport == "auto":     # explicit, or a deferred plan stamp
@@ -353,7 +357,7 @@ def make_solver(plan, *, solver: str | Solver = "cg",
                            neighbor_offsets=neighbor_offsets,
                            wire_dtype=wire_dtype)
     ctx = SolverCtx(spmv=lambda v: torch.stack([body(vj) for vj in v]),
-                    precond=lambda r: pre.apply(pdata, r),
+                    precond=lambda r: papply(pdata, r),
                     maxiter_static=maxiter_static, options=opts)
     batched = nrhs is not None
 
@@ -384,7 +388,37 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     solve.transport = body.transport
     solve.wire_dtype = body.wire_dtype
     solve.options = opts
+    solve.pdata, solve.papply = pdata, papply
     return solve
+
+
+def make_precond_apply(plan, *, precond: str | Preconditioner = "jacobi",
+                       A=None, layout: dict | None = None,
+                       precond_options: dict | None = None,
+                       backend: str = "kernel"):
+    """Standalone preconditioner application on the plan's device:
+    ``apply(rd) -> zd`` over CG-layout ``(n_node, n_core, rc_pad)``.
+
+    The same ``bind`` ``make_solver`` runs, without a Krylov loop around
+    it — what ``repro_torch.testing.precond_check`` holds against each
+    preconditioner's numpy ``host_apply``.  ``backend`` is the shard
+    body's (``"kernel"`` | ``"plain"``) for preconditioners that run
+    SpMVs.  Carries ``apply.precond`` (the resolved name) and
+    ``apply.papply`` (``bind``'s apply function)."""
+    pre = get_precond(precond)
+    pre.validate_options(precond_options)
+    pdata, papply = pre.bind(plan, layout=layout, A=A, backend=backend,
+                             options=precond_options)
+
+    def apply(rd: torch.Tensor) -> torch.Tensor:
+        if tuple(rd.shape) != plan.cg_shape:
+            raise ValueError(f"precond apply: expected {plan.cg_shape}, "
+                             f"got {tuple(rd.shape)}")
+        return papply(pdata, rd[None])[0]
+
+    apply.precond = pre.name
+    apply.papply = papply
+    return apply
 
 
 def reduction_census(solve, b: torch.Tensor, tol: float = 1e-8,

@@ -176,7 +176,8 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
     if "x" not in kinds or "k" not in kinds:
         raise ValueError(f"solver {sol.name!r} state_kinds() must include "
                          "'x' and 'k'")
-    pdata = pre.build(plan, layout=layout, A=A)
+    pdata, papply = pre.bind(plan, layout=layout, A=A,
+                             options=precond_options)
     opts = sol.prepare(plan, pre, pdata, A=A, layout=layout, options=options)
     transport = transport if transport is not None else plan.transport
     if transport == "auto":
@@ -191,7 +192,7 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
                                neighbor_offsets=neighbor_offsets,
                                wire_dtype=wire_dtype)
         ctx = SolverCtx(spmv=lambda v: torch.stack([body(vj) for vj in v]),
-                        precond=lambda r: pre.apply(pdata, r),
+                        precond=lambda r: papply(pdata, r),
                         maxiter_static=maxiter_static, options=opts)
 
         def restart(b, tol, maxiter, x, k):

@@ -33,6 +33,11 @@ of ``fields`` so the plan's golden-hashed arrays are unchanged.
 ``sell``  sliced ELL (SELL-C-σ): rows sorted by nnz within σ-row windows,
           grouped into slices of C rows, each slice padded to its own
           width and flattened slice-major.
+
+Each format declares its gather/scatter index streams
+(``index_streams``, :class:`IndexStream`) so the static checker
+(``repro_torch.analysis.kernel_check``) can prove every index inside its
+buffer before a kernel reads it: the kernels do no bounds checks.
 """
 from __future__ import annotations
 
@@ -45,8 +50,26 @@ from repro_torch.sparse.csr import (CSRMatrix, ell_arrays_from_csr,
                                     ell_row_lens, sell_arrays_from_csr)
 from repro_torch.util import align_up, to_device
 
-__all__ = ["ShardFormat", "ELLFormat", "SELLFormat", "register_format",
-           "get_format", "available_formats"]
+__all__ = ["IndexStream", "ShardFormat", "ELLFormat", "SELLFormat",
+           "register_format", "get_format", "available_formats"]
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexStream:
+    """Static descriptor of one gather/scatter index stream of a format.
+
+    ``vals``/``cols`` name entries of ``fmt_data``; ``x`` says which
+    buffer ``cols`` indexes (``"local"``: the node-local ``(nl_pad,)``
+    slice; ``"ghost"``: the ``(g_pad + 1,)`` exchanged buffer, whose
+    trailing dump slot only zero-valued entries may read); ``rows``, when
+    set, is the accumulation-slot stream into the ``(rc_pad,)`` output
+    (``None`` for row-aligned layouts like ELL).
+    """
+
+    vals: str
+    cols: str
+    x: str
+    rows: str | None = None
 
 
 class ShardFormat:
@@ -86,6 +109,12 @@ class ShardFormat:
         """Recover ``aux_fields`` from the ``fields`` arrays alone (a plan
         carried across from the JAX package).  Default: none."""
         return {}
+
+    # -- static contract ----------------------------------------------- #
+    def index_streams(self) -> tuple[IndexStream, ...]:
+        """The format's gather/scatter streams over ``fields``, for the
+        static bounds checker; a field left out is flagged there."""
+        return ()
 
     # -- accounting ---------------------------------------------------- #
     def nnz_stored(self, data: dict[str, torch.Tensor]) -> int:
@@ -132,6 +161,11 @@ class ELLFormat(ShardFormat):
     name = "ell"
     fields = ("diag_cols", "diag_vals", "offd_cols", "offd_vals")
     aux_fields = ("diag_len", "offd_len")
+
+    def index_streams(self):
+        # row-aligned: entry (r, k) accumulates into row r
+        return (IndexStream(vals="diag_vals", cols="diag_cols", x="local"),
+                IndexStream(vals="offd_vals", cols="offd_cols", x="ghost"))
 
     def pack(self, diag_nodes, offd_nodes, core_bounds, c_of_all, slots_all,
              rc_pad, device):
@@ -208,6 +242,12 @@ class SELLFormat(ShardFormat):
     fields = ("sell_dvals", "sell_dcols", "sell_drows",
               "sell_ovals", "sell_ocols", "sell_orows")
     aux_fields = ("sell_dstart", "sell_dwidth", "sell_ostart", "sell_owidth")
+
+    def index_streams(self):
+        return (IndexStream(vals="sell_dvals", cols="sell_dcols",
+                            x="local", rows="sell_drows"),
+                IndexStream(vals="sell_ovals", cols="sell_ocols",
+                            x="ghost", rows="sell_orows"))
 
     def slot_order(self, row_nnz_local, core_bounds):
         cb = np.asarray(core_bounds, dtype=np.int64)

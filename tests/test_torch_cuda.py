@@ -12,7 +12,10 @@ accumulate in f32 on the same values, so only the summation order differs
 the fixture; rows, slots and bins with no entries exactly 0; two launches
 on the same inputs, and the ELL kernel with and without row lengths,
 bitwise equal (each row is summed in entry order, and the padding the
-lengths skip adds exactly 0).
+lengths skip adds exactly 0).  Rectangular plans against the host f64
+matvec within 1e-5 relative, every transport bit for bit a2a; each
+preconditioner's apply on the card within 2e-5 relative of the CPU's, and
+cg counts with block_jacobi / two_level within ±1 of the CPU's.
 """
 import dataclasses
 import json
@@ -492,3 +495,94 @@ def test_faults_rolled_back_on_the_card(name, kind, golden):
                           injector=FaultInjector.parse(kind, shard=(2, 1)))
     assert res.rollbacks >= 1 and res.converged
     assert all(np.isfinite(w) for _, w in res.trajectory)
+
+
+# --------------------------------------------------------------------- #
+# rectangular plans and the preconditioners on the card
+# --------------------------------------------------------------------- #
+RECT_KERNELS = {"ell": "fused_ell_spmv", "sell": "fused_sell_spmv"}
+
+
+@pytest.mark.parametrize("fmt", ["ell", "sell"])
+@pytest.mark.parametrize("kind", ["tall", "fat", "agg"])
+def test_rect_plans_on_the_card(kind, fmt, golden):
+    """A rectangular plan's SpMV through its kernel against the plain
+    version (2e-5·max|y|) and the host f64 matvec (1e-5 relative), every
+    transport bit for bit a2a, and the plan built with ``verify=True``."""
+    from repro_torch.core import available_transports, from_dist
+    from repro_torch.testing.rect_check import build_rect
+
+    M = build_rect(kind, 3)
+    x = np.random.default_rng(103).normal(size=M.n_cols)
+    plan, layout = build_spmv_plan(M, 4, 2, mode="balanced", format=fmt,
+                                   device="cuda", verify=True)
+    xd = to_dist(x, layout, plan, space="col")
+    reset_launches()
+    y = make_spmv(plan)(xd)
+    torch.cuda.synchronize()
+    assert LAUNCHES[RECT_KERNELS[fmt] if plan.hs else
+                    RECT_KERNELS[fmt][len("fused_"):]] == 1
+    want = make_shard_body(plan, backend="plain")(xd)
+    assert y.shape == want.shape == plan.cg_shape
+    assert float((y - want).abs().max()) <= \
+        2e-5 * max(1.0, float(want.abs().max()))
+    y_host = M.matvec(x)
+    got = from_dist(y, layout, plan, space="row").astype(np.float64)
+    assert np.linalg.norm(got - y_host) <= 1e-5 * np.linalg.norm(y_host)
+    for name in available_transports():
+        assert torch.equal(make_spmv(plan, transport=name)(xd).view(
+            torch.int32), y.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("pname", ["jacobi", "block_jacobi", "two_level"])
+@pytest.mark.parametrize("fmt", ["ell", "sell"])
+def test_precond_apply_on_the_card(fmt, pname, golden):
+    """The card's apply against the same apply on the CPU (2e-5
+    relative), the kernel shard bodies against the plain ones, and no
+    reduction in two_level's apply."""
+    from repro_torch.core import from_dist
+    from repro_torch.solvers import count_reductions, make_precond_apply
+
+    A, x, _ = golden
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    for dev in ("cpu", "cuda"):
+        plan, layout = build_spmv_plan(A, 4, 2, mode="balanced", format=fmt,
+                                       device=dev)
+        rd = to_dist(x, layout, plan, space="row")
+        for backend in ("kernel", "plain"):
+            apply = make_precond_apply(plan, precond=pname, A=A,
+                                       layout=layout, backend=backend)
+            with count_reductions() as n:
+                z = apply(rd)
+            assert n[0] == 0
+            out[dev, backend] = from_dist(z, layout, plan).astype(np.float64)
+    ref = out["cpu", "kernel"]
+    for key, z in out.items():
+        assert np.linalg.norm(z - ref) <= 2e-5 * np.linalg.norm(ref), key
+
+
+@pytest.mark.parametrize("fmt", ["ell", "sell"])
+def test_precond_cg_on_the_card(fmt, golden):
+    """cg with block_jacobi and two_level on the card: the CPU's count
+    ±1 at tol 1e-5 (above the golden matrix's f32 plateau), a census of
+    2 reductions per iteration, and the plan's kernel launched."""
+    from repro_torch.solvers import reduction_census
+
+    A, _, b = golden
+    iters = {}
+    for dev in ("cpu", "cuda"):
+        plan, layout = build_spmv_plan(A, 4, 2, mode="balanced", format=fmt,
+                                       device=dev)
+        bd = to_dist(b, layout, plan)
+        for pname in ("block_jacobi", "two_level"):
+            solve = make_solver(plan, precond=pname, A=A, layout=layout)
+            reset_launches()
+            _, it, rel = solve(bd, tol=1e-5, maxiter=400)
+            iters[dev, pname] = int(it)
+            assert float(rel) <= 1e-5
+            assert reduction_census(solve, bd, tol=1e-5) == 2
+            if dev == "cuda":
+                assert LAUNCHES[CASES[f"{fmt}/4x2"]] > 0
+    for pname in ("block_jacobi", "two_level"):
+        assert abs(iters["cuda", pname] - iters["cpu", pname]) <= 1

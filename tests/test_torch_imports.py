@@ -35,6 +35,16 @@ def _imports(tree):
             yield node.module, id(node) in top
 
 
+def test_scan_covers_every_module_of_the_port():
+    """The scans below walk the whole package: the verifier, the
+    preconditioners and the conformance checkers among them."""
+    names = {str(p.relative_to(PKG)) for p in MODULES}
+    assert {"analysis/__init__.py", "analysis/report.py",
+            "analysis/plan_check.py", "analysis/kernel_check.py",
+            "solvers/precond.py", "testing/rect_check.py",
+            "testing/precond_check.py"} <= names
+
+
 def _root(name: str) -> str:
     return name.split(".")[0]
 

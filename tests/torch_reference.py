@@ -5,6 +5,8 @@ Usage:  python tests/torch_reference.py OUT.npz [CASE ...]
         python tests/torch_reference.py OUT.npz --refine
         python tests/torch_reference.py OUT.npz --solvers
         python tests/torch_reference.py OUT.npz --resilient PORT_CKPT REF_CKPT
+        python tests/torch_reference.py OUT.npz --rect
+        python tests/torch_reference.py OUT.npz --precond
 
 A case is ``FORMAT/N_NODExN_CORE`` (default: ``ell/4x2 sell/4x2 ell/1x4
 sell/1x4``) on ``graded_extruded_mesh_matrix(48, 6, seed=0)`` — the golden
@@ -50,6 +52,20 @@ and, at ``examples/cg_solve.py``'s size and plan
 ``default_rng(1)``), each solver's count at tol 1e-5 under
 ``"example/<solver>/iters"``.
 
+``--rect`` dumps, for each ``repro.testing.rect_check`` matrix (tall,
+fat, agg; seed 3) at 4×2, ell and sell, ``rows`` and ``nnz`` node
+partitions, ``make_spmv`` of ``x`` (``default_rng(103)``, column layout)
+back in global row order, under ``"<kind>/<format>/<part>/y"``.
+
+``--precond`` dumps, on the golden matrix at 4×2 (``node_partition
+"nnz"``), ell and sell, ``make_precond_apply`` of ``r``
+(``default_rng(11)``) for jacobi, block_jacobi and two_level in global
+row order, under ``"<format>/<precond>/z"``; and for each of
+``precond_check``'s ``SCALING_MESHES`` (4×2 rows-partition ell, RHS
+``default_rng(7)``) the cg iteration counts with block_jacobi and
+two_level (agg ``SCALING_AGG``) at each tol of ``SCALING_TOLS``, under
+``"scaling/<n_surface>x<layers>/<precond>/<tol>"``.
+
 ``--resilient PORT_CKPT REF_CKPT`` works on ``resilience_check``'s system
 (``graded_extruded_mesh_matrix(48, 6)``, RHS ``default_rng(1)``, jacobi,
 tol 1e-5, check_every 10).  Under ``"<solver>/<name>"``, a clean chunked
@@ -76,6 +92,9 @@ SOLVERS = ("cg", "pipelined_cg", "chebyshev")
 SOLVER_TOLS = (1e-3,) + TOLS
 PLAN_META = ("n", "n_node", "n_core", "rc_pad", "nl_pad", "g_pad", "hs",
              "mode", "format", "transport", "wire_dtype")
+#: --precond's scaling tolerances: 1e-6 is precond_check's; 3e-6 and 1e-5
+#: sit above the smallest mesh's float32 plateau
+SCALING_TOLS = (1e-6, 3e-6, 1e-5)
 
 
 def dump_case(case: str, A, x, b) -> dict:
@@ -271,6 +290,62 @@ def dump_resilient(port_ckpt: str, ref_ckpt: str) -> dict:
     return out
 
 
+def dump_rect() -> dict:
+    from repro.core import build_spmv_plan, from_dist, make_spmv, to_dist
+    from repro.testing.rect_check import build_rect
+
+    mesh = _mesh(4, 2)
+    out = {}
+    for kind in ("tall", "fat", "agg"):
+        A = build_rect(kind, 3)
+        x = np.random.default_rng(103).normal(size=A.n_cols)
+        for fmt in ("ell", "sell"):
+            for part in ("rows", "nnz"):
+                plan, layout = build_spmv_plan(A, 4, 2, mode="balanced",
+                                               node_partition=part,
+                                               format=fmt)
+                y = make_spmv(plan, mesh)(to_dist(x, layout, plan,
+                                                  space="col"))
+                out[f"{kind}/{fmt}/{part}/y"] = np.asarray(
+                    from_dist(y, layout, plan, space="row"))
+    return out
+
+
+def dump_precond() -> dict:
+    from repro.core import build_spmv_plan, from_dist, to_dist
+    from repro.solvers import make_solver
+    from repro.solvers.base import make_precond_apply
+    from repro.sparse import graded_extruded_mesh_matrix
+    from repro.testing.precond_check import SCALING_AGG, SCALING_MESHES
+
+    mesh = _mesh(4, 2)
+    out = {}
+    A = graded_extruded_mesh_matrix(48, 6, seed=0)
+    r = np.random.default_rng(11).normal(size=A.n_rows)
+    for fmt in ("ell", "sell"):
+        plan, layout = build_spmv_plan(A, 4, 2, mode="balanced",
+                                       node_partition="nnz", format=fmt)
+        for pname in ("jacobi", "block_jacobi", "two_level"):
+            apply = make_precond_apply(plan, mesh, precond=pname, A=A,
+                                       layout=layout)
+            out[f"{fmt}/{pname}/z"] = np.asarray(from_dist(
+                apply(to_dist(r, layout, plan)), layout, plan))
+    for n_surface, layers in SCALING_MESHES:
+        A = graded_extruded_mesh_matrix(n_surface, layers, seed=0)
+        plan, layout = build_spmv_plan(A, 4, 2, mode="balanced",
+                                       node_partition="rows", format="ell")
+        bd = to_dist(np.random.default_rng(7).normal(size=A.n_rows),
+                     layout, plan)
+        for pname in ("block_jacobi", "two_level"):
+            po = {"agg_size": SCALING_AGG} if pname == "two_level" else None
+            solve = make_solver(plan, mesh, solver="cg", precond=pname,
+                                A=A, layout=layout, precond_options=po)
+            for tol in SCALING_TOLS:
+                out[f"scaling/{n_surface}x{layers}/{pname}/{tol:g}"] = \
+                    np.asarray(solve(bd, tol=tol, maxiter=400)[1])
+    return out
+
+
 def main() -> int:
     path, cases = sys.argv[1], sys.argv[2:] or CASES
     if cases == ["--transports"]:
@@ -278,6 +353,12 @@ def main() -> int:
         return 0
     if cases == ["--refine"]:
         np.savez(path, **dump_refine())
+        return 0
+    if cases == ["--rect"]:
+        np.savez(path, **dump_rect())
+        return 0
+    if cases == ["--precond"]:
+        np.savez(path, **dump_precond())
         return 0
     if cases[0] == "--resilient":
         np.savez(path, **dump_resilient(*cases[1:]))
