@@ -144,9 +144,34 @@ check raises, so the exit code is not 0.
             and the coarse correction's device ms per iteration (its
             solve's less its smoother's alone) and share.  Launch counts
             as in 6b;
+6i. serve    the batched kernels (B1-B4 under ``vmap``: one launch for k
+            right-hand sides) on the full-size 4x2 and 1x8 plans at k = 1,
+            4 and 8: every column bit for bit the single-column kernel on
+            that column, the whole within 2e-5·max|y| of the batched plain
+            version, median ms of 20 CUDA-event runs, the bound (matrix
+            bytes once + k x (x_local + x_ghost + y bytes) over the memory
+            rate) and cuSPARSE SpMM (``torch.sparse`` CSR x dense (n, k))
+            as the library; the batched shard body on the 4x2 plans, each
+            column bit for bit the unbatched body for every transport x
+            wire dtype.  Then the serving path, launch counts zeroed just
+            before it and read just after (every batched kernel must have
+            launched): ``make_solver(nrhs=4)`` (cg + jacobi, tol 1e-5) on
+            each full plan, each column within ±1 of its ``nrhs=None``
+            solve and a true residual < 2e-4, and on sell 4x2 wall and
+            device ms and launches per iteration against four sequential
+            solves; the service (``SolveService``, sell 4x2, a2a f32, cg +
+            jacobi, nrhs 4, check_every 25) on 16 requests with tols
+            cycling 1e-5 / 3e-5 / 1e-4: all converge with a host-f64 true
+            residual < 2e-4, makespan at least 1.05x the same requests one
+            at a time through a warm ``make_solver``, p50/p99 latency,
+            ``recompiles == 0``, a second service over the same cache a
+            pure hit, one splice leaving the survivors' per-chunk iterates
+            byte-identical; ``serve_check --device cuda`` (2x4, 48x8)
+            printing ``OK``;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
-   P), the ``nvidia-smi`` line, and the last line ``{"ok": true,
+   P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
+   time), the ``nvidia-smi`` line, and the last line ``{"ok": true,
    "device": {...}}``.
 
 ``library_ms`` is one ``torch.sparse`` CSR matvec of the same global
@@ -1343,6 +1368,327 @@ def phase_precond(A, plans, b) -> dict:
     return launches
 
 
+#: the batched kernels (B1-B4 under vmap): name -> (plan key, the TPU
+#: kernel it replaces, batched by vmap over the shard body)
+BATCHED = {
+    "fused_ell_spmv_batched": (
+        "ell/4x2", "src/repro/kernels/spmv_bcsr.py:103 via "
+        "src/repro/solvers/base.py:419"),
+    "fused_sell_spmv_batched": (
+        "sell/4x2", "src/repro/kernels/spmv_bcsr.py:211 via "
+        "src/repro/solvers/base.py:419"),
+    "ell_spmv_batched": (
+        "ell/1x8", "src/repro/kernels/spmv_bcsr.py:58 via "
+        "src/repro/solvers/base.py:419"),
+    "sell_spmv_batched": (
+        "sell/1x8", "src/repro/kernels/spmv_bcsr.py:189 via "
+        "src/repro/solvers/base.py:419"),
+}
+#: the service's batch (nrhs) and chunk; its rows of the ``kernels`` line
+#: are the batched kernels at this k
+SERVE_NRHS, SERVE_CHECK_EVERY = 4, 25
+SERVE_TOLS = (1e-5, 3e-5, 1e-4)
+
+
+def spmm_ms(A, k: int) -> float:
+    """One torch.sparse CSR x dense (n, k) product of the global matrix
+    (cuSPARSE SpMM) — the batched kernels' yardstick only."""
+    import torch
+
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr), torch.from_numpy(A.indices),
+        torch.from_numpy(A.data.astype("float32")), size=A.shape,
+        device=DEVICE)
+    X = torch.randn((A.n_cols, k), device=DEVICE)
+    return time_ms(lambda: csr @ X)
+
+
+def serve_kernels(A, plans, bw, f32_peak) -> dict:
+    """Each batched kernel at k = 1, 4 and 8 on its full-size plan: every
+    column bit for bit the single-column kernel, the whole within
+    2e-5·max|y| of the plain version, timed; returns the k = SERVE_NRHS
+    rows by kernel name."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_shard_body, to_dist
+    from repro_torch.sparse import get_format
+
+    rng = np.random.default_rng(SEED + 5)
+    lib = {k: spmm_ms(A, k) for k in (1, 4, 8)}
+    rows = {}
+    for name, (key, _) in BATCHED.items():
+        plan, layout = plans[key]
+        fmt, F = get_format(plan.format), plan.fmt_data
+        body = make_shard_body(plan)
+        for k in (1, 4, 8):
+            X = torch.stack([to_dist(rng.standard_normal(A.n_rows), layout,
+                                     plan) for _ in range(k)])
+            xl, xg = body.inputs(X)
+            y = fmt.matvec_kernel(F, xl, xg, plan.rc_pad)
+            same = all(torch.equal(y[j], fmt.matvec_kernel(
+                F, xl[j], None if xg is None else xg[j], plan.rc_pad))
+                for j in range(k))
+            torch.cuda.synchronize()
+            check(same, f"{name} k={k}: a column differs from the "
+                  "single-column kernel")
+            x1 = (xl[0], None if xg is None else xg[0])
+            one_bytes, one_flops, _ = kernel_cost(fmt, F, *x1)
+            mat_bytes = one_bytes - nbytes(*x1)
+            row = measure(
+                "serve_kernel",
+                {"kernel": name, "plan": key, "dtype": "float32", "k": k,
+                 "columns_bitwise_single": same, "library_ms": lib[k],
+                 "library": "torch.sparse CSR x dense (n, k), global "
+                            "matrix (cuSPARSE SpMM)"},
+                lambda: fmt.matvec_kernel(F, xl, xg, plan.rc_pad),
+                lambda: fmt.matvec_plain(F, xl, xg, plan.rc_pad),
+                mat_bytes + k * nbytes(*x1), k * one_flops, bw, f32_peak)
+            if k == SERVE_NRHS:
+                rows[name] = row
+    return rows
+
+
+def serve_bodies(plans) -> None:
+    """The batched shard body on the full 4x2 plans: each column bit for
+    bit the unbatched body, every transport x wire dtype."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_shard_body, to_dist
+    from repro_torch.core.transport import (available_transports,
+                                            available_wire_dtypes)
+
+    rng = np.random.default_rng(SEED + 6)
+    for key in ("ell/4x2", "sell/4x2"):
+        plan, layout = plans[key]
+        X = torch.stack([to_dist(rng.standard_normal(plan.n), layout, plan)
+                         for _ in range(SERVE_NRHS)])
+        bad = []
+        for tr in available_transports():
+            for wd in available_wire_dtypes():
+                body = make_shard_body(plan, transport=tr, wire_dtype=wd)
+                y = body(X)
+                if not all(torch.equal(y[j], body(X[j]))
+                           for j in range(SERVE_NRHS)):
+                    bad.append(f"{tr}/{wd}")
+        emit("serve_body", plan=key, k=SERVE_NRHS,
+             transports=list(available_transports()),
+             wire_dtypes=list(available_wire_dtypes()), differ=bad)
+        check(not bad, f"{key}: batched body columns differ from the "
+              f"unbatched body for {bad}")
+
+
+def batched_cg(A, plans, B) -> None:
+    """make_solver(nrhs=SERVE_NRHS) (cg + jacobi, tol 1e-5) on each
+    full-size plan: each column's count within ±1 of its nrhs=None solve,
+    true residuals, and (sell 4x2) wall and device ms and launches per
+    iteration against SERVE_NRHS sequential solves."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import from_dist, to_dist
+    from repro_torch.solvers import make_solver
+    from repro_torch.solvers.base import from_dist_batch, to_dist_batch
+
+    k = SERVE_NRHS
+    for key, (plan, layout) in plans.items():
+        solve_b = make_solver(plan, nrhs=k, check_every=CHECK_EVERY)
+        solve_1 = make_solver(plan, check_every=CHECK_EVERY)
+        bd = to_dist_batch(B, layout, plan)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xb, ib, rb = solve_b(bd, tol=1e-5, maxiter=10_000)
+        torch.cuda.synchronize()
+        wall_b = (time.perf_counter() - t0) * 1e3
+        ib = [int(v) for v in ib]
+        seq = [solve_timed(solve_1, to_dist(B[j], layout, plan), tol=1e-5)
+               for j in range(k)]
+        X = from_dist_batch(xb, layout, plan).astype(np.float64)
+        true_rel = [float(np.linalg.norm(A.matvec(X[j]) - B[j])
+                          / np.linalg.norm(B[j])) for j in range(k)]
+        seq_true = [float(np.linalg.norm(
+            A.matvec(from_dist(x, layout, plan).astype(np.float64)) - B[j])
+            / np.linalg.norm(B[j])) for j, (x, *_rest) in enumerate(seq)]
+        row = {"plan": key, "nrhs": k, "iters": ib,
+               "iters_single": [it for _, it, *_ in seq],
+               "true_rel": true_rel, "true_rel_single": seq_true,
+               "wall_ms": wall_b,
+               "iters_run": -(-max(ib) // CHECK_EVERY) * CHECK_EVERY,
+               "sequential_wall_ms": sum(r[3] for r in seq),
+               "sequential_iters_run": sum(r[4] for r in seq)}
+        row["ms_per_iter"] = wall_b / row["iters_run"]
+        row["sequential_ms_per_iter"] = (row["sequential_wall_ms"]
+                                         / row["sequential_iters_run"])
+        if key == "sell/4x2":
+            dev = {}
+            for tag, solve, b0 in (("batched", solve_b, bd),
+                                   ("single", solve_1,
+                                    to_dist(B[0], layout, plan))):
+                solve(b0, tol=0.0, maxiter=CHECK_EVERY)          # warm
+                box = {}
+
+                def run():
+                    box["it"] = solve(b0, tol=0.0, maxiter=64)[1]
+                by_name, launches = device_profile(run)
+                check(bool((box["it"] == 64).all()),
+                      f"{key} {tag} profile: {box['it']} != 64")
+                dev[tag] = (sum(by_name.values()) / 64, launches / 64)
+            row.update(device_ms_per_iter=dev["batched"][0],
+                       launches_per_iter=dev["batched"][1],
+                       single_device_ms_per_iter=dev["single"][0],
+                       single_launches_per_iter=dev["single"][1])
+        emit("serve_batched_cg", **row)
+        for j in range(k):
+            check(abs(ib[j] - row["iters_single"][j]) <= 1,
+                  f"{key} batched cg column {j}: {ib[j]} iterations, alone "
+                  f"{row['iters_single'][j]}")
+            check(true_rel[j] < 2e-4, f"{key} batched cg column {j}: true "
+                  f"rel {true_rel[j]}")
+        check(bool((rb <= 1e-5).all()), f"{key} batched cg rel {rb}")
+
+
+def serve_engine(A, B, N: int) -> dict:
+    """The service at full size: N requests (tols cycling SERVE_TOLS)
+    through SolveService (sell 4x2, a2a f32, cg + jacobi, nrhs
+    SERVE_NRHS, check_every SERVE_CHECK_EVERY) against the same requests
+    one at a time through a warm make_solver; a second service over the
+    same cache; one splice's survivors against a run without it.
+    Returns the service's row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import to_dist
+    from repro_torch.serve import EngineConfig, PlanCache, SolveService
+    from repro_torch.solvers import make_solver
+
+    tols = [SERVE_TOLS[i % 3] for i in range(N)]
+    cache = PlanCache()
+    cfg = EngineConfig(nrhs=SERVE_NRHS, n_node=4, n_core=2, format="sell",
+                       transport="a2a", wire_dtype="f32", solver="cg",
+                       precond="jacobi", check_every=SERVE_CHECK_EVERY)
+    t0 = time.perf_counter()
+    svc = SolveService(A, cfg, cache=cache, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    engine = svc.engine
+    plan, layout = engine.plan, engine.layout
+    seq = make_solver(plan, A=A, layout=layout,
+                      neighbor_offsets=layout["neighbor_offsets"])
+    seq(to_dist(B[0], layout, plan), tol=1e-5, maxiter=50)       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq_iters = []
+    for i in range(N):
+        seq_iters.append(seq(to_dist(B[i], layout, plan), tol=tols[i],
+                             maxiter=cfg.maxiter)[1])
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    seq_iters = [int(v) for v in seq_iters]
+
+    futs = [svc.submit(B[i], tol=tols[i]) for i in range(N)]
+    t0 = time.perf_counter()
+    results = svc.drain()
+    torch.cuda.synchronize()
+    t_cont = time.perf_counter() - t0
+    res = [f.result() for f in futs]
+    st = svc.stats()
+    latency = [r.queue_s + r.solve_s for r in res]
+    row = {"requests": N, "nrhs": SERVE_NRHS,
+           "check_every": SERVE_CHECK_EVERY, "tols": list(SERVE_TOLS),
+           "build_s": build_s, "served": len(results),
+           "iters": [r.iterations for r in res], "iters_sequential":
+           seq_iters, "true_rel": [r.residual for r in res],
+           "sequential_s": t_seq, "continuous_s": t_cont,
+           "speedup": t_seq / t_cont,
+           "latency_p50_s": float(np.percentile(latency, 50)),
+           "latency_p99_s": float(np.percentile(latency, 99)),
+           "solve_p50_s": float(np.percentile([r.solve_s for r in res], 50)),
+           "solve_p99_s": float(np.percentile([r.solve_s for r in res], 99)),
+           **{k: st[k] for k in ("splices", "chunks", "retired", "failed",
+                                 "recompiles", "executables", "cache")}}
+    before = dict(cache.stats.as_dict())
+    SolveService(A, cfg, cache=cache, device=DEVICE)
+    after = cache.stats.as_dict()
+    row["second_service_cache"] = after
+    hit = (after["plan_hits"] == before["plan_hits"] + 1
+           and after["program_hits"] == before["program_hits"] + 1
+           and after["plan_misses"] == before["plan_misses"]
+           and after["program_misses"] == before["program_misses"]
+           and after["compile_s"] == before["compile_s"])
+    row["splice_survivors_bitwise"], row["splice_chunks"] = splice_check(
+        A, cache, cfg, B)
+    emit("serve", **row)
+    check(len(results) == N and all(r.iterations > 0 for r in res),
+          f"served {len(results)} of {N}")
+    check(max(row["true_rel"]) < 2e-4,
+          f"service true rel {max(row['true_rel'])}")
+    check(st["splices"] >= N, f"{st['splices']} splices for {N} requests")
+    check(row["speedup"] >= 1.05, f"continuous {t_cont:.3f} s against "
+          f"sequential {t_seq:.3f} s: {row['speedup']:.3f}x < 1.05x")
+    check(st["recompiles"] == 0, f"recompiles {st['recompiles']}")
+    check(hit, f"second service not a pure cache hit: {before} -> {after}")
+    check(row["splice_survivors_bitwise"], "a splice moved a survivor")
+    return row
+
+
+def splice_check(A, cache, cfg, B) -> tuple[bool, int]:
+    """Three requests (slot 0's tol loose, so it retires first), with and
+    without a fourth spliced into slot 0 mid-solve: the survivors' (slots
+    1 and 2) per-chunk iterates must be byte-identical."""
+    import torch
+
+    from repro_torch.serve import SolveEngine
+
+    def run(splice: bool) -> list:
+        e = SolveEngine(A, cfg, device=DEVICE, cache=cache)
+        for i, tol in enumerate((1e-2, 1e-5, 3e-5)):
+            e.submit(B[i], tol=tol)
+        snaps, added = [], False
+        while not e.idle():
+            retired = e.step()
+            if splice and retired and not added:
+                e.submit(B[3], tol=1e-5)
+                added = True
+            snaps.append(e._state["x"][1:3].clone())
+        check(not splice or added, "the splice never happened")
+        return snaps
+
+    base, spl = run(False), run(True)
+    n = min(len(base), len(spl))
+    return all(torch.equal(base[c], spl[c]) for c in range(n)), n
+
+
+def phase_serve(A, plans, bw, f32_peak) -> tuple[dict, dict]:
+    """The batched kernels and body against their single-column versions,
+    then the serving path — batched CG on every full-size plan, the
+    service, its splice, ``serve_check --device cuda`` — with launch
+    counts zeroed just before it and read just after.  Returns the
+    batched kernels' launches on that path and their k = SERVE_NRHS
+    rows."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.testing import serve_check
+
+    rows = serve_kernels(A, plans, bw, f32_peak)
+    serve_bodies(plans)
+    rng = np.random.default_rng(SEED + 7)
+    N = 4 * SERVE_NRHS
+    B = rng.standard_normal((N, A.n_rows))
+    reset_launches()
+    batched_cg(A, plans, B[:SERVE_NRHS])
+    serve_engine(A, B, N)
+    rc, lines = run_cli(serve_check.main, ["--device", "cuda"])
+    launches = dict(LAUNCHES)
+    emit("serve_check", rc=rc, lines=lines)
+    emit("serve_launches", **launches)
+    check(rc == 0 and lines[-1] == "OK", f"serve_check: rc {rc}, {lines}")
+    for name in BATCHED:
+        check(launches[name] > 0, f"{name} never launched on the serving "
+              "path")
+    return launches, rows
+
+
 def library_ms(A, x) -> float:
     """One torch.sparse CSR matvec of the global matrix (the yardstick)."""
     import torch
@@ -1396,8 +1742,12 @@ def main() -> int:
     phase_example()
     rect_launches, rect = phase_rect(A, plans, bw, f32_peak)
     phase_precond(A, plans, b)
+    serve_launches, serve_rows = phase_serve(A, plans, bw, f32_peak)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
+    # the batched kernels at the service's k, with their serving launches
+    entries += [(name, BATCHED[name][1], serve_launches[name],
+                 serve_rows[name]) for name in BATCHED]
     # each kernel at R's and P's shapes, with its launches in phase rect
     for label, row in rect.items():
         name = row["kernel"]

@@ -515,6 +515,13 @@ def make_shard_body(plan: SpMVPlan,
        card, their plain versions on the CPU) or the plain versions
        everywhere (``backend="plain"``, the yardstick).
 
+    A batch of right-hand sides, ``x`` ``(nrhs, n_node, n_core, cc_pad)``,
+    runs as one: one exchange over the batch, one gather and one launch of
+    the batched kernel for all ``nrhs`` columns (the JAX package's body
+    under ``vmap``), ``y`` ``(nrhs, n_node, n_core, rc_pad)``.  Column
+    ``j`` of ``y`` is ``body(x[j])`` bit for bit.  A batch of one runs the
+    single-column kernels.
+
     ``transport=None`` follows ``plan.transport``, ``wire_dtype=None``
     follows ``plan.wire_dtype``; ``neighbor_offsets`` overrides the
     offsets ring/pairwise derive from the plan.  Names and overrides are
@@ -541,8 +548,11 @@ def make_shard_body(plan: SpMVPlan,
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
-    local_matvec = (fmt.matvec_kernel if backend == "kernel"
-                    else fmt.matvec_plain)
+    if backend == "kernel":
+        local_matvec = fmt.matvec_kernel
+        fmt.check_kernel_layout(plan.fmt_data)
+    else:
+        local_matvec = fmt.matvec_plain
     F = dict(plan.fmt_data, send_own=plan.send_own, recv_own=plan.recv_own,
              **extra)
     # x_gather is replicated over the core axis: one row per node, int64
@@ -550,14 +560,17 @@ def make_shard_body(plan: SpMVPlan,
     x_gather = plan.x_gather[:, 0, :].long()
 
     def inputs(x: torch.Tensor):
-        """Steps 1-2: ``(x_local, x_ghost)`` for the local matvec."""
+        """Steps 1-2: ``(x_local, x_ghost)`` for the local matvec, each
+        with ``x``'s leading batch axis if it has one."""
         x_ghost = (tr.exchange(x, F, state=tstate, n_node=n_node,
                                g_pad=g_pad) if has_halo else None)
-        x_local = torch.gather(x.reshape(n_node, n_core * cc_pad), 1,
-                               x_gather)
-        return x_local, x_ghost
+        flat = x.reshape(x.shape[:-3] + (n_node, n_core * cc_pad))
+        idx = x_gather.expand(flat.shape[:-2] + x_gather.shape)
+        return torch.gather(flat, flat.dim() - 1, idx), x_ghost
 
     def body(x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 4 and x.shape[0] == 1:
+            return body(x[0])[None]
         return local_matvec(F, *inputs(x), rc_pad)
 
     body.inputs = inputs

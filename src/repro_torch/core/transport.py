@@ -107,7 +107,10 @@ class HaloTransport:
         """``x`` ``(n_node, n_core, cc_pad)`` (the plan's input layout) ->
         the assembled ghost buffer of every node, ``(n_node, g_pad + 1)``.
         Real slots ``< g_pad`` hold exactly the owners' bits, up to the
-        wire codec; slot ``g_pad`` is write-only."""
+        wire codec; slot ``g_pad`` is write-only.  A batched ``x`` ``(nrhs,
+        n_node, n_core, cc_pad)`` gives ``(nrhs, n_node, g_pad + 1)``, each
+        column exchanged as alone (the codec's chunks stay per column): the
+        JAX package's exchange under ``vmap``."""
         raise NotImplementedError
 
     # -- numpy reference of the same dataflow -------------------------- #
@@ -291,12 +294,27 @@ def _validate_offsets(name: str, plan, state: dict) -> None:
             "exchange would silently drop that halo traffic")
 
 
+def _batch(x: torch.Tensor) -> torch.Tensor:
+    """The exchanges run on a leading batch axis: ``(nrhs, n_node, n_core,
+    cc_pad)``, a single column as a batch of one."""
+    return x if x.dim() == 4 else x[None]
+
+
+def _unbatch(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return out if x.dim() == 4 else out[0]
+
+
+def _expand(idx: torch.Tensor, k: int) -> torch.Tensor:
+    """An index tensor repeated over ``k`` columns, as a view."""
+    return idx.expand(k, *idx.shape)
+
+
 def _gather_add(part: torch.Tensor) -> torch.Tensor:
-    """Combine the per-core partial ghost buffers ``(n_node, n_core,
+    """Combine the per-core partial ghost buffers ``(..., n_node, n_core,
     g_pad + 1)`` of each node: the core-axis gather + local add, a sum
     over the core axis.  Each real slot has exactly one writer, so the sum
     adds one value to zeros — exact, as an all-reduce would be."""
-    return part.sum(dim=1)
+    return part.sum(dim=-2)
 
 
 def _owner_tables(plan) -> dict[str, torch.Tensor]:
@@ -307,11 +325,13 @@ def _owner_tables(plan) -> dict[str, torch.Tensor]:
             "recv_idx": plan.recv_own.reshape(n_node, n_core, -1).long()}
 
 
-def _send_table(x: torch.Tensor, F: dict, codec: WireCodec) -> torch.Tensor:
+def _send_table(xb: torch.Tensor, F: dict, codec: WireCodec) -> torch.Tensor:
     """Every core gathers its send chunks from its own shard and encodes
-    them: the wire payload ``(src, core, dst, hs')``."""
-    sent = torch.gather(x, 2, F["send_idx"]).view(F["send_own"].shape)
-    return codec.encode(sent)
+    them: the wire payload ``(nrhs, src, core, dst, hs')`` of a batched
+    ``xb``."""
+    k = xb.shape[0]
+    sent = torch.gather(xb, 3, _expand(F["send_idx"], k))
+    return codec.encode(sent.view((k,) + tuple(F["send_own"].shape)))
 
 
 def _permute_tables(plan, pairs_by_offset: dict) -> dict[str, torch.Tensor]:
@@ -343,13 +363,19 @@ def _ppermute_exchange(x, F, offsets, n_node: int, g_pad: int,
     neighbour offset (each chunk encoded to the wire dtype, decoded back
     on arrival), scattered into the per-core partial ghost buffers,
     assembled with the core-axis gather + add."""
-    part = x.new_zeros((n_node, x.shape[1], g_pad + 1))
+    xb = _batch(x)
+    k = xb.shape[0]
+    flat = xb.reshape(k, -1)
+    part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
     for d in offsets:
-        got = codec.decode(codec.encode(torch.take(x, F[f"take_{d}"])),
+        take, put = F[f"take_{d}"], F[f"put_{d}"]
+        got = torch.gather(flat, 1, _expand(take.reshape(-1), k))
+        got = codec.decode(codec.encode(got.view((k,) + tuple(take.shape))),
                            x.dtype)
         # duplicate indices only ever hit the dump slot g_pad
-        part.put_(F[f"put_{d}"], got)
-    return _gather_add(part)
+        part.view(k, -1).scatter_(1, _expand(put.reshape(-1), k),
+                                  got.reshape(k, -1))
+    return _unbatch(_gather_add(part), x)
 
 
 def _host_send_table(xd, send_own, codec: WireCodec | None):
@@ -397,13 +423,16 @@ class A2ATransport(HaloTransport):
 
     def exchange(self, x, F, *, state, n_node, g_pad):
         codec = _wire_codec(state)
+        xb = _batch(x)
+        k = xb.shape[0]
         # all_to_all over node: recv[dst, c, src] = sent[src, c, dst]
-        recv = codec.decode(_send_table(x, F, codec).transpose(0, 2),
+        recv = codec.decode(_send_table(xb, F, codec).transpose(1, 3),
                             x.dtype)
         # each core scatters its own slice; duplicates only hit slot g_pad
-        part = x.new_zeros((n_node, x.shape[1], g_pad + 1))
-        part.scatter_(2, F["recv_idx"], recv.reshape(part.shape[:2] + (-1,)))
-        return _gather_add(part)
+        part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
+        part.scatter_(3, _expand(F["recv_idx"], k),
+                      recv.reshape(part.shape[:3] + (-1,)))
+        return _unbatch(_gather_add(part), x)
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         return _host_pair_scatter(xd, send_own, recv_own, g_pad,
@@ -537,16 +566,19 @@ class HierTransport(HaloTransport):
 
     def exchange(self, x, F, *, state, n_node, g_pad):
         codec = _wire_codec(state)
+        xb = _batch(x)
+        k = xb.shape[0]
         # the core-axis gather of the encoded send chunks to the node's
         # leader (the table already holds every core's), then one
         # all_to_all of the combined per-node payload over nodes
-        recv = codec.decode(_send_table(x, F, codec).transpose(0, 2),
-                            x.dtype)                 # (dst, c, src, hs)
+        recv = codec.decode(_send_table(xb, F, codec).transpose(1, 3),
+                            x.dtype)              # (k, dst, c, src, hs)
         # the intra-node scatter through the node's whole receive table
         # assembles the full ghost buffer — no core-axis sum
-        ghost = x.new_zeros((n_node, g_pad + 1))
-        ghost.scatter_(1, F["recv_all"], recv.reshape(n_node, -1))
-        return ghost
+        ghost = x.new_zeros((k, n_node, g_pad + 1))
+        ghost.scatter_(2, _expand(F["recv_all"], k),
+                       recv.reshape(k, n_node, -1))
+        return _unbatch(ghost, x)
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         n_node, n_core = send_own.shape[:2]

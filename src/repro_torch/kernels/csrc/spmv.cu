@@ -62,40 +62,56 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kWarpChunk % (32 * kUnroll) == 0, "chunk of whole steps");
 
-template <typename T, bool kBackToBack>
-__device__ __forceinline__ float warp_segment_sum(
-    float acc, const T* __restrict__ vals, const int32_t* __restrict__ cols,
-    const float* __restrict__ x, int64_t seg, int len,
-    float* __restrict__ s_v, float* __restrict__ s_x) {
+// The warp's flat range: each lane's offset ``off`` into it (an exclusive
+// prefix sum of len), its length ``total`` and lane 0's segment ``seg0``.
+struct WarpRange {
+  int off;
+  int total;
+  int64_t seg0;
+};
+
+__device__ __forceinline__ WarpRange warp_range(int64_t seg, int len) {
   const int lane = threadIdx.x & 31;
   int end = len;                      // inclusive prefix sum over the warp
   for (int d = 1; d < 32; d <<= 1) {
     const int n = __shfl_up_sync(kFull, end, d);
     if (lane >= d) end += n;
   }
-  const int off = end - len;
-  const int total = __shfl_sync(kFull, end, 31);
-  const int64_t seg0 = __shfl_sync(kFull, seg, 0);
+  return {end - len, __shfl_sync(kFull, end, 31),
+          __shfl_sync(kFull, seg, 0)};
+}
+
+// Where entry e of the warp's flat range lies in vals/cols (every lane of
+// the warp calls it: the owner search shuffles).
+template <bool kBackToBack>
+__device__ __forceinline__ int64_t entry_source(int e, int64_t seg,
+                                                const WarpRange& w) {
+  if (kBackToBack) return w.seg0 + e;
+  int j = 0, oj = 0;                  // the last lane j with off[j] <= e
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    const int o = __shfl_sync(kFull, w.off, j + step);
+    if (o <= e) { j += step; oj = o; }
+  }
+  return __shfl_sync(kFull, seg, j) + (e - oj);
+}
+
+template <typename T, bool kBackToBack>
+__device__ __forceinline__ float warp_segment_sum(
+    float acc, const T* __restrict__ vals, const int32_t* __restrict__ cols,
+    const float* __restrict__ x, int64_t seg, int len,
+    float* __restrict__ s_v, float* __restrict__ s_x) {
+  const int lane = threadIdx.x & 31;
+  const WarpRange w = warp_range(seg, len);
+  const int off = w.off, total = w.total;
 
   for (int c0 = 0; c0 < total; c0 += kWarpChunk) {
     const int n = min(kWarpChunk, total - c0);
     for (int b = 0; b < n; b += 32 * kUnroll) {
       int64_t src[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int e = c0 + b + u * 32 + lane;
-        if (kBackToBack) {
-          src[u] = seg0 + e;
-        } else {
-          int j = 0, oj = 0;          // the last lane j with off[j] <= e
-#pragma unroll
-          for (int step = 16; step > 0; step >>= 1) {
-            const int o = __shfl_sync(kFull, off, j + step);
-            if (o <= e) { j += step; oj = o; }
-          }
-          src[u] = __shfl_sync(kFull, seg, j) + (e - oj);
-        }
-      }
+      for (int u = 0; u < kUnroll; ++u)
+        src[u] = entry_source<kBackToBack>(c0 + b + u * 32 + lane, seg, w);
       float v[kUnroll];
       int32_t c[kUnroll];
 #pragma unroll
@@ -261,6 +277,194 @@ sell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
 }
 
 // ------------------------------------------------------------------------
+// Batched ELL and SELL: the counterparts of B1-B4 under vmap.  The JAX
+// package batches right-hand sides by jax.vmap over the shard body
+// (src/repro/solvers/base.py:419, solvers/resilient.py:212): under
+// backend="pallas" that is fused_ell_spmv_pallas / fused_sell_spmv_pallas
+// (spmv_bcsr.py:103 / :211, and the halo-free :58 / :189) with a batch axis
+// on x and y, one launch, the matrix read by the whole batch.
+//
+//   y[j, s, r] = sum_k dvals[s, r, k] * x_local[j, node(s), dcols[s, r, k]]
+//              + sum_k ovals[s, r, k] * x_ghost[j, node(s), ocols[s, r, k]]
+//
+// for the nrhs <= kMaxRhs columns j.  One launch covers every column and
+// every shard.  A warp walks its 32 rows' (slots') entries as
+// warp_segment_sum does, but stages each entry's value once and x[col] of
+// every column beside it, so each matrix entry is read from device memory
+// once for the whole batch: the point of batching a memory-bound SpMV.
+// Each lane keeps one partial per column in registers and adds, for column
+// j, its row's entries in entry order with one fmaf each -- the order of
+// the single-column kernel -- so column j of y is that kernel's y on x_j
+// bit for bit.  No atomics.
+//
+// Geometry: blocks of 4 warps and 128 staged entries per warp (one step of
+// kUnroll loads per lane); the column tile KT (4, 8 or 16, the smallest
+// that holds nrhs) sizes the partials and the staged x: 34 KB of static
+// shared memory per block at KT = 16, under the 48 KB limit.  Columns past
+// nrhs inside a tile are neither gathered nor summed.
+//
+// Bound: device-memory bytes, the matrix once plus nrhs times (x_local +
+// x_ghost + y).  Known limits (PERF.md): the staging round trip of the
+// single-column kernels, and nrhs x-gathers per staged entry, each
+// waiting on its column's load.
+// ------------------------------------------------------------------------
+constexpr int kMaxRhs = 16;
+constexpr int kBThreads = 128;
+constexpr int kBWarps = kBThreads / 32;
+constexpr int kBChunk = 32 * kUnroll;  // staged entries per warp
+
+template <typename T, bool kBackToBack, int KT>
+__device__ __forceinline__ void warp_segment_sum_batched(
+    float (&acc)[KT], const T* __restrict__ vals,
+    const int32_t* __restrict__ cols, const float* __restrict__ x,
+    int64_t x_rhs_stride, int nrhs, int64_t seg, int len,
+    float* __restrict__ s_v, float (*__restrict__ s_x)[kBChunk]) {
+  const int lane = threadIdx.x & 31;
+  const WarpRange w = warp_range(seg, len);
+  const int off = w.off, total = w.total;
+
+  for (int c0 = 0; c0 < total; c0 += kBChunk) {
+    const int n = min(kBChunk, total - c0);
+    int64_t src[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      src[u] = entry_source<kBackToBack>(c0 + u * 32 + lane, seg, w);
+    float v[kUnroll];
+    int32_t c[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (u * 32 + lane < n) {
+        v[u] = to_f32(vals[src[u]]);
+        c[u] = cols[src[u]];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = u * 32 + lane;
+      if (k < n) {
+        s_v[k] = v[u];
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+          if (j < nrhs) s_x[j][k] = x[j * x_rhs_stride + c[u]];
+      }
+    }
+    __syncwarp();
+    const int lo = max(off, c0), hi = min(off + len, c0 + n);
+    for (int k = lo; k < hi; ++k) {
+      const float vk = s_v[k - c0];
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+        if (j < nrhs) acc[j] = fmaf(vk, s_x[j][k - c0], acc[j]);
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T, int KT>
+__global__ void __launch_bounds__(kBThreads)
+ell_batched_kernel(const T* __restrict__ dvals,
+                   const int32_t* __restrict__ dcols,
+                   const int32_t* __restrict__ dlens, int wd,
+                   const T* __restrict__ ovals,
+                   const int32_t* __restrict__ ocols,
+                   const int32_t* __restrict__ olens, int wo,
+                   const float* __restrict__ x_local, int64_t xl_stride,
+                   int64_t xl_rhs_stride, const float* __restrict__ x_ghost,
+                   int64_t xg_stride, int64_t xg_rhs_stride,
+                   float* __restrict__ y, int rows, int n_core, int n_shards,
+                   int nrhs) {
+  __shared__ float s_v[kBWarps][kBChunk];
+  __shared__ float s_x[kBWarps][KT][kBChunk];
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = r < rows;          // no early return: the warp shuffles
+  const int s = blockIdx.y;
+  const int64_t node = s / n_core;
+  const int64_t row = static_cast<int64_t>(s) * rows + (live ? r : 0);
+
+  float acc[KT];
+#pragma unroll
+  for (int j = 0; j < KT; ++j) acc[j] = 0.0f;
+  int len = 0;
+  if (live) len = min(max(dlens[row], 0), wd);
+  warp_segment_sum_batched<T, false, KT>(
+      acc, dvals, dcols, x_local + node * xl_stride, xl_rhs_stride, nrhs,
+      row * wd, len, s_v[warp], s_x[warp]);
+  if (wo > 0) {
+    len = 0;
+    if (live) len = min(max(olens[row], 0), wo);
+    warp_segment_sum_batched<T, false, KT>(
+        acc, ovals, ocols, x_ghost + node * xg_stride, xg_rhs_stride, nrhs,
+        row * wo, len, s_v[warp], s_x[warp]);
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+      if (j < nrhs)
+        y[(static_cast<int64_t>(j) * n_shards + s) * rows + r] = acc[j];
+  }
+}
+
+template <typename T, int KT>
+__global__ void __launch_bounds__(kBThreads)
+sell_batched_kernel(const T* __restrict__ dvals,
+                    const int32_t* __restrict__ dcols,
+                    const int32_t* __restrict__ dstart,
+                    const int32_t* __restrict__ dwidth, int64_t d_len,
+                    const T* __restrict__ ovals,
+                    const int32_t* __restrict__ ocols,
+                    const int32_t* __restrict__ ostart,
+                    const int32_t* __restrict__ owidth, int64_t o_len,
+                    int has_offd, int n_slices, int slice_height,
+                    const float* __restrict__ x_local, int64_t xl_stride,
+                    int64_t xl_rhs_stride, const float* __restrict__ x_ghost,
+                    int64_t xg_stride, int64_t xg_rhs_stride,
+                    float* __restrict__ y, int rc_pad, int n_core,
+                    int n_shards, int nrhs) {
+  __shared__ float s_v[kBWarps][kBChunk];
+  __shared__ float s_x[kBWarps][KT][kBChunk];
+  const int warp = threadIdx.x >> 5;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = blockIdx.y;
+  const int64_t node = s / n_core;
+  const int sl = q / slice_height;
+  const int jq = q - sl * slice_height;
+  const bool present = sl < n_slices;  // slots past the last slice: none
+  const int64_t d = static_cast<int64_t>(s) * n_slices + sl;
+
+  float acc[KT];
+#pragma unroll
+  for (int j = 0; j < KT; ++j) acc[j] = 0.0f;
+  int len = 0;
+  int64_t seg = 0;
+  if (present) {
+    len = dwidth[d];
+    seg = dstart[d] + static_cast<int64_t>(jq) * len;
+  }
+  warp_segment_sum_batched<T, true, KT>(
+      acc, dvals + s * d_len, dcols + s * d_len, x_local + node * xl_stride,
+      xl_rhs_stride, nrhs, seg, len, s_v[warp], s_x[warp]);
+  if (has_offd) {
+    len = 0;
+    seg = 0;
+    if (present) {
+      len = owidth[d];
+      seg = ostart[d] + static_cast<int64_t>(jq) * len;
+    }
+    warp_segment_sum_batched<T, true, KT>(
+        acc, ovals + s * o_len, ocols + s * o_len,
+        x_ghost + node * xg_stride, xg_rhs_stride, nrhs, seg, len,
+        s_v[warp], s_x[warp]);
+  }
+  if (q < rc_pad) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+      if (j < nrhs)
+        y[(static_cast<int64_t>(j) * n_shards + s) * rc_pad + q] = acc[j];
+  }
+}
+
+// ------------------------------------------------------------------------
 // Balanced (nnz-binned COO): replaces balanced_spmv_pallas
 // (src/repro/kernels/spmv_bcsr.py:268, body _balanced_kernel :239).
 //
@@ -373,6 +577,99 @@ int repro_sell_spmv(int vals_bf16, const void* dvals, const int32_t* dcols,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The batched entry points: x_local (nrhs, n_node, xl_stride), x_ghost
+// (nrhs, n_node, xg_stride), y (nrhs, n_shards, rows | rc_pad); the other
+// arguments as the single-column entry points take them.  1 <= nrhs <=
+// kMaxRhs, else cudaErrorInvalidValue and nothing is launched.
+#define REPRO_BY_TILE(NRHS, LAUNCH) \
+  if ((NRHS) <= 4) {                \
+    LAUNCH(4);                      \
+  } else if ((NRHS) <= 8) {         \
+    LAUNCH(8);                      \
+  } else {                          \
+    LAUNCH(16);                     \
+  }
+
+int repro_ell_spmv_batched(int vals_bf16, const void* dvals,
+                           const int32_t* dcols, const int32_t* dlens,
+                           int wd, const void* ovals, const int32_t* ocols,
+                           const int32_t* olens, int wo,
+                           const float* x_local, int64_t xl_stride,
+                           const float* x_ghost, int64_t xg_stride,
+                           float* y, int n_shards, int n_core, int rows,
+                           int nrhs, void* stream) {
+  if (nrhs < 1 || nrhs > kMaxRhs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || n_shards <= 0) return 0;
+  const dim3 grid((rows + kBThreads - 1) / kBThreads, n_shards);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t n_node = n_shards / n_core;
+  const int64_t xl_rhs = n_node * xl_stride, xg_rhs = n_node * xg_stride;
+  if (vals_bf16) {
+    using T = __nv_bfloat16;
+#define REPRO_LAUNCH(KT)                                                  \
+  ell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                  \
+      static_cast<const T*>(dvals), dcols, dlens, wd,                     \
+      static_cast<const T*>(ovals), ocols, olens, wo, x_local, xl_stride, \
+      xl_rhs, x_ghost, xg_stride, xg_rhs, y, rows, n_core, n_shards, nrhs)
+    REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  } else {
+    using T = float;
+#define REPRO_LAUNCH(KT)                                                  \
+  ell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                  \
+      static_cast<const T*>(dvals), dcols, dlens, wd,                     \
+      static_cast<const T*>(ovals), ocols, olens, wo, x_local, xl_stride, \
+      xl_rhs, x_ghost, xg_stride, xg_rhs, y, rows, n_core, n_shards, nrhs)
+    REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int repro_sell_spmv_batched(int vals_bf16, const void* dvals,
+                            const int32_t* dcols, const int32_t* dstart,
+                            const int32_t* dwidth, int64_t d_len,
+                            const void* ovals, const int32_t* ocols,
+                            const int32_t* ostart, const int32_t* owidth,
+                            int64_t o_len, int has_offd, int n_slices,
+                            int slice_height, const float* x_local,
+                            int64_t xl_stride, const float* x_ghost,
+                            int64_t xg_stride, float* y, int n_shards,
+                            int n_core, int rc_pad, int nrhs, void* stream) {
+  if (nrhs < 1 || nrhs > kMaxRhs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rc_pad <= 0 || n_shards <= 0) return 0;
+  const dim3 grid((rc_pad + kBThreads - 1) / kBThreads, n_shards);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t n_node = n_shards / n_core;
+  const int64_t xl_rhs = n_node * xl_stride, xg_rhs = n_node * xg_stride;
+  if (vals_bf16) {
+    using T = __nv_bfloat16;
+#define REPRO_LAUNCH(KT)                                                   \
+  sell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                  \
+      static_cast<const T*>(dvals), dcols, dstart, dwidth, d_len,          \
+      static_cast<const T*>(ovals), ocols, ostart, owidth, o_len,          \
+      has_offd, n_slices, slice_height, x_local, xl_stride, xl_rhs,        \
+      x_ghost, xg_stride, xg_rhs, y, rc_pad, n_core, n_shards, nrhs)
+    REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  } else {
+    using T = float;
+#define REPRO_LAUNCH(KT)                                                   \
+  sell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                  \
+      static_cast<const T*>(dvals), dcols, dstart, dwidth, d_len,          \
+      static_cast<const T*>(ovals), ocols, ostart, owidth, o_len,          \
+      has_offd, n_slices, slice_height, x_local, xl_stride, xl_rhs,        \
+      x_ghost, xg_stride, xg_rhs, y, rc_pad, n_core, n_shards, nrhs)
+    REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+#undef REPRO_BY_TILE
 
 // Output (n_rows,), every row written once: warp_map (n_warps, 3) tiles
 // the rows, its entry offsets index the flat vals/cols.

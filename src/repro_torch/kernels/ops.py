@@ -15,6 +15,14 @@ Shapes follow the plan: matrix blocks lead with ``(n_node, n_core)``;
 ``(n_node, n_core, rows)``.  The single-device path takes a whole matrix
 and a flat ``x``: ``ell_spmv`` on an ``ELLMatrix``'s ``(rows, w)`` arrays
 and ``balanced_spmv`` on a ``BalancedCOO``.
+
+Batched right-hand sides: ``ell_spmv``, ``fused_ell_spmv`` and
+``fused_sell_spmv`` also take ``x_local`` ``(nrhs, n_node, nl_pad)`` and
+``x_ghost`` ``(nrhs, n_node, g_pad + 1)`` with ``1 <= nrhs <=
+MAX_NRHS`` and give ``(nrhs, n_node, n_core, rows)``: one launch of the
+batched kernel for all columns, counted under the kernel's name with
+``_batched``.  Column ``j`` is the single-column kernel's ``y`` on column
+``j`` bit for bit.
 """
 from __future__ import annotations
 
@@ -23,12 +31,20 @@ import torch
 from repro_torch.kernels import ref
 
 __all__ = ["ell_spmv", "fused_ell_spmv", "fused_sell_spmv", "balanced_spmv",
-           "LAUNCHES", "reset_launches"]
+           "check_sell_layout", "LAUNCHES", "MAX_NRHS", "reset_launches"]
 
 #: kernel name -> launches since the last ``reset_launches``
 LAUNCHES: dict[str, int] = {"fused_ell_spmv": 0, "ell_spmv": 0,
                             "fused_sell_spmv": 0, "sell_spmv": 0,
-                            "balanced_spmv": 0}
+                            "balanced_spmv": 0,
+                            "fused_ell_spmv_batched": 0,
+                            "ell_spmv_batched": 0,
+                            "fused_sell_spmv_batched": 0,
+                            "sell_spmv_batched": 0}
+
+#: the most right-hand sides one batched launch takes (``kMaxRhs`` in
+#: ``csrc/spmv.cu``)
+MAX_NRHS = 16
 
 _VAL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -55,6 +71,31 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def _nrhs(name: str, x_local: torch.Tensor, x_ghost, n_node: int):
+    """``None`` for a single-column ``x_local`` ``(n_node, n)``; the batch
+    size for a batched one ``(nrhs, n_node, n)``, checked against
+    ``x_ghost``'s and against :data:`MAX_NRHS`."""
+    if x_local.dim() == 2:
+        if x_ghost is not None and x_ghost.dim() != 2:
+            raise ValueError(f"{name}: x_local {tuple(x_local.shape)} with "
+                             f"batched x_ghost {tuple(x_ghost.shape)}")
+        return None
+    if x_local.dim() != 3:
+        raise ValueError(f"{name}: x_local must be (n_node, n) or (nrhs, "
+                         f"n_node, n), got {tuple(x_local.shape)}")
+    k = x_local.shape[0]
+    if not 1 <= k <= MAX_NRHS:
+        raise ValueError(f"{name}: {k} right-hand sides; one batched launch "
+                         f"takes 1 to {MAX_NRHS}")
+    if x_ghost is not None and (x_ghost.dim() != 3 or x_ghost.shape[0] != k):
+        raise ValueError(f"{name}: x_local {tuple(x_local.shape)} and "
+                         f"x_ghost {tuple(x_ghost.shape)} differ in batch")
+    if x_local.shape[1] != n_node:
+        raise ValueError(f"{name}: x_local {tuple(x_local.shape)} for "
+                         f"{n_node} nodes")
+    return k
+
+
 def _check(name: str, device, vals=(), idx=(), xs=()) -> int:
     """Validate what the kernel takes; return the storage-dtype code."""
     codes = set()
@@ -74,9 +115,10 @@ def _check(name: str, device, vals=(), idx=(), xs=()) -> int:
         if c.dtype != torch.int32:
             raise TypeError(f"{name}: indices must be int32, got {c.dtype}")
     for x in xs:
-        if x.dtype != torch.float32 or x.dim() != 2:
-            raise TypeError(f"{name}: x must be float32 (n_node, n), got "
-                            f"{x.dtype} {tuple(x.shape)}")
+        if x.dtype != torch.float32 or x.dim() not in (2, 3):
+            raise TypeError(f"{name}: x must be float32 (n_node, n) or "
+                            f"(nrhs, n_node, n), got {x.dtype} "
+                            f"{tuple(x.shape)}")
     return codes.pop()
 
 
@@ -112,7 +154,8 @@ def _ell(name, dvals, dcols, dlens, ovals, ocols, olens, x_local, x_ghost):
     from repro_torch.kernels.spmv_cuda import library
 
     n_node, n_core, rows, wd = dvals.shape
-    if dcols.shape != dvals.shape or x_local.shape[0] != n_node:
+    k = _nrhs(name, x_local, x_ghost, n_node)
+    if dcols.shape != dvals.shape or x_local.shape[-2] != n_node:
         raise ValueError(f"{name}: shapes {tuple(dvals.shape)} "
                          f"{tuple(dcols.shape)} x {tuple(x_local.shape)}")
     dlens = _lens(name, dlens, dvals)
@@ -121,7 +164,7 @@ def _ell(name, dvals, dcols, dlens, ovals, ocols, olens, x_local, x_ghost):
     if ovals is not None:
         wo = ovals.shape[-1]
         if (ovals.shape[:3] != dvals.shape[:3] or ocols.shape != ovals.shape
-                or x_ghost.shape[0] != n_node):
+                or x_ghost.shape[-2] != n_node):
             raise ValueError(f"{name}: offd shapes {tuple(ovals.shape)} "
                              f"{tuple(ocols.shape)} x {tuple(x_ghost.shape)}")
         olens = _lens(name, olens, ovals)
@@ -129,19 +172,25 @@ def _ell(name, dvals, dcols, dlens, ovals, ocols, olens, x_local, x_ghost):
     if n_node * n_core > 65535:
         raise ValueError(f"{name}: {n_node * n_core} shards > 65535")
     code = _check(name, dvals.device, vals, idx, xs)
-    y = torch.empty((n_node, n_core, rows), dtype=torch.float32,
+    y = torch.empty((n_node, n_core, rows) if k is None
+                    else (k, n_node, n_core, rows), dtype=torch.float32,
                     device=dvals.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = library().repro_ell_spmv(
-        code, dvals.data_ptr(), dcols.data_ptr(), dlens.data_ptr(), wd,
-        ptr(ovals) if wo else None, ptr(ocols) if wo else None,
-        ptr(olens) if wo else None, wo, x_local.data_ptr(),
-        x_local.shape[1], ptr(x_ghost) if wo else None,
-        x_ghost.shape[1] if wo else 0, y.data_ptr(), n_node * n_core,
-        n_core, rows, _stream(dvals.device))
+    args = (code, dvals.data_ptr(), dcols.data_ptr(), dlens.data_ptr(), wd,
+            ptr(ovals) if wo else None, ptr(ocols) if wo else None,
+            ptr(olens) if wo else None, wo, x_local.data_ptr(),
+            x_local.shape[-1], ptr(x_ghost) if wo else None,
+            x_ghost.shape[-1] if wo else 0, y.data_ptr(), n_node * n_core,
+            n_core, rows)
+    if k is None:
+        err = library().repro_ell_spmv(*args, _stream(dvals.device))
+    else:
+        name = f"{name}_batched"
+        err = library().repro_ell_spmv_batched(*args, k,
+                                               _stream(dvals.device))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return y
@@ -152,7 +201,9 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     """Halo-free ELL SpMV: ``y = vals·x[cols]`` per row.
 
     Over all shards: vals/cols ``(n_node, n_core, rows, w)`` and x
-    ``(n_node, n)`` give ``(n_node, n_core, rows)``.  Flat (an
+    ``(n_node, n)`` give ``(n_node, n_core, rows)``; a batched x
+    ``(nrhs, n_node, n)`` gives ``(nrhs, n_node, n_core, rows)`` in one
+    launch (``ell_spmv_batched``).  Flat (an
     ``ELLMatrix``'s arrays): vals/cols ``(rows, w)`` and x ``(n,)`` give
     ``(rows,)``, through the same kernel as one shard.  ``lens`` (int32,
     one per row: ``ELLFormat``'s ``diag_len``, ``ELLMatrix.row_lens``)
@@ -164,6 +215,8 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     The TPU kernel's ``row_tile`` has no counterpart: a warp takes 32 rows
     and the grid covers every row, so the rows need no padding."""
     if _on_cpu(vals):
+        if vals.dim() == 4:
+            _nrhs("ell_spmv", x, None, vals.shape[0])
         return ref.ell_spmv_ref(vals, cols, x)
     if vals.dim() == 2:
         x = _flat_x("ell_spmv", x)
@@ -182,8 +235,11 @@ def fused_ell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
     diag partial kept in a register.  ``dlens``/``olens``: each stream's
     row lengths, as ``ell_spmv``'s ``lens``, with the same condition: the
     result equals the all-slot read's only for finite ``x_local[:, 0]``
-    and ``x_ghost[:, 0]``."""
+    and ``x_ghost[:, 0]``.  Batched ``x_local``/``x_ghost`` (a leading
+    ``nrhs`` axis) run all columns in one launch
+    (``fused_ell_spmv_batched``)."""
     if _on_cpu(dvals):
+        _nrhs("fused_ell_spmv", x_local, x_ghost, dvals.shape[0])
         return ref.fused_ell_spmv_ref(dvals, dcols, ovals, ocols, x_local,
                                       x_ghost)
     return _ell("fused_ell_spmv", dvals, dcols, dlens, ovals, ocols, olens,
@@ -205,8 +261,14 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
     ``sell_arrays_from_csr`` lays them: ``start[s + 1] == start[s] +
     slice_height * width[s]``.  It reads a warp's
     slots as one contiguous range from its first slot, so other starts give
-    a wrong ``y``; the plain version takes any layout."""
+    a wrong ``y``; the plain version takes any layout.  The check is
+    :func:`check_sell_layout`, made on the host once when a shard body
+    binds a plan (``make_shard_body``), not per launch.  Batched
+    ``x_local``/``x_ghost`` (a leading ``nrhs`` axis) give ``(nrhs,
+    n_node, n_core, rc_pad)`` in one launch
+    (``fused_sell_spmv_batched`` / ``sell_spmv_batched``)."""
     if _on_cpu(dvals):
+        _nrhs("fused_sell_spmv", x_local, x_ghost, dvals.shape[0])
         return ref.fused_sell_spmv_ref(dvals, dcols, dstart, dwidth, ovals,
                                        ocols, ostart, owidth, x_local,
                                        x_ghost, rc_pad, slice_height)
@@ -214,11 +276,12 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
 
     name = "sell_spmv" if x_ghost is None else "fused_sell_spmv"
     n_node, n_core, d_len = dvals.shape
+    k = _nrhs(name, x_local, x_ghost, n_node)
     n_slices = dstart.shape[-1]
     if (dcols.shape != dvals.shape or dstart.shape != dwidth.shape
             or dstart.shape[:2] != (n_node, n_core)
             or n_slices * slice_height < rc_pad
-            or x_local.shape[0] != n_node):
+            or x_local.shape[-2] != n_node):
         raise ValueError(f"{name}: shapes {tuple(dvals.shape)} "
                          f"{tuple(dstart.shape)} x {tuple(x_local.shape)} "
                          f"for rc_pad {rc_pad}")
@@ -230,7 +293,7 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
         if (ovals.shape[:2] != (n_node, n_core) or ocols.shape != ovals.shape
                 or ostart.shape != dstart.shape
                 or owidth.shape != dstart.shape
-                or x_ghost.shape[0] != n_node):
+                or x_ghost.shape[-2] != n_node):
             raise ValueError(f"{name}: offd shapes {tuple(ovals.shape)} "
                              f"{tuple(ostart.shape)} x "
                              f"{tuple(x_ghost.shape)}")
@@ -239,22 +302,47 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
     if n_node * n_core > 65535:
         raise ValueError(f"{name}: {n_node * n_core} shards > 65535")
     code = _check(name, dvals.device, vals, idx, xs)
-    y = torch.empty((n_node, n_core, rc_pad), dtype=torch.float32,
+    y = torch.empty((n_node, n_core, rc_pad) if k is None
+                    else (k, n_node, n_core, rc_pad), dtype=torch.float32,
                     device=dvals.device)
 
     def ptr(t):
         return t.data_ptr() if has_offd else None
 
-    err = library().repro_sell_spmv(
-        code, dvals.data_ptr(), dcols.data_ptr(), dstart.data_ptr(),
-        dwidth.data_ptr(), d_len, ptr(ovals), ptr(ocols), ptr(ostart),
-        ptr(owidth), o_len, int(has_offd), n_slices, slice_height,
-        x_local.data_ptr(), x_local.shape[1], ptr(x_ghost),
-        x_ghost.shape[1] if has_offd else 0, y.data_ptr(), n_node * n_core,
-        n_core, rc_pad, _stream(dvals.device))
+    args = (code, dvals.data_ptr(), dcols.data_ptr(), dstart.data_ptr(),
+            dwidth.data_ptr(), d_len, ptr(ovals), ptr(ocols), ptr(ostart),
+            ptr(owidth), o_len, int(has_offd), n_slices, slice_height,
+            x_local.data_ptr(), x_local.shape[-1], ptr(x_ghost),
+            x_ghost.shape[-1] if has_offd else 0, y.data_ptr(),
+            n_node * n_core, n_core, rc_pad)
+    if k is None:
+        err = library().repro_sell_spmv(*args, _stream(dvals.device))
+    else:
+        name = f"{name}_batched"
+        err = library().repro_sell_spmv_batched(*args, k,
+                                                _stream(dvals.device))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return y
+
+
+def check_sell_layout(start: torch.Tensor, width: torch.Tensor,
+                      length: int, slice_height: int = 8) -> None:
+    """Raise unless every shard's slices lie back to back in its stream,
+    as the SELL kernels read them: ``start[s + 1] == start[s] +
+    slice_height · width[s]``, from 0, within the stream's ``length``.
+    On the host (one copy of the descriptors), once per bound plan."""
+    st = start.detach().cpu().reshape(-1, start.shape[-1]).long()
+    w = width.detach().cpu().reshape(-1, width.shape[-1]).long()
+    end = st + slice_height * w
+    if (st.numel() and (bool((st[:, 0] != 0).any())
+                        or bool((st[:, 1:] != end[:, :-1]).any())
+                        or bool((w < 0).any())
+                        or int(end[:, -1].max()) > length)):
+        raise ValueError("SELL slices are not back to back in their stream "
+                         "(start[s + 1] == start[s] + slice_height * "
+                         "width[s] from 0): the SELL kernels would read "
+                         "other slots' entries")
 
 
 def balanced_spmv(bcoo, x: torch.Tensor) -> torch.Tensor:

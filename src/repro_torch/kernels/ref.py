@@ -9,6 +9,12 @@ Shard layout (the plan's): matrix blocks lead with ``(n_node, n_core)``;
 the node-local vectors ``x`` are ``(n_node, n)`` — one per node, shared by
 the node's cores.  The single-device path (``ELLMatrix``, ``BalancedCOO``)
 takes a whole matrix and a flat ``x`` ``(n,)``.
+
+Batched right-hand sides: the shard-layout functions also take ``x``
+with a leading batch axis, ``(nrhs, n_node, n)``, and return ``(nrhs,
+n_node, n_core, rows)``: each column is the unbatched function on that
+column, computed one column at a time, so it is the unbatched result bit
+for bit.
 """
 from __future__ import annotations
 
@@ -27,6 +33,13 @@ def _take_per_node(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1)[flat]
 
 
+def _per_column(fn, *xs):
+    """``fn`` on each column of the batched ``xs`` (``None`` passes
+    through), stacked on a leading axis."""
+    return torch.stack([fn(*(None if x is None else x[j] for x in xs))
+                        for j in range(xs[0].shape[0])])
+
+
 def ell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """``y[i, c, r] = Σ_k vals[i, c, r, k] · x[i, cols[i, c, r, k]]``.
@@ -34,8 +47,11 @@ def ell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,
     vals/cols ``(n_node, n_core, rows, w)``; x ``(n_node, n)``; returns
     ``(n_node, n_core, rows)`` float32.  The flat form, vals/cols
     ``(rows, w)`` and x ``(n,)``, returns ``(rows,)``.  Padding entries
-    carry ``vals == 0``, so they contribute nothing.
+    carry ``vals == 0``, so they contribute nothing.  A batched x
+    ``(nrhs, n_node, n)`` gives ``(nrhs, n_node, n_core, rows)``.
     """
+    if vals.dim() == 4 and x.dim() == 3:
+        return _per_column(lambda xj: ell_spmv_ref(vals, cols, xj), x)
     g = (x[cols.long()] if x.dim() == 1
          else _take_per_node(x, cols)).to(torch.float32)
     return (vals.to(torch.float32) * g).sum(-1)
@@ -43,6 +59,9 @@ def ell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,
 
 def fused_ell_spmv_ref(dvals, dcols, ovals, ocols, x_local, x_ghost):
     """Diag ELL × ``x_local`` plus offd ELL × ``x_ghost``."""
+    if x_local.dim() == 3:
+        return _per_column(lambda xl, xg: fused_ell_spmv_ref(
+            dvals, dcols, ovals, ocols, xl, xg), x_local, x_ghost)
     return (ell_spmv_ref(dvals, dcols, x_local)
             + ell_spmv_ref(ovals, ocols, x_ghost))
 
@@ -85,6 +104,10 @@ def fused_sell_spmv_ref(dvals, dcols, dstart, dwidth, ovals, ocols, ostart,
                         slice_height: int = 8):
     """Diag SELL stream × ``x_local``, then the offd stream × ``x_ghost``
     added onto it; ``x_ghost=None`` is the diag-only kernel."""
+    if x_local.dim() == 3:
+        return _per_column(lambda xl, xg: fused_sell_spmv_ref(
+            dvals, dcols, dstart, dwidth, ovals, ocols, ostart, owidth, xl,
+            xg, rc_pad, slice_height), x_local, x_ghost)
     y = sell_spmv_ref(dvals, dcols, dstart, dwidth, x_local, rc_pad,
                       slice_height)
     if x_ghost is None:

@@ -4,7 +4,7 @@
 interface at first use, under ``build/kernels/`` at the repository root,
 named by a hash of the source and flags (a changed source never loads a
 stale library).  ``ctypes`` loads it; :mod:`repro_torch.kernels.ops` calls
-the three entry points with tensor pointers and the current CUDA stream.
+the five entry points with tensor pointers and the current CUDA stream.
 
 Nothing here runs at import: the CPU tests import every module on a
 machine with no ``nvcc``.  A failed build raises; there is no fallback.
@@ -18,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCE", "build", "library"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCE", "build", "library", "loads"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "spmv.cu"
 #: <repo>/build/kernels (this file is <repo>/src/repro_torch/kernels/...)
@@ -27,6 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIB: ctypes.CDLL | None = None
+#: times this process has loaded a kernel library (each load follows its
+#: build at first use): 0 before the first CUDA launch, 1 after
+_LOADS = 0
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {
@@ -35,6 +38,11 @@ _ARGTYPES = {
     "repro_sell_spmv": [_i, _p, _p, _p, _p, _i64, _p, _p, _p, _p, _i64, _i,
                         _i, _i, _p, _i64, _p, _i64, _p, _i, _i, _i, _p],
     "repro_balanced_spmv": [_i, _p, _p, _p, _p, _i, _p, _p, _p],
+    "repro_ell_spmv_batched": [_i, _p, _p, _p, _i, _p, _p, _p, _i, _p, _i64,
+                               _p, _i64, _p, _i, _i, _i, _i, _p],
+    "repro_sell_spmv_batched": [_i, _p, _p, _p, _p, _i64, _p, _p, _p, _p,
+                                _i64, _i, _i, _i, _p, _i64, _p, _i64, _p,
+                                _i, _i, _i, _i, _p],
 }
 
 
@@ -68,9 +76,16 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     return out, res.stdout + res.stderr
 
 
+def loads() -> int:
+    """How many times this process has built-or-found and loaded the
+    kernel library (:func:`library`); it stays 1 for the life of a
+    process that launched a kernel."""
+    return _LOADS
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _LIB
+    global _LIB, _LOADS
     if _LIB is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
@@ -79,4 +94,5 @@ def library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIB = lib
+        _LOADS += 1
     return _LIB

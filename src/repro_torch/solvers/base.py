@@ -7,7 +7,10 @@ reductions — is shared machinery owned by this module.
 A solver sees the world through a :class:`SolverCtx`:
 
   * ``ctx.spmv``    — the distributed SpMV on ``(nrhs, n_node, n_core,
-                      rc_pad)`` blocks;
+                      rc_pad)`` blocks: one call of the shard body on the
+                      whole block (one exchange, one batched kernel
+                      launch for all columns; a block of one runs the
+                      single-column kernels);
   * ``ctx.precond`` — shard-local ``z = M^-1 r``;
   * ``ctx.options`` — the solver's static options, resolved on the host by
                       ``Solver.prepare`` (e.g. Chebyshev's eigenvalue
@@ -52,7 +55,8 @@ from repro_torch.solvers.precond import Preconditioner, get_precond
 __all__ = ["local_dot", "pdot", "pdot_stack", "SolverCtx", "Solver",
            "register_solver", "get_solver", "available_solvers",
            "make_solver", "to_dist_batch", "from_dist_batch",
-           "count_reductions", "reduction_census", "make_precond_apply"]
+           "count_reductions", "reduction_census", "make_precond_apply",
+           "check_nrhs"]
 
 
 # --------------------------------------------------------------------- #
@@ -279,17 +283,38 @@ def available_solvers() -> tuple[str, ...]:
 def to_dist_batch(B, layout: dict, plan, dtype=None) -> torch.Tensor:
     """Stack ``(nrhs, n)`` global RHS columns into the batched CG layout
     ``(n_node, n_core, nrhs, rc_pad)`` (the JAX package's layout), in
-    ``dtype`` (default: the plan's)."""
-    from repro_torch.core.spmv import to_dist
-    out = torch.stack([to_dist(b, layout, plan) for b in B], dim=2)
-    return out if dtype is None else out.to(dtype)
+    ``dtype`` (default: the plan's).  Packed on the host and moved in one
+    transfer; column ``j`` is ``to_dist(B[j])`` byte for byte."""
+    g = layout["global_row_of"]
+    B = np.asarray(B)
+    out = np.zeros(plan.cg_shape[:2] + (B.shape[0], plan.rc_pad),
+                   dtype=B.dtype)
+    ii, cc, ss = np.nonzero(g >= 0)
+    out[ii, cc, :, ss] = B[:, g[ii, cc, ss]].T
+    return torch.from_numpy(out).to(
+        device=plan.device, dtype=plan.mask.dtype if dtype is None
+        else dtype)
 
 
 def from_dist_batch(xd: torch.Tensor, layout: dict, plan) -> np.ndarray:
-    """Inverse of :func:`to_dist_batch` -> ``(nrhs, n)`` numpy array."""
-    from repro_torch.core.spmv import from_dist
-    return np.stack([from_dist(xd[:, :, j], layout, plan)
-                     for j in range(xd.shape[2])])
+    """Inverse of :func:`to_dist_batch` -> ``(nrhs, n)`` numpy array (one
+    device-to-host copy)."""
+    g = layout["global_row_of"]
+    xh = xd.detach().cpu().numpy()
+    out = np.zeros((xh.shape[2], plan.n), dtype=xh.dtype)
+    ii, cc, ss = np.nonzero(g >= 0)
+    out[:, g[ii, cc, ss]] = xh[ii, cc, :, ss].T
+    return out
+
+
+def check_nrhs(nrhs: int | None) -> None:
+    """Raise unless ``nrhs`` is ``None`` or fits one batched launch."""
+    from repro_torch.kernels.ops import MAX_NRHS
+    if nrhs is not None and not (isinstance(nrhs, int)
+                                 and 1 <= nrhs <= MAX_NRHS):
+        raise ValueError(f"nrhs must be None or an int in 1..{MAX_NRHS} "
+                         f"(the columns one batched SpMV launch takes), got "
+                         f"{nrhs!r}")
 
 
 # --------------------------------------------------------------------- #
@@ -332,6 +357,9 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     ``solve.wire_dtype``.  ``solve.pdata`` / ``solve.papply`` are what
     ``Preconditioner.bind`` returned.
 
+    ``nrhs`` is at most ``MAX_NRHS`` (16), the most columns one batched
+    kernel launch takes.
+
     ``check_every`` is the number of gated iterations between host syncs.
     ``solve.parts(b, tol, maxiter)`` returns ``(solver, ctx, b block, tol,
     maxiter)`` as the loop sees them (:func:`reduction_census` runs one
@@ -339,6 +367,7 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     """
     from repro_torch.core.spmv import make_shard_body
 
+    check_nrhs(nrhs)
     # resolve every name and option first: an unknown solver, precond or
     # option raises before transport="auto" spends time on candidate SpMVs
     sol = get_solver(solver)
@@ -356,8 +385,7 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     body = make_shard_body(plan, transport=transport,
                            neighbor_offsets=neighbor_offsets,
                            wire_dtype=wire_dtype)
-    ctx = SolverCtx(spmv=lambda v: torch.stack([body(vj) for vj in v]),
-                    precond=lambda r: papply(pdata, r),
+    ctx = SolverCtx(spmv=body, precond=lambda r: papply(pdata, r),
                     maxiter_static=maxiter_static, options=opts)
     batched = nrhs is not None
 
@@ -404,7 +432,8 @@ def make_precond_apply(plan, *, precond: str | Preconditioner = "jacobi",
     preconditioner's numpy ``host_apply``.  ``backend`` is the shard
     body's (``"kernel"`` | ``"plain"``) for preconditioners that run
     SpMVs.  Carries ``apply.precond`` (the resolved name) and
-    ``apply.papply`` (``bind``'s apply function)."""
+    ``apply.pdata`` / ``apply.papply`` (what ``bind`` returned; ``papply``
+    takes loop-layout ``(nrhs, n_node, n_core, rc_pad)`` blocks)."""
     pre = get_precond(precond)
     pre.validate_options(precond_options)
     pdata, papply = pre.bind(plan, layout=layout, A=A, backend=backend,
@@ -417,7 +446,7 @@ def make_precond_apply(plan, *, precond: str | Preconditioner = "jacobi",
         return papply(pdata, rd[None])[0]
 
     apply.precond = pre.name
-    apply.papply = papply
+    apply.pdata, apply.papply = pdata, papply
     return apply
 
 

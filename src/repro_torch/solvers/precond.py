@@ -352,17 +352,22 @@ class TwoLevelPrecond(Preconditioner):
         body_P = make_shard_body(plan_P, backend=backend)
         s_apply = smoother.apply
 
-        def coarse_correction(P, v):
-            rc = body_R(v)                          # (n_node, n_core, rc_R)
+        def coarse_correction(P, r):
+            # one batched R and P body for all columns of r
+            k = r.shape[0]
+            rc = body_R(r)                      # (k, n_node, n_core, rc_R)
             # the core- then node-axis all_gather: the flat view
-            r_c = rc.reshape(-1)[P["coarse_gather"][0, 0]]      # (nc,)
-            y_c = torch.mv(P["ainv_c"][0, 0], r_c)  # the redundant solve
-            y_ext = torch.cat([y_c, y_c.new_zeros(1)])
-            return body_P(y_ext[P["p_col_map"]])    # (n_node, n_core, rc)
+            r_c = rc.reshape(k, -1)[:, P["coarse_gather"][0, 0]]  # (k, nc)
+            ainv = P["ainv_c"][0, 0]
+            # the redundant solve; each column's product reads only its own
+            # residual, so the other columns do not move its bits
+            y_c = (torch.mv(ainv, r_c[0])[None] if k == 1
+                   else r_c @ ainv.T)
+            y_ext = torch.cat([y_c, y_c.new_zeros(k, 1)], dim=1)
+            return body_P(y_ext[:, P["p_col_map"]])  # (k, n_node, n_core, rc)
 
         def apply_fn(P, r):
-            z = s_apply(P, r)
-            return z + torch.stack([coarse_correction(P, v) for v in r])
+            return s_apply(P, r) + coarse_correction(P, r)
 
         apply_fn.host_seconds = seconds
         apply_fn.plans = {"R": (plan_R, layout_R), "P": (plan_P, layout_P)}

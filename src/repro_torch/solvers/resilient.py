@@ -51,8 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.fault import FaultInjector, StepGuard, Watchdog
-from repro_torch.solvers.base import (SolverCtx, from_dist_batch, get_solver,
-                                      pdot, to_dist_batch)
+from repro_torch.solvers.base import (SolverCtx, check_nrhs, from_dist_batch,
+                                      get_solver, pdot, to_dist_batch)
 from repro_torch.solvers.precond import get_precond
 
 __all__ = ["resilient_solve", "make_resilient", "ResilientResult",
@@ -120,6 +120,7 @@ class _Resilient:
         self.kinds, self.opts = kinds, opts
         self._build = build
         self._clean = build(transport)
+        self.builds = 1
         self._faulty: _Programs | None = None
         self.transport = self._clean.transport
         self.wire_dtype = self._clean.wire_dtype
@@ -144,6 +145,7 @@ class _Resilient:
                                                     get_transport)
             base = get_transport(self.transport)
             self._faulty = self._build(FaultyTransport(base=base))
+            self.builds += 1
         return self._faulty.chunk
 
 
@@ -152,7 +154,8 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
                    maxiter_static: int = 10_000,
                    A=None, layout: dict | None = None,
                    options: dict | None = None,
-                   precond_options: dict | None = None) -> _Resilient:
+                   precond_options: dict | None = None,
+                   backend: str = "kernel") -> _Resilient:
     """Build the three chunked-execution programs for a registered
     solver/preconditioner pair on the plan's device (``make_solver``'s
     plumbing), all on loop-layout ``(nrhs, n_node, n_core, rc_pad)``
@@ -166,6 +169,11 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
     ``chunk`` runs ``steps`` gated iterations of the solver's
     ``loop_body``, then the true-residual probe (1 SpMV + 1 reduction,
     outside the iterations: the per-iteration census is unchanged).
+
+    ``backend`` is the shard body's local matvec (``"kernel"``: the
+    kernel wrappers; ``"plain"``: their plain versions everywhere).  The
+    result counts its program builds in ``builds`` (the clean triple, and
+    the faulty chunk once it is asked for).
     """
     from repro_torch.core.spmv import make_shard_body
 
@@ -176,7 +184,7 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
     if "x" not in kinds or "k" not in kinds:
         raise ValueError(f"solver {sol.name!r} state_kinds() must include "
                          "'x' and 'k'")
-    pdata, papply = pre.bind(plan, layout=layout, A=A,
+    pdata, papply = pre.bind(plan, layout=layout, A=A, backend=backend,
                              options=precond_options)
     opts = sol.prepare(plan, pre, pdata, A=A, layout=layout, options=options)
     transport = transport if transport is not None else plan.transport
@@ -190,9 +198,8 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
     def build(tr) -> _Programs:
         body = make_shard_body(plan, transport=tr,
                                neighbor_offsets=neighbor_offsets,
-                               wire_dtype=wire_dtype)
-        ctx = SolverCtx(spmv=lambda v: torch.stack([body(vj) for vj in v]),
-                        precond=lambda r: papply(pdata, r),
+                               wire_dtype=wire_dtype, backend=backend)
+        ctx = SolverCtx(spmv=body, precond=lambda r: papply(pdata, r),
                         maxiter_static=maxiter_static, options=opts)
 
         def restart(b, tol, maxiter, x, k):
@@ -348,6 +355,7 @@ def resilient_solve(A_or_plan, b, *, solver="cg", precond="jacobi",
     nrhs, n = B.shape
     if n != plan.n:
         raise ValueError(f"b has {n} rows, plan has {plan.n}")
+    check_nrhs(nrhs)
 
     if programs is not None:
         if programs.plan is not plan:

@@ -127,16 +127,24 @@ class ShardFormat:
         return 1.0 - nnz_true / max(self.nnz_stored(data), 1)
 
     # -- device-side local matvec -------------------------------------- #
+    def check_kernel_layout(self, F: dict[str, torch.Tensor]) -> None:
+        """Raise if ``F`` breaks a layout the kernels assume and the plan
+        arrays' shapes do not show; run once when a shard body binds a
+        plan.  Default: nothing to check."""
+
     def matvec_plain(self, F: dict[str, torch.Tensor], x_local: torch.Tensor,
                      x_ghost: torch.Tensor | None,
                      rc_pad: int) -> torch.Tensor:
-        """Two-phase matvec over all shards, plain PyTorch."""
+        """Two-phase matvec over all shards, plain PyTorch.  A batched
+        ``x_local``/``x_ghost`` (a leading ``nrhs`` axis) gives ``(nrhs,
+        n_node, n_core, rc_pad)``."""
         raise NotImplementedError
 
     def matvec_kernel(self, F: dict[str, torch.Tensor],
                       x_local: torch.Tensor, x_ghost: torch.Tensor | None,
                       rc_pad: int) -> torch.Tensor:
-        """Two-phase matvec over all shards through the kernel wrappers."""
+        """Two-phase matvec over all shards through the kernel wrappers;
+        batched as :meth:`matvec_plain`, in one launch."""
         raise NotImplementedError
 
 
@@ -357,6 +365,15 @@ class SELLFormat(ShardFormat):
 
     def nnz_stored(self, data):
         return int(data["sell_dvals"].numel() + data["sell_ovals"].numel())
+
+    def check_kernel_layout(self, F):
+        """Each shard's slices back to back in each stream
+        (``ops.check_sell_layout``)."""
+        from repro_torch.kernels.ops import check_sell_layout
+        for key in ("d", "o"):
+            check_sell_layout(F[f"sell_{key}start"], F[f"sell_{key}width"],
+                              F[f"sell_{key}vals"].shape[-1],
+                              self.slice_height)
 
     def _args(self, F, x_ghost):
         if x_ghost is not None and F["sell_ovals"].shape[-1] == 0:

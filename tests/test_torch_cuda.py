@@ -586,3 +586,128 @@ def test_precond_cg_on_the_card(fmt, golden):
                 assert LAUNCHES[CASES[f"{fmt}/4x2"]] > 0
     for pname in ("block_jacobi", "two_level"):
         assert abs(iters["cuda", pname] - iters["cpu", pname]) <= 1
+
+
+# --------------------------------------------------------------------- #
+# the batched kernels (B1-B4 under vmap) and the engine on the card
+# --------------------------------------------------------------------- #
+def _batched_inputs(plan, layout, k, seed):
+    rng = np.random.default_rng(seed)
+    X = torch.stack([to_dist(rng.standard_normal(plan.n), layout, plan)
+                     for _ in range(k)])
+    return make_shard_body(plan).inputs(X)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_batched_kernel_columns_are_the_single_kernel(case, dtype, k,
+                                                      golden):
+    """Column j of one batched launch is the single-column kernel on x_j
+    bit for bit, whatever the memory held (the pool is dirtied with NaN
+    first), within 2e-5·max|y| of the plain version, and counted once
+    under the kernel's ``_batched`` key."""
+    A, _, _ = golden
+    plan, layout = _plan(case, A)
+    F = {kk: (v.to(dtype) if v.is_floating_point() else v)
+         for kk, v in plan.fmt_data.items()}
+    fmt = get_format(plan.format)
+    xl, xg = _batched_inputs(plan, layout, k, seed=k)
+    torch.full((k * plan.n_node * plan.n_core * plan.rc_pad,), float("nan"),
+               device="cuda")
+    reset_launches()
+    y = fmt.matvec_kernel(F, xl, xg, plan.rc_pad)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {kk: int(kk == f"{CASES[case]}_batched")
+                        for kk in LAUNCHES}
+    assert y.shape == (k,) + plan.cg_shape and torch.isfinite(y).all()
+    for j in range(k):
+        yj = fmt.matvec_kernel(F, xl[j], None if xg is None else xg[j],
+                               plan.rc_pad)
+        assert torch.equal(y[j], yj), (case, dtype, k, j)
+    _close_to_plain(y, fmt.matvec_plain(F, xl, xg, plan.rc_pad))
+    assert (y[:, plan.mask == 0] == 0).all()
+
+
+@pytest.mark.parametrize("fmt_name", ["ell", "sell"])
+def test_batched_kernels_write_zeros_where_there_are_no_entries(fmt_name,
+                                                                golden):
+    """``test_kernels_write_zeros_where_there_are_no_entries``'s ragged
+    node (rows of 0 to 150 entries, the ``rc_pad`` tail) through the
+    batched kernel at k = 5: every empty slot exactly 0 in every column."""
+    rng = np.random.default_rng(11)
+    n, n_ghost, rc_pad, k = 150, 7, 88, 5
+    diag = _random_csr(rng, n, n, 150, 20)
+    offd = _random_csr(rng, n, n_ghost, 4, 60)
+    cb = np.array([0, 70, n])
+    c_of = np.searchsorted(cb, np.arange(n), side="right") - 1
+    fmt = get_format(fmt_name)
+    slots = fmt.slot_order(diag.row_nnz + offd.row_nnz, cb)
+    F = fmt.pack([diag], [offd], [cb], [c_of], [slots], rc_pad, "cuda")
+    xl = torch.from_numpy(rng.standard_normal((k, 1, n))
+                          .astype(np.float32)).cuda()
+    xg = torch.from_numpy(rng.standard_normal((k, 1, n_ghost + 1))
+                          .astype(np.float32)).cuda()
+    for ghost, nnz in ((xg, diag.row_nnz + offd.row_nnz),
+                       (None, diag.row_nnz)):
+        empty = np.ones((1, 2, rc_pad), dtype=bool)
+        empty[0, c_of, slots] = nnz == 0
+        torch.full((4 * k * rc_pad,), float("nan"), device="cuda")
+        y = fmt.matvec_kernel(F, xl, ghost, rc_pad)
+        assert torch.isfinite(y).all()
+        assert (y[:, torch.from_numpy(empty).cuda()] == 0).all()
+        _close_to_plain(y, fmt.matvec_plain(F, xl, ghost, rc_pad))
+
+
+def test_batched_wrappers_refuse_what_the_kernel_does_not_take(golden):
+    A, _, _ = golden
+    plan, layout = _plan("ell/4x2", A)
+    F = plan.fmt_data
+    args = [F["diag_vals"], F["diag_cols"], F["offd_vals"], F["offd_cols"]]
+    xl, xg = _batched_inputs(plan, layout, ops.MAX_NRHS + 1, seed=1)
+    reset_launches()
+    with pytest.raises(ValueError, match="1 to 16"):
+        ops.fused_ell_spmv(*args, xl, xg)
+    with pytest.raises(ValueError, match="1 to 16"):
+        ops.ell_spmv(F["diag_vals"], F["diag_cols"], xl)
+    with pytest.raises(ValueError, match="differ in batch"):
+        ops.fused_ell_spmv(*args, xl[:4], xg[:3])
+    with pytest.raises(ValueError):
+        ops.fused_ell_spmv(*args, xl[:4].cpu(), xg[:4])
+    with pytest.raises(ValueError):
+        ops.fused_ell_spmv(*args, xl[:4, :, ::2], xg[:4])
+    sp, sl = _plan("sell/4x2", A)
+    G = sp.fmt_data
+    sxl, sxg = _batched_inputs(sp, sl, ops.MAX_NRHS + 1, seed=2)
+    with pytest.raises(ValueError, match="1 to 16"):
+        ops.fused_sell_spmv(G["sell_dvals"], G["sell_dcols"],
+                            G["sell_dstart"], G["sell_dwidth"],
+                            G["sell_ovals"], G["sell_ocols"],
+                            G["sell_ostart"], G["sell_owidth"], sxl, sxg,
+                            sp.rc_pad)
+    assert sum(LAUNCHES.values()) == 0
+
+
+def test_engine_on_the_card_serves_with_no_rebuild(golden):
+    """A small engine on ``cuda``: every request converges against the
+    host oracle, the batched kernel carries its SpMVs, and no plan,
+    program or kernel library is built after warm-up."""
+    from repro_torch.serve import EngineConfig, SolveService
+    from repro_torch.testing.refine_check import host_cg
+
+    A = graded_extruded_mesh_matrix(16, 4, seed=0)
+    svc = SolveService(A, EngineConfig(nrhs=3, n_node=2, n_core=2,
+                                       format="sell", check_every=5),
+                       device="cuda")
+    B = np.random.default_rng(3).normal(size=(7, A.n_rows))
+    reset_launches()
+    futs = [svc.submit(B[i], tol=(1e-5, 3e-5, 1e-4)[i % 3])
+            for i in range(7)]
+    assert len(svc.drain()) == 7
+    for i, f in enumerate(futs):
+        xh = host_cg(A, B[i], tol=1e-10, maxiter=20_000)
+        assert np.linalg.norm(f.result().x - xh) / np.linalg.norm(xh) < 1e-2
+    st = svc.stats()
+    assert st["recompiles"] == 0 and st["failed"] == 0
+    assert st["executables"]["kernel_library"] == 1
+    assert LAUNCHES["fused_sell_spmv_batched"] > 0

@@ -198,4 +198,7 @@ def test_wrappers_refuse_other_devices_and_types():
         ops.balanced_spmv(b, x[0])
     assert set(ops.LAUNCHES) == {"fused_ell_spmv", "ell_spmv",
                                  "fused_sell_spmv", "sell_spmv",
-                                 "balanced_spmv"}
+                                 "balanced_spmv", "fused_ell_spmv_batched",
+                                 "ell_spmv_batched",
+                                 "fused_sell_spmv_batched",
+                                 "sell_spmv_batched"}

@@ -7,6 +7,7 @@ Usage:  python tests/torch_reference.py OUT.npz [CASE ...]
         python tests/torch_reference.py OUT.npz --resilient PORT_CKPT REF_CKPT
         python tests/torch_reference.py OUT.npz --rect
         python tests/torch_reference.py OUT.npz --precond
+        python tests/torch_reference.py OUT.npz --serve PORT_CKPT REF_CKPT
 
 A case is ``FORMAT/N_NODExN_CORE`` (default: ``ell/4x2 sell/4x2 ell/1x4
 sell/1x4``) on ``graded_extruded_mesh_matrix(48, 6, seed=0)`` — the golden
@@ -66,6 +67,24 @@ row order, under ``"<format>/<precond>/z"``; and for each of
 two_level (agg ``SCALING_AGG``) at each tol of ``SCALING_TOLS``, under
 ``"scaling/<n_surface>x<layers>/<precond>/<tol>"``.
 
+``--serve PORT_CKPT REF_CKPT`` dumps the solve service's pieces:
+``fingerprint/<name>``, ``matrix_fingerprint`` of
+``graded_extruded_mesh_matrix(16, 4)`` (``graded``) and of the golden
+matrix (``golden``); ``dist_batch/bd`` and ``dist_batch/back``,
+``to_dist_batch`` / ``from_dist_batch`` of three RHS (``default_rng(1)``)
+on that graded matrix's 2×2 nnz plan (non-uniform node bounds);
+``nrhs3/<format>/iters``, ``make_solver(nrhs=3)`` (cg + jacobi, tol 1e-5,
+maxiter 2000) on the golden matrix at 4×2 of three RHS
+(``default_rng(7)``); ``engine/<n_node>x<n_core>/iters`` and ``.../x``,
+a ``SolveService`` (nrhs 3, check_every 5, ell) on the graded matrix
+serving nine RHS (``default_rng(3)``, tols cycling ``SERVE_TOLS``) at 1×1
+and 2×2.  Then on the graded matrix at 1×1 (nrhs 2, check_every 5): an
+ell engine takes two RHS (``default_rng(11)``, tols 1e-5 / 3e-5), runs one
+chunk and checkpoints to ``REF_CKPT``; fresh sell engines restore
+``REF_CKPT`` and ``PORT_CKPT`` (written by the port the same way) and
+drain: ``resume_ref/...`` and ``resume_port/...`` (``rids``, ``iters``,
+``x``, ``residual``).
+
 ``--resilient PORT_CKPT REF_CKPT`` works on ``resilience_check``'s system
 (``graded_extruded_mesh_matrix(48, 6)``, RHS ``default_rng(1)``, jacobi,
 tol 1e-5, check_every 10).  Under ``"<solver>/<name>"``, a clean chunked
@@ -95,6 +114,8 @@ PLAN_META = ("n", "n_node", "n_core", "rc_pad", "nl_pad", "g_pad", "hs",
 #: --precond's scaling tolerances: 1e-6 is precond_check's; 3e-6 and 1e-5
 #: sit above the smallest mesh's float32 plateau
 SCALING_TOLS = (1e-6, 3e-6, 1e-5)
+#: --serve's per-request tolerances, cycled over the queue
+SERVE_TOLS = (1e-5, 3e-5, 1e-4)
 
 
 def dump_case(case: str, A, x, b) -> dict:
@@ -346,6 +367,66 @@ def dump_precond() -> dict:
     return out
 
 
+def dump_serve(port_ckpt: str, ref_ckpt: str) -> dict:
+    from repro.core import build_spmv_plan
+    from repro.serve import (EngineConfig, PlanCache, SolveEngine,
+                             SolveService, matrix_fingerprint)
+    from repro.solvers import make_solver
+    from repro.solvers.base import from_dist_batch, to_dist_batch
+    from repro.sparse import graded_extruded_mesh_matrix
+
+    A = graded_extruded_mesh_matrix(16, 4, seed=0)
+    G = graded_extruded_mesh_matrix(48, 6, seed=0)
+    out = {"fingerprint/graded": np.asarray(matrix_fingerprint(A)),
+           "fingerprint/golden": np.asarray(matrix_fingerprint(G))}
+    plan, layout = build_spmv_plan(A, 2, 2, mode="balanced",
+                                   node_partition="nnz")
+    B = np.random.default_rng(1).normal(size=(3, A.n_rows))
+    bd = to_dist_batch(B, layout, plan)
+    out["dist_batch/bd"] = np.asarray(bd)
+    out["dist_batch/back"] = from_dist_batch(bd, layout, plan)
+
+    Bg = np.random.default_rng(7).normal(size=(3, G.n_rows))
+    for fmt in ("ell", "sell"):
+        plan, layout = build_spmv_plan(G, 4, 2, mode="balanced",
+                                       node_partition="nnz", format=fmt)
+        solve = make_solver(plan, _mesh(4, 2), nrhs=3, A=G, layout=layout)
+        out[f"nrhs3/{fmt}/iters"] = np.asarray(solve(
+            to_dist_batch(Bg, layout, plan), tol=1e-5, maxiter=2000)[1])
+
+    cache = PlanCache()
+    kw = dict(check_every=5, maxiter=2000, maxiter_static=2000)
+    Bq = np.random.default_rng(3).normal(size=(9, A.n_rows))
+    for n_node, n_core in ((1, 1), (2, 2)):
+        svc = SolveService(A, EngineConfig(nrhs=3, n_node=n_node,
+                                           n_core=n_core, **kw),
+                           cache=cache, mesh=_mesh(n_node, n_core))
+        futs = [svc.submit(Bq[i], tol=SERVE_TOLS[i % 3]) for i in range(9)]
+        svc.drain()
+        res = [f.result() for f in futs]
+        out[f"engine/{n_node}x{n_core}/iters"] = np.asarray(
+            [r.iterations for r in res])
+        out[f"engine/{n_node}x{n_core}/x"] = np.stack([r.x for r in res])
+
+    Bc = np.random.default_rng(11).normal(size=(2, A.n_rows))
+    e1 = SolveEngine(A, EngineConfig(nrhs=2, **kw), mesh=_mesh(1, 1),
+                     cache=cache)
+    e1.submit(Bc[0], tol=1e-5)
+    e1.submit(Bc[1], tol=3e-5)
+    e1.step()
+    e1.checkpoint(ref_ckpt)
+    for tag, ck in (("resume_ref", ref_ckpt), ("resume_port", port_ckpt)):
+        e2 = SolveEngine(A, EngineConfig(nrhs=2, format="sell", **kw),
+                         mesh=_mesh(1, 1), cache=cache)
+        e2.restore(ck)
+        recs = sorted(e2.drain(), key=lambda r: r.request.rid)
+        out[f"{tag}/rids"] = np.asarray([r.request.rid for r in recs])
+        out[f"{tag}/iters"] = np.asarray([r.iterations for r in recs])
+        out[f"{tag}/x"] = np.stack([r.x for r in recs])
+        out[f"{tag}/residual"] = np.asarray([r.residual for r in recs])
+    return out
+
+
 def main() -> int:
     path, cases = sys.argv[1], sys.argv[2:] or CASES
     if cases == ["--transports"]:
@@ -359,6 +440,9 @@ def main() -> int:
         return 0
     if cases == ["--precond"]:
         np.savez(path, **dump_precond())
+        return 0
+    if cases[0] == "--serve":
+        np.savez(path, **dump_serve(*cases[1:]))
         return 0
     if cases[0] == "--resilient":
         np.savez(path, **dump_resilient(*cases[1:]))
