@@ -146,18 +146,23 @@ check raises, so the exit code is not 0.
             as in 6b;
 6i. serve    the batched kernels (B1-B4 under ``vmap``: one launch for k
             right-hand sides) on the full-size 4x2 and 1x8 plans at k = 1,
-            4 and 8: every column bit for bit the single-column kernel on
-            that column, the whole within 2e-5·max|y| of the batched plain
-            version, median ms of 20 CUDA-event runs, the bound (matrix
-            bytes once + k x (x_local + x_ghost + y bytes) over the memory
-            rate) and cuSPARSE SpMM (``torch.sparse`` CSR x dense (n, k))
-            as the library; the batched shard body on the 4x2 plans, each
-            column bit for bit the unbatched body for every transport x
-            wire dtype.  Then the serving path, launch counts zeroed just
-            before it and read just after (every batched kernel must have
-            launched): ``make_solver(nrhs=4)`` (cg + jacobi, tol 1e-5) on
-            each full plan, each column within ±1 of its ``nrhs=None``
-            solve and a true residual < 2e-4, and on sell 4x2 wall and
+            3, 4, 8 and 16, f32 and bf16 storage: every column bit for bit
+            the single-column kernel on that column, the whole within
+            2e-5·max|y| of the batched plain version; in f32 the median ms
+            of 20 CUDA-event runs of the wrapper (its interleave copy of x
+            included), the same per call of 20 back to back
+            (``loop_ms``: no host gaps between them) and the copy alone
+            (``interleave_ms``), the bound
+            (matrix bytes once + k x (x_local + x_ghost + y bytes) over the
+            memory rate) and cuSPARSE SpMM (``torch.sparse`` CSR x dense
+            (n, k)) as the library; the batched shard body on the 4x2
+            plans, each column bit for bit the unbatched body for every
+            transport x wire dtype.  Then the serving path, launch counts
+            zeroed just before it and read just after (every batched
+            kernel must have launched): ``make_solver(nrhs=4)`` (cg +
+            jacobi, tol 1e-5) on each full plan, each column within ±1 of
+            its ``nrhs=None`` solve and a true residual < 2e-4, and on
+            sell 4x2 wall and
             device ms and launches per iteration against four sequential
             solves; the service (``SolveService``, sell 4x2, a2a f32, cg +
             jacobi, nrhs 4, check_every 25) on 16 requests with tols
@@ -234,6 +239,25 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def loop_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+    """Per call, ``reps`` calls of ``fn()`` back to back between two CUDA
+    events, after ``warmup`` calls: the host's launch gaps hide behind the
+    device's work, as in a solve's loop."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def nbytes(*ts) -> int:
@@ -1387,6 +1411,9 @@ BATCHED = {
 #: the service's batch (nrhs) and chunk; its rows of the ``kernels`` line
 #: are the batched kernels at this k
 SERVE_NRHS, SERVE_CHECK_EVERY = 4, 25
+#: the batch sizes the batched kernels are checked and timed at: every
+#: column tile (4, 8, 16), full and with pad columns
+SERVE_KS = (1, 3, 4, 8, 16)
 SERVE_TOLS = (1e-5, 3e-5, 1e-4)
 
 
@@ -1404,48 +1431,72 @@ def spmm_ms(A, k: int) -> float:
 
 
 def serve_kernels(A, plans, bw, f32_peak) -> dict:
-    """Each batched kernel at k = 1, 4 and 8 on its full-size plan: every
-    column bit for bit the single-column kernel, the whole within
-    2e-5·max|y| of the plain version, timed; returns the k = SERVE_NRHS
-    rows by kernel name."""
+    """Each batched kernel at k = SERVE_KS on its full-size plan, f32 and
+    bf16: every column bit for bit the single-column kernel, the whole
+    within 2e-5·max|y| of the plain version; f32 timed, with the interleave
+    copy alone beside it.  Returns the k = SERVE_NRHS rows by kernel
+    name."""
     import numpy as np
     import torch
 
     from repro_torch.core import make_shard_body, to_dist
+    from repro_torch.kernels import ops
     from repro_torch.sparse import get_format
 
     rng = np.random.default_rng(SEED + 5)
-    lib = {k: spmm_ms(A, k) for k in (1, 4, 8)}
+    lib = {k: spmm_ms(A, k) for k in SERVE_KS}
     rows = {}
     for name, (key, _) in BATCHED.items():
         plan, layout = plans[key]
-        fmt, F = get_format(plan.format), plan.fmt_data
+        fmt = get_format(plan.format)
         body = make_shard_body(plan)
-        for k in (1, 4, 8):
+        for k in SERVE_KS:
             X = torch.stack([to_dist(rng.standard_normal(A.n_rows), layout,
                                      plan) for _ in range(k)])
             xl, xg = body.inputs(X)
-            y = fmt.matvec_kernel(F, xl, xg, plan.rc_pad)
-            same = all(torch.equal(y[j], fmt.matvec_kernel(
-                F, xl[j], None if xg is None else xg[j], plan.rc_pad))
-                for j in range(k))
-            torch.cuda.synchronize()
-            check(same, f"{name} k={k}: a column differs from the "
-                  "single-column kernel")
-            x1 = (xl[0], None if xg is None else xg[0])
-            one_bytes, one_flops, _ = kernel_cost(fmt, F, *x1)
-            mat_bytes = one_bytes - nbytes(*x1)
-            row = measure(
-                "serve_kernel",
-                {"kernel": name, "plan": key, "dtype": "float32", "k": k,
-                 "columns_bitwise_single": same, "library_ms": lib[k],
-                 "library": "torch.sparse CSR x dense (n, k), global "
-                            "matrix (cuSPARSE SpMM)"},
-                lambda: fmt.matvec_kernel(F, xl, xg, plan.rc_pad),
-                lambda: fmt.matvec_plain(F, xl, xg, plan.rc_pad),
-                mat_bytes + k * nbytes(*x1), k * one_flops, bw, f32_peak)
-            if k == SERVE_NRHS:
-                rows[name] = row
+            for dtype in (torch.float32, torch.bfloat16):
+                F = {kk: (v.to(dtype) if v.is_floating_point() else v)
+                     for kk, v in plan.fmt_data.items()}
+                y = fmt.matvec_kernel(F, xl, xg, plan.rc_pad)
+                same = all(torch.equal(y[j], fmt.matvec_kernel(
+                    F, xl[j], None if xg is None else xg[j], plan.rc_pad))
+                    for j in range(k))
+                torch.cuda.synchronize()
+                what = f"{name} k={k} {str(dtype)[6:]}"
+                check(same, f"{what}: a column differs from the "
+                      "single-column kernel")
+                if dtype == torch.bfloat16:
+                    want = fmt.matvec_plain(F, xl, xg, plan.rc_pad)
+                    err = float((y - want).abs().max())
+                    tol = 2e-5 * max(1.0, float(want.abs().max()))
+                    emit("serve_kernel", kernel=name, plan=key,
+                         dtype="bfloat16", k=k, columns_bitwise_single=same,
+                         max_abs_err=err, tol=tol)
+                    check(err <= tol, f"{what}: max|err| {err} > {tol}")
+                    continue
+                x1 = (xl[0], None if xg is None else xg[0])
+                one_bytes, one_flops, _ = kernel_cost(fmt, F, *x1)
+                mat_bytes = one_bytes - nbytes(*x1)
+                inter_ms = time_ms(lambda: (ops.interleave_rhs(xl),
+                                            None if xg is None
+                                            else ops.interleave_rhs(xg)))
+                row = measure(
+                    "serve_kernel",
+                    {"kernel": name, "plan": key, "dtype": "float32",
+                     "k": k, "columns_bitwise_single": same,
+                     "interleave_ms": inter_ms,
+                     "loop_ms": loop_ms(lambda: fmt.matvec_kernel(
+                         F, xl, xg, plan.rc_pad)),
+                     "library_ms": lib[k],
+                     "library": "torch.sparse CSR x dense (n, k), global "
+                                "matrix (cuSPARSE SpMM)"},
+                    lambda: fmt.matvec_kernel(F, xl, xg, plan.rc_pad),
+                    lambda: fmt.matvec_plain(F, xl, xg, plan.rc_pad),
+                    mat_bytes + k * nbytes(*x1), k * one_flops, bw,
+                    f32_peak)
+                if k == SERVE_NRHS:
+                    rows[name] = row
+                del F
     return rows
 
 

@@ -281,85 +281,158 @@ sell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
 // package batches right-hand sides by jax.vmap over the shard body
 // (src/repro/solvers/base.py:419, solvers/resilient.py:212): under
 // backend="pallas" that is fused_ell_spmv_pallas / fused_sell_spmv_pallas
-// (spmv_bcsr.py:103 / :211, and the halo-free :58 / :189) with a batch axis
-// on x and y, one launch, the matrix read by the whole batch.
+// (spmv_bcsr.py:103 / :211, and the halo-free ell_spmv_pallas :58 /
+// sell_spmv_pallas :189) with a batch axis on x and y, one launch, the
+// matrix read by the whole batch.
 //
 //   y[j, s, r] = sum_k dvals[s, r, k] * x_local[j, node(s), dcols[s, r, k]]
 //              + sum_k ovals[s, r, k] * x_ghost[j, node(s), ocols[s, r, k]]
 //
-// for the nrhs <= kMaxRhs columns j.  One launch covers every column and
-// every shard.  A warp walks its 32 rows' (slots') entries as
-// warp_segment_sum does, but stages each entry's value once and x[col] of
-// every column beside it, so each matrix entry is read from device memory
-// once for the whole batch: the point of batching a memory-bound SpMV.
-// Each lane keeps one partial per column in registers and adds, for column
-// j, its row's entries in entry order with one fmaf each -- the order of
-// the single-column kernel -- so column j of y is that kernel's y on x_j
-// bit for bit.  No atomics.
+// for the nrhs <= kMaxRhs columns j, all columns and all shards in one
+// launch.  Column j of y is the single-column kernel's y on x_j bit for
+// bit: each slot is summed by one lane, per column in entry order with one
+// fmaf per entry, diag then offd, as warp_segment_sum sums it.  No atomics.
 //
-// Geometry: blocks of 4 warps and 128 staged entries per warp (one step of
-// kUnroll loads per lane); the column tile KT (4, 8 or 16, the smallest
-// that holds nrhs) sizes the partials and the staged x: 34 KB of static
-// shared memory per block at KT = 16, under the 48 KB limit.  Columns past
-// nrhs inside a tile are neither gathered nor summed.
+// Bound: device-memory bytes -- the matrix once for the whole batch (8 B
+// per entry in f32, 6 B in bf16, and the row lengths or slice
+// descriptors) plus nrhs times x_local, x_ghost and y; two flops per entry
+// and column, far below the card's operations-per-byte balance.
 //
-// Bound: device-memory bytes, the matrix once plus nrhs times (x_local +
-// x_ghost + y).  Known limits (PERF.md): the staging round trip of the
-// single-column kernels, and nrhs x-gathers per staged entry, each
-// waiting on its column's load.
+// Design.  x comes column-interleaved, xi[node][col][j] with j padded by
+// zeros to the column tile KT (4, 8 or 16, the smallest that holds nrhs),
+// built by the wrapper in one copy (ops.interleave_rhs).  One entry's x
+// for every column is then KT/4 aligned 16-byte loads from one 32-byte
+// sector (two at KT = 16), where a column-major x costs nrhs loads from
+// nrhs sectors.  A warp walks its 32 rows' (slots') segments in windows
+// (warp_window_sum): each window stages the next 16 entries of every
+// lane's segment, coalesced, as 8-byte (value, column) pairs in shared
+// memory; then every lane sums its own row of the window in entry order,
+// gathering each entry's x row through the read-only path when it sums
+// it, 4 entries' rows in flight, nrhs fmaf per entry.  All 32 lanes sum at
+// once, and ELL needs no owner search.  Pad columns are loaded with their
+// row but neither summed nor written.
+//
+// Measured on an H100 (PERF.md's sweep of these kernels, each geometry a
+// rebuild of this file with the three constants below changed): blocks of 4
+// warps, windows of 16 and 4 loads in flight ran fastest at k = 4 of
+// 128/256 threads, windows of 4-32 and 2-8 loads.  The first designs
+// walked the warp's flat entry range in chunks, as warp_segment_sum does:
+// a chunk holds only some lanes' entries, so the others idle in its sum
+// loop, and ELL paid a five-shuffle owner search per entry; the best of
+// them was 4-6% slower at k = 4 and 8.  Staging x rows beside the
+// values (s_x[entry][KT]) tied at KT = 4 and was 1.3x slower at 8 and
+// 1.9x at 16 (4 KT + 4 bytes of shared memory and 104-150 registers cap
+// the warps an SM holds); staging by cp.async was no faster.
+//
+// wgmma and TMA do not fit: the work is a gather-bound SpMV with at most
+// 16 columns and no dense tile for a tensor core or a bulk copy to take.
+//
+// Known limits (PERF.md): at k = 4 a call back to back, its interleave
+// copy included, runs at 2.4-2.8x the bound, the copy 0.04-0.07 ms of it;
+// columns past the first cost x-row gathers at about L2's rate, so KT = 8
+// and 16 sit at 2.8-3.9x; 128 registers at KT = 16 hold 16 warps per SM.
 // ------------------------------------------------------------------------
 constexpr int kMaxRhs = 16;
-constexpr int kBThreads = 128;
-constexpr int kBWarps = kBThreads / 32;
-constexpr int kBChunk = 32 * kUnroll;  // staged entries per warp
+constexpr int kBThreads = 128;  // threads per block
+constexpr int kBWindow = 16;    // entries of each lane's segment per window
+constexpr int kBUnroll = 4;     // loads in flight per lane
+constexpr int kBRow = kBWindow + 1;     // a lane's staged pairs, padded
+// One warp's shared memory: the window's (value, column) pairs [32][kBRow]
+// (8 B each), then each lane's segment start (int64) and length (int32).
+constexpr int kBWarpBytes = (32 * kBRow * 8 + 32 * 12 + 15) / 16 * 16;
+constexpr int kBBlockBytes = kBThreads / 32 * kBWarpBytes;
+static_assert(kBWindow % kBUnroll == 0, "a window of whole steps");
+static_assert(kBBlockBytes <= 48 * 1024, "static shared memory");
 
-template <typename T, bool kBackToBack, int KT>
-__device__ __forceinline__ void warp_segment_sum_batched(
+// acc[j] = fmaf(v, x[j], acc[j]) for the real columns j < nrhs of one x row.
+template <int KT>
+__device__ __forceinline__ void fma_row(float (&acc)[KT], float v,
+                                        const float4 (&xr)[KT / 4],
+                                        int nrhs) {
+#pragma unroll
+  for (int q = 0; q < KT / 4; ++q) {
+    const float xs[4] = {xr[q].x, xr[q].y, xr[q].z, xr[q].w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (4 * q + c < nrhs) acc[4 * q + c] = fmaf(v, xs[c], acc[4 * q + c]);
+  }
+}
+
+// Add one stream's entries onto acc: the warp walks its 32 segments
+// [seg, seg + len) in windows of kBWindow entries each, all lanes at once.
+// Window w0 stages entries [w0, w0 + kBWindow) of every lane's segment,
+// coalesced (slot (j, t) at s_vc[j][t], a row padded to kBRow pairs so
+// neither the staging nor the sum conflicts on banks); then each lane sums
+// its own row of the window in entry order, gathering each entry's x row
+// (KT/4 16-byte loads) when it sums it, kBUnroll rows in flight.  A
+// lane's segment start and length come from shared memory: no prefix sum
+// and no owner search.
+template <typename T, int KT>
+__device__ __forceinline__ void warp_window_sum(
     float (&acc)[KT], const T* __restrict__ vals,
-    const int32_t* __restrict__ cols, const float* __restrict__ x,
-    int64_t x_rhs_stride, int nrhs, int64_t seg, int len,
-    float* __restrict__ s_v, float (*__restrict__ s_x)[kBChunk]) {
+    const int32_t* __restrict__ cols, const float4* __restrict__ xi,
+    int nrhs, int64_t seg, int len, char* __restrict__ smem) {
+  constexpr int W = kBWindow, P = kBRow, U = kBUnroll, kQ = KT / 4;
   const int lane = threadIdx.x & 31;
-  const WarpRange w = warp_range(seg, len);
-  const int off = w.off, total = w.total;
-
-  for (int c0 = 0; c0 < total; c0 += kBChunk) {
-    const int n = min(kBChunk, total - c0);
-    int64_t src[kUnroll];
+  float2* s_vc = reinterpret_cast<float2*>(smem);
+  int64_t* s_seg = reinterpret_cast<int64_t*>(smem + 32 * P * 8);
+  int32_t* s_len = reinterpret_cast<int32_t*>(smem + 32 * P * 8 + 32 * 8);
+  int longest = len;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      src[u] = entry_source<kBackToBack>(c0 + u * 32 + lane, seg, w);
-    float v[kUnroll];
-    int32_t c[kUnroll];
+  for (int d = 16; d > 0; d >>= 1)
+    longest = max(longest, __shfl_xor_sync(kFull, longest, d));
+  s_seg[lane] = seg;
+  s_len[lane] = len;
+  __syncwarp();
+  for (int w0 = 0; w0 < longest; w0 += W) {
+#pragma unroll 1
+    for (int u0 = 0; u0 < W; u0 += U) {
+      float v[U];
+      int32_t c[U];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (u * 32 + lane < n) {
-        v[u] = to_f32(vals[src[u]]);
-        c[u] = cols[src[u]];
+      for (int u = 0; u < U; ++u) {
+        const int slot = (u0 + u) * 32 + lane, j = slot / W, t = slot % W;
+        v[u] = 0.0f;
+        c[u] = 0;
+        if (w0 + t < s_len[j]) {
+          const int64_t e = s_seg[j] + w0 + t;
+          v[u] = to_f32(vals[e]);
+          c[u] = cols[e];
+        }
       }
-    }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int k = u * 32 + lane;
-      if (k < n) {
-        s_v[k] = v[u];
-#pragma unroll
-        for (int j = 0; j < KT; ++j)
-          if (j < nrhs) s_x[j][k] = x[j * x_rhs_stride + c[u]];
+      for (int u = 0; u < U; ++u) {
+        const int slot = (u0 + u) * 32 + lane, j = slot / W, t = slot % W;
+        if (w0 + t < s_len[j])
+          s_vc[j * P + t] = make_float2(v[u], __int_as_float(c[u]));
       }
     }
     __syncwarp();
-    const int lo = max(off, c0), hi = min(off + len, c0 + n);
-    for (int k = lo; k < hi; ++k) {
-      const float vk = s_v[k - c0];
+    const float2* row = s_vc + lane * P;
+    const int n = min(W, len - w0);
+    for (int t = 0; t < n; t += U) {
+      float vt[U];
+      float4 xr[U][kQ];
 #pragma unroll
-      for (int j = 0; j < KT; ++j)
-        if (j < nrhs) acc[j] = fmaf(vk, s_x[j][k - c0], acc[j]);
+      for (int u = 0; u < U; ++u) {
+        if (t + u < n) {
+          const float2 vc = row[t + u];
+          vt[u] = vc.x;
+          const int64_t col = __float_as_int(vc.y);
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) xr[u][q] = __ldg(xi + col * kQ + q);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (t + u < n) fma_row<KT>(acc, vt[u], xr[u], nrhs);
     }
     __syncwarp();
   }
 }
 
+// xl / xg: the interleaved x_local / x_ghost (float4 rows of KT / 4), with
+// node strides xl_node / xg_node in float4s.
 template <typename T, int KT>
 __global__ void __launch_bounds__(kBThreads)
 ell_batched_kernel(const T* __restrict__ dvals,
@@ -368,14 +441,13 @@ ell_batched_kernel(const T* __restrict__ dvals,
                    const T* __restrict__ ovals,
                    const int32_t* __restrict__ ocols,
                    const int32_t* __restrict__ olens, int wo,
-                   const float* __restrict__ x_local, int64_t xl_stride,
-                   int64_t xl_rhs_stride, const float* __restrict__ x_ghost,
-                   int64_t xg_stride, int64_t xg_rhs_stride,
+                   const float4* __restrict__ xl, int64_t xl_node,
+                   const float4* __restrict__ xg, int64_t xg_node,
                    float* __restrict__ y, int rows, int n_core, int n_shards,
                    int nrhs) {
-  __shared__ float s_v[kBWarps][kBChunk];
-  __shared__ float s_x[kBWarps][KT][kBChunk];
-  const int warp = threadIdx.x >> 5;
+  __shared__ float4 b_smem[kBBlockBytes / 16];
+  char* smem = reinterpret_cast<char*>(b_smem)
+               + (threadIdx.x >> 5) * kBWarpBytes;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = r < rows;          // no early return: the warp shuffles
   const int s = blockIdx.y;
@@ -387,15 +459,13 @@ ell_batched_kernel(const T* __restrict__ dvals,
   for (int j = 0; j < KT; ++j) acc[j] = 0.0f;
   int len = 0;
   if (live) len = min(max(dlens[row], 0), wd);
-  warp_segment_sum_batched<T, false, KT>(
-      acc, dvals, dcols, x_local + node * xl_stride, xl_rhs_stride, nrhs,
-      row * wd, len, s_v[warp], s_x[warp]);
+  warp_window_sum<T, KT>(acc, dvals, dcols, xl + node * xl_node, nrhs,
+                         row * wd, len, smem);
   if (wo > 0) {
     len = 0;
     if (live) len = min(max(olens[row], 0), wo);
-    warp_segment_sum_batched<T, false, KT>(
-        acc, ovals, ocols, x_ghost + node * xg_stride, xg_rhs_stride, nrhs,
-        row * wo, len, s_v[warp], s_x[warp]);
+    warp_window_sum<T, KT>(acc, ovals, ocols, xg + node * xg_node, nrhs,
+                           row * wo, len, smem);
   }
   if (live) {
 #pragma unroll
@@ -416,14 +486,13 @@ sell_batched_kernel(const T* __restrict__ dvals,
                     const int32_t* __restrict__ ostart,
                     const int32_t* __restrict__ owidth, int64_t o_len,
                     int has_offd, int n_slices, int slice_height,
-                    const float* __restrict__ x_local, int64_t xl_stride,
-                    int64_t xl_rhs_stride, const float* __restrict__ x_ghost,
-                    int64_t xg_stride, int64_t xg_rhs_stride,
+                    const float4* __restrict__ xl, int64_t xl_node,
+                    const float4* __restrict__ xg, int64_t xg_node,
                     float* __restrict__ y, int rc_pad, int n_core,
                     int n_shards, int nrhs) {
-  __shared__ float s_v[kBWarps][kBChunk];
-  __shared__ float s_x[kBWarps][KT][kBChunk];
-  const int warp = threadIdx.x >> 5;
+  __shared__ float4 b_smem[kBBlockBytes / 16];
+  char* smem = reinterpret_cast<char*>(b_smem)
+               + (threadIdx.x >> 5) * kBWarpBytes;
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = blockIdx.y;
   const int64_t node = s / n_core;
@@ -441,9 +510,8 @@ sell_batched_kernel(const T* __restrict__ dvals,
     len = dwidth[d];
     seg = dstart[d] + static_cast<int64_t>(jq) * len;
   }
-  warp_segment_sum_batched<T, true, KT>(
-      acc, dvals + s * d_len, dcols + s * d_len, x_local + node * xl_stride,
-      xl_rhs_stride, nrhs, seg, len, s_v[warp], s_x[warp]);
+  warp_window_sum<T, KT>(acc, dvals + s * d_len, dcols + s * d_len,
+                         xl + node * xl_node, nrhs, seg, len, smem);
   if (has_offd) {
     len = 0;
     seg = 0;
@@ -451,10 +519,8 @@ sell_batched_kernel(const T* __restrict__ dvals,
       len = owidth[d];
       seg = ostart[d] + static_cast<int64_t>(jq) * len;
     }
-    warp_segment_sum_batched<T, true, KT>(
-        acc, ovals + s * o_len, ocols + s * o_len,
-        x_ghost + node * xg_stride, xg_rhs_stride, nrhs, seg, len,
-        s_v[warp], s_x[warp]);
+    warp_window_sum<T, KT>(acc, ovals + s * o_len, ocols + s * o_len,
+                           xg + node * xg_node, nrhs, seg, len, smem);
   }
   if (q < rc_pad) {
 #pragma unroll
@@ -578,10 +644,12 @@ int repro_sell_spmv(int vals_bf16, const void* dvals, const int32_t* dcols,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The batched entry points: x_local (nrhs, n_node, xl_stride), x_ghost
-// (nrhs, n_node, xg_stride), y (nrhs, n_shards, rows | rc_pad); the other
-// arguments as the single-column entry points take them.  1 <= nrhs <=
-// kMaxRhs, else cudaErrorInvalidValue and nothing is launched.
+// The batched entry points: x_local and x_ghost column-interleaved,
+// (n_node, xl_width | xg_width, KT) float32 with KT = 4, 8 or 16 the
+// smallest that holds nrhs (ops.interleave_rhs), 16-byte aligned; y
+// (nrhs, n_shards, rows | rc_pad); the other arguments as the single-column
+// entry points take them.  1 <= nrhs <= kMaxRhs, else cudaErrorInvalidValue
+// and nothing is launched.
 #define REPRO_BY_TILE(NRHS, LAUNCH) \
   if ((NRHS) <= 4) {                \
     LAUNCH(4);                      \
@@ -595,8 +663,8 @@ int repro_ell_spmv_batched(int vals_bf16, const void* dvals,
                            const int32_t* dcols, const int32_t* dlens,
                            int wd, const void* ovals, const int32_t* ocols,
                            const int32_t* olens, int wo,
-                           const float* x_local, int64_t xl_stride,
-                           const float* x_ghost, int64_t xg_stride,
+                           const float* x_local, int64_t xl_width,
+                           const float* x_ghost, int64_t xg_width,
                            float* y, int n_shards, int n_core, int rows,
                            int nrhs, void* stream) {
   if (nrhs < 1 || nrhs > kMaxRhs)
@@ -604,27 +672,24 @@ int repro_ell_spmv_batched(int vals_bf16, const void* dvals,
   if (rows <= 0 || n_shards <= 0) return 0;
   const dim3 grid((rows + kBThreads - 1) / kBThreads, n_shards);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t n_node = n_shards / n_core;
-  const int64_t xl_rhs = n_node * xl_stride, xg_rhs = n_node * xg_stride;
+  const float4* xl = reinterpret_cast<const float4*>(x_local);
+  const float4* xg = reinterpret_cast<const float4*>(x_ghost);
+#define REPRO_LAUNCH_T(T, KT)                                           \
+  ell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                \
+      static_cast<const T*>(dvals), dcols, dlens, wd,                   \
+      static_cast<const T*>(ovals), ocols, olens, wo, xl,               \
+      xl_width * (KT / 4), xg, xg_width * (KT / 4), y, rows, n_core,    \
+      n_shards, nrhs)
   if (vals_bf16) {
-    using T = __nv_bfloat16;
-#define REPRO_LAUNCH(KT)                                                  \
-  ell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                  \
-      static_cast<const T*>(dvals), dcols, dlens, wd,                     \
-      static_cast<const T*>(ovals), ocols, olens, wo, x_local, xl_stride, \
-      xl_rhs, x_ghost, xg_stride, xg_rhs, y, rows, n_core, n_shards, nrhs)
+#define REPRO_LAUNCH(KT) REPRO_LAUNCH_T(__nv_bfloat16, KT)
     REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   } else {
-    using T = float;
-#define REPRO_LAUNCH(KT)                                                  \
-  ell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                  \
-      static_cast<const T*>(dvals), dcols, dlens, wd,                     \
-      static_cast<const T*>(ovals), ocols, olens, wo, x_local, xl_stride, \
-      xl_rhs, x_ghost, xg_stride, xg_rhs, y, rows, n_core, n_shards, nrhs)
+#define REPRO_LAUNCH(KT) REPRO_LAUNCH_T(float, KT)
     REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   }
+#undef REPRO_LAUNCH_T
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -635,37 +700,32 @@ int repro_sell_spmv_batched(int vals_bf16, const void* dvals,
                             const int32_t* ostart, const int32_t* owidth,
                             int64_t o_len, int has_offd, int n_slices,
                             int slice_height, const float* x_local,
-                            int64_t xl_stride, const float* x_ghost,
-                            int64_t xg_stride, float* y, int n_shards,
+                            int64_t xl_width, const float* x_ghost,
+                            int64_t xg_width, float* y, int n_shards,
                             int n_core, int rc_pad, int nrhs, void* stream) {
   if (nrhs < 1 || nrhs > kMaxRhs)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rc_pad <= 0 || n_shards <= 0) return 0;
   const dim3 grid((rc_pad + kBThreads - 1) / kBThreads, n_shards);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t n_node = n_shards / n_core;
-  const int64_t xl_rhs = n_node * xl_stride, xg_rhs = n_node * xg_stride;
+  const float4* xl = reinterpret_cast<const float4*>(x_local);
+  const float4* xg = reinterpret_cast<const float4*>(x_ghost);
+#define REPRO_LAUNCH_T(T, KT)                                           \
+  sell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(               \
+      static_cast<const T*>(dvals), dcols, dstart, dwidth, d_len,       \
+      static_cast<const T*>(ovals), ocols, ostart, owidth, o_len,       \
+      has_offd, n_slices, slice_height, xl, xl_width * (KT / 4), xg,    \
+      xg_width * (KT / 4), y, rc_pad, n_core, n_shards, nrhs)
   if (vals_bf16) {
-    using T = __nv_bfloat16;
-#define REPRO_LAUNCH(KT)                                                   \
-  sell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                  \
-      static_cast<const T*>(dvals), dcols, dstart, dwidth, d_len,          \
-      static_cast<const T*>(ovals), ocols, ostart, owidth, o_len,          \
-      has_offd, n_slices, slice_height, x_local, xl_stride, xl_rhs,        \
-      x_ghost, xg_stride, xg_rhs, y, rc_pad, n_core, n_shards, nrhs)
+#define REPRO_LAUNCH(KT) REPRO_LAUNCH_T(__nv_bfloat16, KT)
     REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   } else {
-    using T = float;
-#define REPRO_LAUNCH(KT)                                                   \
-  sell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                  \
-      static_cast<const T*>(dvals), dcols, dstart, dwidth, d_len,          \
-      static_cast<const T*>(ovals), ocols, ostart, owidth, o_len,          \
-      has_offd, n_slices, slice_height, x_local, xl_stride, xl_rhs,        \
-      x_ghost, xg_stride, xg_rhs, y, rc_pad, n_core, n_shards, nrhs)
+#define REPRO_LAUNCH(KT) REPRO_LAUNCH_T(float, KT)
     REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   }
+#undef REPRO_LAUNCH_T
   return static_cast<int>(cudaGetLastError());
 }
 

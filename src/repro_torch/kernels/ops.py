@@ -22,7 +22,10 @@ Batched right-hand sides: ``ell_spmv``, ``fused_ell_spmv`` and
 MAX_NRHS`` and give ``(nrhs, n_node, n_core, rows)``: one launch of the
 batched kernel for all columns, counted under the kernel's name with
 ``_batched``.  Column ``j`` is the single-column kernel's ``y`` on column
-``j`` bit for bit.
+``j`` bit for bit.  The batched kernels read ``x`` column-interleaved:
+the wrapper copies each batched ``x`` into :func:`interleave_rhs`'s
+``(n_node, n, KT)`` layout first, so a batched ``x`` may have any strides
+(a slice of a larger batch, a transposed view).
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import torch
 from repro_torch.kernels import ref
 
 __all__ = ["ell_spmv", "fused_ell_spmv", "fused_sell_spmv", "balanced_spmv",
-           "check_sell_layout", "LAUNCHES", "MAX_NRHS", "reset_launches"]
+           "check_sell_layout", "interleave_rhs", "rhs_tile", "LAUNCHES",
+           "MAX_NRHS", "RHS_TILES", "reset_launches"]
 
 #: kernel name -> launches since the last ``reset_launches``
 LAUNCHES: dict[str, int] = {"fused_ell_spmv": 0, "ell_spmv": 0,
@@ -46,7 +50,36 @@ LAUNCHES: dict[str, int] = {"fused_ell_spmv": 0, "ell_spmv": 0,
 #: ``csrc/spmv.cu``)
 MAX_NRHS = 16
 
+#: the batched kernels' column tiles (``KT`` in ``csrc/spmv.cu``)
+RHS_TILES = (4, 8, 16)
+
 _VAL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rhs_tile(k: int) -> int:
+    """The column tile of a batched launch of ``k`` columns: the smallest
+    of :data:`RHS_TILES` that holds them."""
+    if not 1 <= k <= MAX_NRHS:
+        raise ValueError(f"{k} right-hand sides; one batched launch takes "
+                         f"1 to {MAX_NRHS}")
+    return next(t for t in RHS_TILES if t >= k)
+
+
+def interleave_rhs(x: torch.Tensor) -> torch.Tensor:
+    """A batched ``x`` ``(k, n_node, n)`` as the batched kernels read it:
+    ``xi`` ``(n_node, n, KT)`` with ``xi[node, col, j] == x[j, node, col]``
+    and zeros in the pad columns ``k <= j < KT`` (``KT = rhs_tile(k)``).
+
+    One entry's ``x`` for every column is then ``KT / 4`` aligned 16-byte
+    loads.  One copy from a permuted view into a new buffer (and a fill of
+    the pad), on ``x``'s device; any strides."""
+    k, n_node, n = x.shape
+    kt = rhs_tile(k)
+    xi = torch.empty((n_node, n, kt), dtype=x.dtype, device=x.device)
+    xi[..., :k].copy_(x.permute(1, 2, 0))
+    if kt > k:
+        xi[..., k:].zero_()
+    return xi
 
 
 def _flat_x(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -97,11 +130,14 @@ def _nrhs(name: str, x_local: torch.Tensor, x_ghost, n_node: int):
 
 
 def _check(name: str, device, vals=(), idx=(), xs=()) -> int:
-    """Validate what the kernel takes; return the storage-dtype code."""
+    """Validate what the kernel takes; return the storage-dtype code.  A
+    batched ``x`` (3-D) may have any strides: it is copied into the
+    interleaved layout before the launch."""
     codes = set()
     for t in (*vals, *idx, *xs):
         if t.device != device:
             raise ValueError(f"{name}: tensors on {t.device} and {device}")
+    for t in (*vals, *idx, *(x for x in xs if x.dim() != 3)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous input {tuple(t.shape)}")
     for v in vals:
@@ -179,11 +215,14 @@ def _ell(name, dvals, dcols, dlens, ovals, ocols, olens, x_local, x_ghost):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    if k is not None:
+        x_local = interleave_rhs(x_local)
+        x_ghost = interleave_rhs(x_ghost) if wo else None
     args = (code, dvals.data_ptr(), dcols.data_ptr(), dlens.data_ptr(), wd,
             ptr(ovals) if wo else None, ptr(ocols) if wo else None,
             ptr(olens) if wo else None, wo, x_local.data_ptr(),
-            x_local.shape[-1], ptr(x_ghost) if wo else None,
-            x_ghost.shape[-1] if wo else 0, y.data_ptr(), n_node * n_core,
+            x_local.shape[1], ptr(x_ghost) if wo else None,
+            x_ghost.shape[1] if wo else 0, y.data_ptr(), n_node * n_core,
             n_core, rows)
     if k is None:
         err = library().repro_ell_spmv(*args, _stream(dvals.device))
@@ -309,11 +348,14 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
     def ptr(t):
         return t.data_ptr() if has_offd else None
 
+    if k is not None:
+        x_local = interleave_rhs(x_local)
+        x_ghost = interleave_rhs(x_ghost) if has_offd else None
     args = (code, dvals.data_ptr(), dcols.data_ptr(), dstart.data_ptr(),
             dwidth.data_ptr(), d_len, ptr(ovals), ptr(ocols), ptr(ostart),
             ptr(owidth), o_len, int(has_offd), n_slices, slice_height,
-            x_local.data_ptr(), x_local.shape[-1], ptr(x_ghost),
-            x_ghost.shape[-1] if has_offd else 0, y.data_ptr(),
+            x_local.data_ptr(), x_local.shape[1], ptr(x_ghost),
+            x_ghost.shape[1] if has_offd else 0, y.data_ptr(),
             n_node * n_core, n_core, rc_pad)
     if k is None:
         err = library().repro_sell_spmv(*args, _stream(dvals.device))

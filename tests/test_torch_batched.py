@@ -20,7 +20,13 @@ matrix (``graded_extruded_mesh_matrix(48, 6)``):
     and a whole ``make_solver(nrhs=3)`` solve (per-RHS reductions and
     gating);
   * the wrappers take 1 to ``MAX_NRHS`` columns and refuse more, or a
-    batch ``x_local``/``x_ghost`` disagree on, before any work.
+    batch ``x_local``/``x_ghost`` disagree on, before any work;
+  * ``ops.interleave_rhs``, the column-interleaved ``x`` the batched
+    kernels read, for every k from 1 to ``MAX_NRHS``: ``xi[node, col, j]
+    == x[j, node, col]`` and zeros in the pad up to the column tile, from
+    a contiguous batch, a strided slice of a larger one and a batch whose
+    last two axes are transposed.  Both refuse a batch of 0 or more than
+    ``MAX_NRHS`` columns.
 
 Equality is exact elsewhere: the batched paths do the same arithmetic on
 each column in the same order.
@@ -219,3 +225,31 @@ def test_sell_layout_is_checked_when_a_plan_is_bound(plans):
         make_shard_body(plan, backend="plain")      # the plain one reads any
     finally:
         plan.fmt_data = F
+
+
+@pytest.mark.parametrize("k", range(1, ops.MAX_NRHS + 1))
+def test_interleave_rhs_is_the_kernels_layout(k):
+    rng = np.random.default_rng(100 + k)
+    n_node, n = 3, 37
+    kt = ops.rhs_tile(k)
+    assert kt in ops.RHS_TILES and kt >= k
+    assert kt == 4 or ops.RHS_TILES[ops.RHS_TILES.index(kt) - 1] < k
+    big = torch.from_numpy(rng.standard_normal((2 * k, n_node, n))
+                           .astype(np.float32))
+    for x in (big[:k].contiguous(), big[1::2],
+              big[:k].transpose(1, 2).contiguous().transpose(1, 2)):
+        xi = ops.interleave_rhs(x)
+        assert xi.shape == (n_node, n, kt) and xi.dtype == x.dtype
+        assert xi.is_contiguous()
+        for j in range(k):
+            assert torch.equal(xi[:, :, j], x[j])
+        assert (xi[:, :, k:] == 0).all()
+        assert not torch.signbit(xi[:, :, k:]).any()
+
+
+@pytest.mark.parametrize("k", [0, ops.MAX_NRHS + 1])
+def test_interleave_rhs_refuses_a_batch_no_launch_takes(k):
+    with pytest.raises(ValueError, match=f"1 to {ops.MAX_NRHS}"):
+        ops.rhs_tile(k)
+    with pytest.raises(ValueError, match=f"1 to {ops.MAX_NRHS}"):
+        ops.interleave_rhs(torch.zeros((k, 2, 5)))

@@ -598,7 +598,7 @@ def _batched_inputs(plan, layout, k, seed):
     return make_shard_body(plan).inputs(X)
 
 
-@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_batched_kernel_columns_are_the_single_kernel(case, dtype, k,
@@ -606,7 +606,8 @@ def test_batched_kernel_columns_are_the_single_kernel(case, dtype, k,
     """Column j of one batched launch is the single-column kernel on x_j
     bit for bit, whatever the memory held (the pool is dirtied with NaN
     first), within 2e-5·max|y| of the plain version, and counted once
-    under the kernel's ``_batched`` key."""
+    under the kernel's ``_batched`` key.  The k cover every column tile
+    (4, 8, 16), full and with pad columns."""
     A, _, _ = golden
     plan, layout = _plan(case, A)
     F = {kk: (v.to(dtype) if v.is_floating_point() else v)
@@ -627,6 +628,38 @@ def test_batched_kernel_columns_are_the_single_kernel(case, dtype, k,
         assert torch.equal(y[j], yj), (case, dtype, k, j)
     _close_to_plain(y, fmt.matvec_plain(F, xl, xg, plan.rc_pad))
     assert (y[:, plan.mask == 0] == 0).all()
+
+
+def _every_other(x):
+    return x[1::2]
+
+
+def _rhs_minor(x):
+    """x (k, n_node, n) as a view of an (n_node, n, k) tensor: the column
+    index fastest in memory."""
+    return x[:5].permute(1, 2, 0).contiguous().permute(2, 0, 1)
+
+
+@pytest.mark.parametrize("view", [_every_other, _rhs_minor])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_batched_kernel_takes_a_strided_slice_of_a_batch(case, view, golden):
+    """x_local/x_ghost as a non-contiguous view (every other column of a
+    larger batch, or a batch stored column index fastest): the
+    wrapper interleaves them as they lie, and each column is the
+    single-column kernel on that column bit for bit."""
+    A, _, _ = golden
+    plan, layout = _plan(case, A)
+    F, fmt = plan.fmt_data, get_format(plan.format)
+    xl, xg = _batched_inputs(plan, layout, 10, seed=21)
+    xl, xg = view(xl), None if xg is None else view(xg)
+    assert not xl.is_contiguous() and xl.shape[0] == 5
+    y = fmt.matvec_kernel(F, xl, xg, plan.rc_pad)
+    for j in range(5):
+        yj = fmt.matvec_kernel(F, xl[j].contiguous(),
+                               None if xg is None else xg[j].contiguous(),
+                               plan.rc_pad)
+        assert torch.equal(y[j], yj), (case, j)
+    _close_to_plain(y, fmt.matvec_plain(F, xl, xg, plan.rc_pad))
 
 
 @pytest.mark.parametrize("fmt_name", ["ell", "sell"])
@@ -674,8 +707,8 @@ def test_batched_wrappers_refuse_what_the_kernel_does_not_take(golden):
         ops.fused_ell_spmv(*args, xl[:4], xg[:3])
     with pytest.raises(ValueError):
         ops.fused_ell_spmv(*args, xl[:4].cpu(), xg[:4])
-    with pytest.raises(ValueError):
-        ops.fused_ell_spmv(*args, xl[:4, :, ::2], xg[:4])
+    with pytest.raises(ValueError, match="for 4 nodes"):
+        ops.fused_ell_spmv(*args, xl[:4, :2], xg[:4, :2])
     sp, sl = _plan("sell/4x2", A)
     G = sp.fmt_data
     sxl, sxg = _batched_inputs(sp, sl, ops.MAX_NRHS + 1, seed=2)
