@@ -173,6 +173,32 @@ check raises, so the exit code is not 0.
             pure hit, one splice leaving the survivors' per-chunk iterates
             byte-identical; ``serve_check --device cuda`` (2x4, 48x8)
             printing ``OK``;
+6j. analyze  the collective-contract verifier (``repro_torch.testing.
+            analyze``) at its defaults (graded 32x4, 4x2) on the card with
+            ``--hlo`` (each solver's live ``check_every`` block through
+            B1/B2): exit 0, its checks and errors printed; with
+            ``--include-faulty``: exit 1, ``J_PAYLOAD_TRANSFORM`` among its
+            codes.  Then the recorded census of ``make_spmv`` on the
+            full-size ell and sell 4x2 plans for every transport x wire
+            dtype beside ``predicted_cost``: the census equals the
+            prediction plus the one core-axis assembly ``all_gather``, and
+            the wire bytes derived from the payloads handed to the
+            collectives equal the predicted bytes (one card has no wire:
+            the bytes are those each node would send as its own device).
+            Launch counts zeroed before and read after: B1 and B2 must
+            have launched;
+6k. cli      the test CLIs on the card, in this process: ``dist_check``
+            (4x2 balanced, ``--fused --solver all --nrhs 4``; the same
+            with ``--check-every 25 --inject-fault nan@30``; halo-free
+            1x8 sell ``--cg``) printing ``OK``; ``square_golden --check
+            tests/golden_square_hashes.json``: every plan hash matches,
+            the 16 spmv/cg hashes ``SKIP`` (the fixture is the JAX
+            package's); ``bench_spmv`` on the full graded matrix at 4x2
+            sell, the transport sweep a2a,ring,pairwise,hier (traced wire
+            bytes equal to predicted) and ``--cg --fused`` to tol 1e-6,
+            printed beside phase ``full``'s ``spmv_ms`` and ms/iteration;
+            ``examples/quickstart_torch.py``.  Launch counts zeroed before
+            and read after: B1-B4 and the batched B1 must have launched;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
@@ -1740,6 +1766,151 @@ def phase_serve(A, plans, bw, f32_peak) -> tuple[dict, dict]:
     return launches, rows
 
 
+def phase_analyze(plans) -> None:
+    """The verifier's sweep on the card, then the recorded census of the
+    full-size 4x2 plans against ``predicted_cost``; launch counts zeroed
+    just before and read just after."""
+    import torch
+
+    from repro_torch.analysis.trace_pass import derived_wire_bytes
+    from repro_torch.core import make_spmv
+    from repro_torch.core.collectives import (COLLECTIVE_OPS, census,
+                                              record_collectives)
+    from repro_torch.core.transport import (available_transports,
+                                            available_wire_dtypes,
+                                            resolve_transport)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.testing import analyze
+
+    reset_launches()
+    t_phase = time.perf_counter()
+    for flags, want_rc in ((["--hlo"], 0), (["--include-faulty"], 1)):
+        t0 = time.perf_counter()
+        rc, lines = run_cli(analyze.main, ["--device", DEVICE, *flags])
+        rep = json.loads(lines[-1])
+        emit("analyze", flags=flags, rc=rc, checks=rep["checks"],
+             errors=rep["errors"], warnings=rep["warnings"],
+             summary=rep["summary"], sweep_seconds=rep["wall_s"],
+             seconds=round(time.perf_counter() - t0, 3), verdict=lines[-2])
+        check(rc == want_rc, f"analyze {flags}: rc {rc}, want {want_rc}")
+        if want_rc:
+            check("J_PAYLOAD_TRANSFORM" in rep["summary"],
+                  "analyze --include-faulty: faulty not flagged")
+        else:
+            check(rep["errors"] == 0, f"analyze: {rep['summary']}")
+    t_census = time.perf_counter()
+    for key in ("ell/4x2", "sell/4x2"):
+        plan, _ = plans[key]
+        for name in available_transports():
+            for wd in available_wire_dtypes():
+                spmv = make_spmv(plan, transport=name, wire_dtype=wd)
+                with record_collectives() as log:
+                    spmv(plan.mask_col)
+                torch.cuda.synchronize()
+                got = census(log)
+                tr, state = resolve_transport(name, plan, wire_dtype=wd)
+                pred = tr.predicted_cost(plan, state)
+                want = {k: int(pred.get(k, 0)) + (k == "all-gather")
+                        for k in COLLECTIVE_OPS}
+                wire = derived_wire_bytes(log, plan.n_node, plan.n_core)
+                emit("analyze", census_of=key, transport=name,
+                     wire_dtype=wd, census={k: v for k, v in got.items()
+                                            if v},
+                     predicted=pred, derived_wire_bytes=wire)
+                check(got == want, f"{key} {name} {wd}: census {got}, "
+                      f"predicted {want}")
+                check(wire == pred["wire_bytes"], f"{key} {name} {wd}: "
+                      f"derived {wire} != predicted {pred['wire_bytes']}")
+    launches = dict(LAUNCHES)
+    now = time.perf_counter()
+    emit("analyze_launches", seconds=round(now - t_phase, 3),
+         census_seconds=round(now - t_census, 3), **launches)
+    for name in ("fused_ell_spmv", "fused_sell_spmv"):
+        check(launches[name] > 0, f"{name} never launched in phase analyze")
+
+
+def phase_cli(full_rows) -> None:
+    """The test CLIs and the quickstart on the card, in this process, with
+    launch counts zeroed just before and read just after."""
+    import contextlib
+    import io
+    import runpy
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.testing import bench_spmv, dist_check, square_golden
+
+    reset_launches()
+    t_phase = time.perf_counter()
+    grid = ["--device", DEVICE, "--n-node", "4", "--n-core", "2"]
+    solve = [*grid, "--mode", "balanced", "--fused", "--solver", "all",
+             "--nrhs", "4"]
+    for argv in (solve, [*solve, "--check-every", "25", "--inject-fault",
+                         "nan@30"],
+                 ["--device", DEVICE, "--n-node", "1", "--n-core", "8",
+                  "--format", "sell", "--cg"]):
+        t0 = time.perf_counter()
+        rc, lines = run_cli(dist_check.main, argv)
+        emit("cli", cli="dist_check", argv=argv, rc=rc, lines=lines,
+             seconds=round(time.perf_counter() - t0, 3))
+        check(rc == 0 and lines[-1] == "OK", f"dist_check {argv}: {lines}")
+
+    rc, lines = run_cli(square_golden.main, [
+        "--device", DEVICE, "--check",
+        str(ROOT / "tests" / "golden_square_hashes.json")])
+    skips = [ln for ln in lines if ln.startswith("SKIP")]
+    emit("cli", cli="square_golden", rc=rc, verdict=lines[-1],
+         skipped=len(skips), fails=[ln for ln in lines
+                                    if ln.startswith("FAIL")])
+    check(rc == 0 and lines[-1].endswith("0 failures, 16 skipped")
+          and len(skips) == 16, f"square_golden: {lines[-3:]}")
+
+    full = [*grid, "--matrix", "graded", "--n-surface", str(N_SURFACE),
+            "--layers", str(LAYERS), "--format", "sell"]
+    bench = {}
+    for what, flags in (("sweep", ["--transport", "a2a,ring,pairwise,hier"]),
+                        ("cg", ["--cg", "--fused", "--tol", "1e-6",
+                                "--iters", "10000"])):
+        t0 = time.perf_counter()
+        rc, lines = run_cli(bench_spmv.main, [*full, *flags])
+        bench[what] = out = json.loads(lines[-1])
+        emit("cli", cli="bench_spmv", what=what, rc=rc, result=out,
+             seconds=round(time.perf_counter() - t0, 3))
+        check(rc == 0, f"bench_spmv {what}: rc {rc}")
+    for name, row in bench["sweep"]["transports"].items():
+        check(row["traced_wire_bytes"] == row["predicted"]["wire_bytes"],
+              f"bench_spmv {name}: traced != predicted wire bytes")
+    cg, ref = bench["cg"], full_rows["sell/4x2"]
+    emit("cli", bench_vs_full="sell/4x2",
+         bench_us_per_spmv=bench["sweep"]["transports"]["a2a"][
+             "us_per_spmv"],
+         full_spmv_ms=ref["spmv_ms"], bench_us_per_iter=cg["us_per_iter"],
+         bench_cg_iters=cg["cg_iters"],
+         full_ms_per_iter=ref["fused"]["ms_per_iter"],
+         full_iters=ref["fused"]["iters"])
+    check(cg["cg_rel"] <= 1e-6, f"bench_spmv --cg: {cg['cg_iters']} "
+          f"iterations, rel {cg['cg_rel']}")
+
+    out, argv = io.StringIO(), sys.argv
+    sys.argv = ["quickstart_torch.py", "--device", DEVICE]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(ROOT / "examples" / "quickstart_torch.py"),
+                           run_name="__main__")
+    finally:
+        sys.argv = argv
+    lines = out.getvalue().strip().splitlines()
+    emit("cli", cli="quickstart_torch", lines=lines)
+    errs = [float(ln.split()[-1]) for ln in lines if "SpMV max err" in ln]
+    check(len(errs) == 3 and max(errs) < 1e-4 and len(lines) == 9,
+          f"quickstart: {lines}")
+
+    launches = dict(LAUNCHES)
+    emit("cli_launches", seconds=round(time.perf_counter() - t_phase, 3),
+         **launches)
+    for name in (*KERNELS, "fused_ell_spmv_batched"):
+        check(launches[name] > 0, f"{name} never launched in phase cli")
+
+
 def library_ms(A, x) -> float:
     """One torch.sparse CSR matvec of the global matrix (the yardstick)."""
     import torch
@@ -1794,6 +1965,8 @@ def main() -> int:
     rect_launches, rect = phase_rect(A, plans, bw, f32_peak)
     phase_precond(A, plans, b)
     serve_launches, serve_rows = phase_serve(A, plans, bw, f32_peak)
+    phase_analyze(plans)
+    phase_cli(rows)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
     # the batched kernels at the service's k, with their serving launches

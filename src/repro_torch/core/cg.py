@@ -21,15 +21,8 @@ from typing import Callable
 import torch
 
 from repro_torch.core.spmv import SpMVPlan, make_spmv
-from repro_torch.solvers.base import local_dot
-from repro_torch.solvers.precond import jacobi_inverse
 
 __all__ = ["cg_solve", "make_cg"]
-
-
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Full-array f32 dot on CG-layout vectors (any shape) -> scalar."""
-    return local_dot(a.reshape(-1), b.reshape(-1))
 
 
 def cg_solve(spmv: Callable, b: torch.Tensor, m_inv: torch.Tensor,
@@ -39,6 +32,13 @@ def cg_solve(spmv: Callable, b: torch.Tensor, m_inv: torch.Tensor,
 
     Returns ``(x, iters, rel_residual)``, the scalars as 0-d tensors.
     """
+    # the solvers import the core package, so the core imports them late
+    from repro_torch.solvers.base import local_dot
+
+    def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Full-array f32 dot on CG-layout vectors (any shape) -> scalar."""
+        return local_dot(a.reshape(-1), b.reshape(-1))
+
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     dev = b.device
@@ -88,8 +88,10 @@ def make_cg(plan: SpMVPlan, fused: bool = False, check_every: int = 16,
     ``neighbor_offsets`` / ``wire_dtype`` select the halo exchange as in
     ``make_spmv`` (``"auto"`` autotunes first).
     """
+    from repro_torch.solvers.base import make_solver
+    from repro_torch.solvers.precond import jacobi_inverse
+
     if fused:
-        from repro_torch.solvers.base import make_solver
         return make_solver(plan, solver="cg", precond="jacobi",
                            transport=transport,
                            neighbor_offsets=neighbor_offsets,

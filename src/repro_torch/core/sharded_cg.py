@@ -2,7 +2,6 @@
 from __future__ import annotations
 
 from repro_torch.core.spmv import SpMVPlan
-from repro_torch.solvers.base import make_solver
 
 __all__ = ["make_fused_cg"]
 
@@ -11,5 +10,8 @@ def make_fused_cg(plan: SpMVPlan, check_every: int = 16):
     """``solve(b, tol=..., maxiter=...)`` -> ``(x, iters, rel_residual)``,
     all vectors in CG layout.  Equivalent to ``make_solver(plan,
     solver="cg", precond="jacobi", ...)``."""
+    # the solvers import the core package, so the core imports them late
+    from repro_torch.solvers.base import make_solver
+
     return make_solver(plan, solver="cg", precond="jacobi",
                        check_every=check_every)

@@ -36,6 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import all_gather
 from repro_torch.core.halo import HaloPlan, build_halo_plan
 from repro_torch.core.partition import partition_stats, partition_two_level
 from repro_torch.core.transport import (HaloTransport, get_codec,
@@ -564,7 +565,9 @@ def make_shard_body(plan: SpMVPlan,
         with ``x``'s leading batch axis if it has one."""
         x_ghost = (tr.exchange(x, F, state=tstate, n_node=n_node,
                                g_pad=g_pad) if has_halo else None)
-        flat = x.reshape(x.shape[:-3] + (n_node, n_core * cc_pad))
+        # the core-axis all_gather of each node's slice
+        x_bins = all_gather(x, "core", lead=x.dim() - 3)
+        flat = x_bins.reshape(x.shape[:-3] + (n_node, n_core * cc_pad))
         idx = x_gather.expand(flat.shape[:-2] + x_gather.shape)
         return torch.gather(flat, flat.dim() - 1, idx), x_ghost
 

@@ -2,7 +2,9 @@
 
 One card holds the whole ``(n_node, n_core)`` grid as the leading axes of
 every vector, so the collectives of the JAX package's shard bodies become
-on-device index operations with the same semantics:
+on-device index operations with the same semantics, each issued through
+its named function in ``repro_torch.core.collectives`` (which records it
+for the census):
 
   * ``all_to_all`` over ``node``: ``recv[dst, c, src] = sent[src, c, dst]``
     — a transpose of the send table;
@@ -10,8 +12,9 @@ on-device index operations with the same semantics:
     ``(dst - d) mod n_node``'s chunk for it — a gather from the sender's
     shard with the sender's send indices, for every receiving pair;
   * the core-axis gather + add of partial ghost buffers (``_gather_add``):
-    a sum over the core axis.  Every real ghost slot has exactly one
-    writer, so the sum adds one value to zeros and is exact.
+    an ``all_gather`` over ``core``, then a sum over it.  Every real ghost
+    slot has exactly one writer, so the sum adds one value to zeros and is
+    exact.
 
 A value that the reference replicates over the core axis (each core's copy
 of its node's assembled ghost buffer, ``hier``'s receive table) is held
@@ -56,6 +59,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import all_gather, all_to_all, ppermute
 from repro_torch.core.halo import (ghost_writer_counts, pair_traffic,
                                    populated_offsets)
 from repro_torch.runtime.compression import compress_int8, decompress_int8
@@ -80,6 +84,14 @@ class HaloTransport:
     """
 
     name: str = ""
+    #: the transport delivers each encoded payload unaltered, so its
+    #: exchange may use only movement, assembly and the declared codec's
+    #: operations (``repro_torch.analysis.trace_pass``'s payload lint).
+    #: Lossiness is the codec's, not the transport's: a transport sets
+    #: this False only when it alters payloads beyond its codec, which
+    #: downgrades the lint to advisory.  ``FaultyTransport`` keeps True:
+    #: it claims an exact wire, which is how the lint catches it.
+    exact_wire: bool = True
 
     # -- static plan state (host) -------------------------------------- #
     def plan_state(self, plan) -> dict:
@@ -314,7 +326,7 @@ def _gather_add(part: torch.Tensor) -> torch.Tensor:
     g_pad + 1)`` of each node: the core-axis gather + local add, a sum
     over the core axis.  Each real slot has exactly one writer, so the sum
     adds one value to zeros — exact, as an all-reduce would be."""
-    return part.sum(dim=-2)
+    return all_gather(part, "core", lead=part.dim() - 3).sum(dim=-2)
 
 
 def _owner_tables(plan) -> dict[str, torch.Tensor]:
@@ -369,9 +381,11 @@ def _ppermute_exchange(x, F, offsets, n_node: int, g_pad: int,
     part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
     for d in offsets:
         take, put = F[f"take_{d}"], F[f"put_{d}"]
+        # every sender's x[send] for its pair, laid out by pair
         got = torch.gather(flat, 1, _expand(take.reshape(-1), k))
-        got = codec.decode(codec.encode(got.view((k,) + tuple(take.shape))),
-                           x.dtype)
+        got = ppermute(codec.encode(got.view((k,) + tuple(take.shape))),
+                       pairs=take.shape[0])
+        got = codec.decode(got, x.dtype)
         # duplicate indices only ever hit the dump slot g_pad
         part.view(k, -1).scatter_(1, _expand(put.reshape(-1), k),
                                   got.reshape(k, -1))
@@ -426,8 +440,7 @@ class A2ATransport(HaloTransport):
         xb = _batch(x)
         k = xb.shape[0]
         # all_to_all over node: recv[dst, c, src] = sent[src, c, dst]
-        recv = codec.decode(_send_table(xb, F, codec).transpose(1, 3),
-                            x.dtype)
+        recv = codec.decode(all_to_all(_send_table(xb, F, codec)), x.dtype)
         # each core scatters its own slice; duplicates only hit slot g_pad
         part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
         part.scatter_(3, _expand(F["recv_idx"], k),
@@ -571,7 +584,8 @@ class HierTransport(HaloTransport):
         # the core-axis gather of the encoded send chunks to the node's
         # leader (the table already holds every core's), then one
         # all_to_all of the combined per-node payload over nodes
-        recv = codec.decode(_send_table(xb, F, codec).transpose(1, 3),
+        sendtab = all_gather(_send_table(xb, F, codec), "core", lead=1)
+        recv = codec.decode(all_to_all(sendtab, core_gathered=True),
                             x.dtype)              # (k, dst, c, src, hs)
         # the intra-node scatter through the node's whole receive table
         # assembles the full ghost buffer — no core-axis sum

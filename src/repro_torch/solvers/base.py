@@ -16,11 +16,11 @@ A solver sees the world through a :class:`SolverCtx`:
                       ``Solver.prepare`` (e.g. Chebyshev's eigenvalue
                       bounds);
   * ``pdot`` / ``pdot_stack`` — the VecDot split: the per-shard local
-                      partial (:func:`local_dot`), then a sum over the
-                      shards — the JAX package's ``psum``, in the same
-                      two-stage grouping.  Each call is one cross-shard
-                      reduction; :func:`reduction_census` counts them over
-                      one loop body.
+                      partial (:func:`local_dot`), then ``psum`` over the
+                      shards (``repro_torch.core.collectives``), in the
+                      JAX package's two-stage grouping.  Each call is one
+                      cross-shard reduction; :func:`reduction_census`
+                      counts them over one loop body.
 
 Vectors inside a solver loop are ``(nrhs, n_node, n_core, rc_pad)``; the
 unbatched path is the same code with ``nrhs == 1``.  A converged RHS is
@@ -50,6 +50,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import (SOLVER_REDUCTION_OPS, psum,
+                                         record_collectives)
 from repro_torch.solvers.precond import Preconditioner, get_precond
 
 __all__ = ["local_dot", "pdot", "pdot_stack", "SolverCtx", "Solver",
@@ -62,26 +64,19 @@ __all__ = ["local_dot", "pdot", "pdot_stack", "SolverCtx", "Solver",
 # --------------------------------------------------------------------- #
 # the VecDot pattern
 # --------------------------------------------------------------------- #
-#: open reduction counters (see :func:`count_reductions`)
-_COUNTERS: list[list[int]] = []
-
-
-def _reduced() -> None:
-    for box in _COUNTERS:
-        box[0] += 1
-
-
 @contextlib.contextmanager
 def count_reductions():
-    """Count the cross-shard reductions (``pdot``/``pdot_stack`` calls)
-    issued inside the block: ``with count_reductions() as n: ...`` leaves
-    the count in ``n[0]``.  Nested blocks each count what they enclose."""
+    """Count the cross-shard reductions (the ``psum`` of every
+    ``pdot``/``pdot_stack`` call) issued inside the block: ``with
+    count_reductions() as n: ...`` leaves the count in ``n[0]`` when the
+    block ends.  A view of ``record_collectives``; nested blocks each
+    count what they enclose."""
     box = [0]
-    _COUNTERS.append(box)
-    try:
-        yield box
-    finally:
-        _COUNTERS.pop()
+    with record_collectives() as log:
+        try:
+            yield box
+        finally:
+            box[0] = sum(c.kind in SOLVER_REDUCTION_OPS for c in log)
 
 
 def local_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,15 +87,13 @@ def local_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """VecDot on ``(nrhs, n_node, n_core, rc_pad)``: per-shard partials,
-    then the sum over the shards -> ``(nrhs,)``.  One reduction."""
-    _reduced()
-    return local_dot(a, b).sum(dim=(-2, -1))
+    then the ``psum`` over the shards -> ``(nrhs,)``.  One reduction."""
+    return psum(local_dot(a, b))
 
 
 def pdot_stack(*pairs) -> torch.Tensor:
     """k VecDots stacked into one ``(k, nrhs)`` reduction."""
-    _reduced()
-    return torch.stack([local_dot(a, b) for a, b in pairs]).sum(dim=(-2, -1))
+    return psum(torch.stack([local_dot(a, b) for a, b in pairs]))
 
 
 # --------------------------------------------------------------------- #
@@ -413,6 +406,7 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     solve.parts = parts
     solve.solver = sol.name
     solve.precond = pre.name
+    solve.check_every = check_every
     solve.transport = body.transport
     solve.wire_dtype = body.wire_dtype
     solve.options = opts

@@ -54,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import all_gather
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.util import to_device
 
@@ -357,7 +358,9 @@ class TwoLevelPrecond(Preconditioner):
             k = r.shape[0]
             rc = body_R(r)                      # (k, n_node, n_core, rc_R)
             # the core- then node-axis all_gather: the flat view
-            r_c = rc.reshape(k, -1)[:, P["coarse_gather"][0, 0]]  # (k, nc)
+            full = all_gather(all_gather(rc, "core", lead=1), "node",
+                              lead=1, core_gathered=True)
+            r_c = full.reshape(k, -1)[:, P["coarse_gather"][0, 0]]  # (k, nc)
             ainv = P["ainv_c"][0, 0]
             # the redundant solve; each column's product reads only its own
             # residual, so the other columns do not move its bits

@@ -16,10 +16,10 @@ format, preconditioner):
           f64 host oracle (tight) and through the device program (fp
           tolerance);
   spd     r·M⁻¹r > 0 (definiteness: CG's contract);
-  static  the collective contract, counted: one apply issues exactly
-          ``reductions_per_apply`` cross-shard reductions (0 for a
-          ``local_only`` one; ``count_reductions``), and a ``local_only``
-          apply of a residual held on one shard leaves every other shard
+  static  the collective contract, traced (``check_precond_static``): a
+          ``local_only`` apply issues no collective, another exactly its
+          ``reductions_per_apply`` reductions; and a ``local_only`` apply
+          of a residual held on one shard leaves every other shard
           exactly 0 (it reads and writes its own slice only);
   cross   (``two_level`` only) the device apply decomposes as smoother +
           coarse correction: z_2l == z_smoother + P·A_c⁻¹·R r with the
@@ -71,27 +71,27 @@ def _rel(a, b) -> float:
     return float(np.linalg.norm(np.asarray(a) - np.asarray(b))) / den
 
 
-def static_check(pre, apply_d, plan) -> tuple[bool, int, bool | None]:
-    """``(ok, reductions, local)``: the reductions one apply issues
-    against ``reductions_per_apply``; for a ``local_only`` one, whether a
-    residual held on one shard (the middle one) stays on it."""
+def static_check(pre, apply_d, plan, A, layout
+                 ) -> tuple[bool, dict, bool | None]:
+    """``(ok, violation summary, local)``: the traced collective contract
+    of one apply (``check_precond_static``); for a ``local_only`` one,
+    whether a residual held on one shard (the middle one) stays on it."""
     import torch
 
-    from repro_torch.solvers import count_reductions
+    from repro_torch.analysis import check_precond_static
 
+    rep = check_precond_static(plan, pre, A=A, layout=layout)
     r = torch.zeros(plan.cg_shape, device=plan.device)
     i, c = plan.n_node // 2, plan.n_core // 2
     r[i, c] = plan.mask[i, c] * torch.linspace(1.0, 2.0, plan.rc_pad,
                                                device=plan.device)
-    with count_reductions() as n:
-        z = apply_d(r)
+    z = apply_d(r)
     local = None
     if pre.local_only:
         rest = z.clone()
         rest[i, c] = 0.0
         local = not bool(rest.any())
-    ok = n[0] == (0 if pre.local_only else pre.reductions_per_apply)
-    return ok and local is not False, n[0], local
+    return rep.ok() and local is not False, rep.summary(), local
 
 
 def conformance(case: str, n_node: int, n_core: int, formats, device,
@@ -149,11 +149,11 @@ def conformance(case: str, n_node: int, n_core: int, formats, device,
             p_ok = quad > 0.0
             line.append(f"spd={quad:.3g}={'ok' if p_ok else 'BAD'}")
 
-            # static: the declared reductions, counted; locality, probed
-            c_ok, nred, local = static_check(pre, apply_d, plan)
+            # static: the collective contract, traced; locality, probed
+            c_ok, codes, local = static_check(pre, apply_d, plan, A, layout)
             line.append(f"static[{'local' if pre.local_only else 'comm'}]"
-                        f"=reductions {nred}"
-                        + ("" if local is None else f", local {local}")
+                        + "".join(f" {k}x{n}" for k, n in codes.items())
+                        + ("" if local is None else f" local={local}")
                         + f"={'ok' if c_ok else 'BAD'}")
             ok &= h_ok and s_ok and p_ok and c_ok
 

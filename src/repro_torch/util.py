@@ -4,7 +4,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["align_up", "resolve_device", "to_device"]
+__all__ = ["align_up", "resolve_device", "device_name", "to_device"]
 
 
 def align_up(v: int, a: int) -> int:
@@ -17,6 +17,15 @@ def resolve_device(device=None) -> torch.device:
     another.  Never falls back: a missing card fails at the first tensor
     placed on it."""
     return torch.device("cuda" if device is None else device)
+
+
+def device_name(device) -> str:
+    """What a result names its device by: the card's name
+    (``torch.cuda.get_device_name``), else the device type."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:

@@ -744,3 +744,45 @@ def test_engine_on_the_card_serves_with_no_rebuild(golden):
     assert st["recompiles"] == 0 and st["failed"] == 0
     assert st["executables"]["kernel_library"] == 1
     assert LAUNCHES["fused_sell_spmv_batched"] > 0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_live_census_equals_the_trace(case, golden):
+    """``make_spmv`` on the card (B1-B4 through the kernels) issues, for
+    every transport x wire dtype, the collectives the plain trace records
+    (kind, axis, payload shape and dtype, pairs), and the wire bytes
+    derived from them equal ``predicted_cost``'s; one ``check_every``
+    block of each solver issues its declared reductions."""
+    from repro_torch.analysis.trace_pass import (check_solver_hlo,
+                                                 derived_wire_bytes,
+                                                 trace_shard_body)
+    from repro_torch.core.collectives import record_collectives
+    from repro_torch.core.transport import (available_transports,
+                                            available_wire_dtypes,
+                                            resolve_transport)
+
+    def key(log):
+        return [(c.kind, c.axis, c.shape, c.dtype, c.nrhs, c.pairs)
+                for c in log]
+
+    A, x, _ = golden
+    plan, layout = _plan(case, A)
+    xd = to_dist(x, layout, plan)
+    for name in available_transports():
+        for wd in available_wire_dtypes():
+            spmv = make_spmv(plan, transport=name, wire_dtype=wd)
+            reset_launches()
+            with record_collectives() as log:
+                spmv(xd)
+            torch.cuda.synchronize()
+            assert LAUNCHES[CASES[case]] == 1
+            traced = trace_shard_body(plan, name, wire_dtype=wd)
+            assert key(log) == key(traced.collectives), (name, wd)
+            tr, state = resolve_transport(name, plan, wire_dtype=wd)
+            assert derived_wire_bytes(log, plan.n_node, plan.n_core) == \
+                tr.predicted_cost(plan, state)["wire_bytes"], (name, wd)
+    for name in ("cg", "pipelined_cg", "chebyshev"):
+        opts = {"lmin": 0.1, "lmax": 2.0} if name == "chebyshev" else None
+        rep = check_solver_hlo(plan, name, "jacobi", A=A, layout=layout,
+                               options=opts)
+        assert rep.checks == 1 and rep.violations == [], name

@@ -1,7 +1,9 @@
 """The port stands apart from the JAX package and imports without a card.
 
 * An AST scan of every module under ``src/repro_torch/``, of
-  ``chip_smoke.py`` and of ``examples/cg_solve_torch.py``: no ``jax`` or ``repro`` import anywhere, no ``triton``
+  ``chip_smoke.py`` and of ``examples/cg_solve_torch.py`` and
+  ``examples/quickstart_torch.py``: no ``jax`` or ``repro`` import
+  anywhere, no ``triton``
   import at module level, and no ``torch.sparse`` on the port's path.
 * Importing every ``repro_torch`` module in a fresh interpreter on this
   CPU-only machine works and pulls in neither ``jax`` nor ``repro``.
@@ -21,7 +23,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "src" / "repro_torch"
 MODULES = sorted(PKG.rglob("*.py"))
 FILES = MODULES + [REPO / "chip_smoke.py",
-                   REPO / "examples" / "cg_solve_torch.py"]
+                   REPO / "examples" / "cg_solve_torch.py",
+                   REPO / "examples" / "quickstart_torch.py"]
 
 
 def _imports(tree):
@@ -37,12 +40,15 @@ def _imports(tree):
 
 def test_scan_covers_every_module_of_the_port():
     """The scans below walk the whole package: the verifier, the
-    preconditioners and the conformance checkers among them."""
+    collectives, the preconditioners and the test CLIs among them."""
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"analysis/__init__.py", "analysis/report.py",
             "analysis/plan_check.py", "analysis/kernel_check.py",
+            "analysis/trace_pass.py", "core/collectives.py",
             "solvers/precond.py", "testing/rect_check.py",
-            "testing/precond_check.py"} <= names
+            "testing/precond_check.py", "testing/analyze.py",
+            "testing/dist_check.py", "testing/square_golden.py",
+            "testing/bench_spmv.py"} <= names
 
 
 def _root(name: str) -> str:

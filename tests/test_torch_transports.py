@@ -35,6 +35,8 @@ from repro.sparse import graded_extruded_mesh_matrix as ref_graded
 from repro.testing.transport_check import build_case as ref_build_case
 from repro_torch.core import (build_spmv_plan, make_exchange, make_shard_body,
                               make_spmv, resolve_transport, to_dist)
+from repro_torch.core.collectives import (COLLECTIVE_OPS, census,
+                                          record_collectives)
 from repro_torch.core.transport import (FaultyTransport, autotune_transport,
                                         available_transports,
                                         available_wire_dtypes, get_codec,
@@ -89,6 +91,25 @@ def test_ghost_and_host_exchange_bit_equal_to_reference(case, name, wd,
                             plan.recv_own.numpy(), g, state)
     assert host[..., :g].tobytes() == reference[f"{key}/host"][..., :g] \
         .tobytes()
+
+
+@pytest.mark.parametrize("wd", WIRES)
+@pytest.mark.parametrize("name", TRANSPORTS)
+@pytest.mark.parametrize("case", HALO_CASES)
+def test_recorded_exchange_bit_equal_to_reference(case, name, wd,
+                                                  reference):
+    """With a collective recorder open, every exchange still gives the
+    reference's ghosts bit for bit, and records the collectives its
+    ``predicted_cost`` names."""
+    plan, xd = _case(case)
+    g, key = plan.g_pad, f"{case}/{name}/{wd}"
+    with record_collectives() as log:
+        ghost = make_exchange(plan, transport=name, wire_dtype=wd)(xd)
+    assert ghost.numpy()[..., :g].tobytes() == \
+        reference[f"{key}/ghost"][..., :g].tobytes()
+    tr, state = resolve_transport(name, plan, wire_dtype=wd)
+    pred = tr.predicted_cost(plan, state)
+    assert census(log) == {k: int(pred.get(k, 0)) for k in COLLECTIVE_OPS}
 
 
 def _chunks():
