@@ -199,6 +199,29 @@ check raises, so the exit code is not 0.
             printed beside phase ``full``'s ``spmv_ms`` and ms/iteration;
             ``examples/quickstart_torch.py``.  Launch counts zeroed before
             and read after: B1-B4 and the batched B1 must have launched;
+6l. procmesh the process mesh (``repro_torch.launch.mesh``): 8 gloo
+            ranks on this one card, each holding one shard of the full 4x2
+            ell and sell plans of phase 5 (written once here, each rank
+            reading its own rows through ``plan_from_arrays``).  Per plan
+            and rank: one a2a f32 SpMV, bit for bit its row of the virtual
+            mesh's, then fused cg + jacobi to tol 1e-6 (iterations equal
+            on every rank and within ±1 of phase 5's, true relative
+            residual < 1e-4, iterates held to the virtual mesh's bit for
+            bit and reported), with the rank's launch counts zeroed just
+            before and read just after (B1 on ell, B2 on sell, every
+            rank); then ms per SpMV (median of 20 synchronised calls) and
+            per CG iteration against phase 5's virtual-mesh numbers, and
+            the share of the wall spent in the host-staged collectives.
+            The halo-free 1x8 ell and sell plans (B3, B4 on every rank) at
+            one SpMV, and
+            the golden 48x6 4x2 plans over every transport x wire dtype
+            (``transport_check``'s process sweep: ghosts and ``y`` bit for
+            bit, each rank's census equal to ``predicted_cost`` + 1
+            ``all_gather``).  Then ms per ``psum`` and per core-axis
+            ``all_gather`` of an ``x`` shard, on host tensors against the
+            card's (gloo alone, and the staging the card adds).  Eight
+            processes share one card and their wire is host memory: no
+            inter-node wire is measured;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
@@ -236,6 +259,8 @@ BALANCED = ("balanced_spmv", "src/repro/kernels/spmv_bcsr.py:268",
 FLAT_ELL = ("ell_spmv/flat", "src/repro/kernels/spmv_bcsr.py:58",
             "ell/global")
 SOURCE = "src/repro_torch/kernels/csrc/spmv.cu"
+#: plan -> the kernel its single-column SpMV launches
+KERNELS_OF = {key: name for name, (key, _) in KERNELS.items()}
 
 
 def emit(phase: str, **kw) -> None:
@@ -1911,6 +1936,239 @@ def phase_cli(full_rows) -> None:
         check(launches[name] > 0, f"{name} never launched in phase cli")
 
 
+#: phase procmesh's plans, run on 8 ranks of one card
+PROCMESH_PLANS = ("ell/4x2", "sell/4x2")
+PROCMESH_HALOFREE = ("ell/1x8", "sell/1x8")
+
+
+def procmesh_rank(mesh, job: dict) -> dict:
+    """One rank of phase ``procmesh``: its shard of each plan, one SpMV,
+    a fused CG solve and their timings, the halo-free SpMV on a 1x8 mesh
+    over the same ranks, and the golden transport sweep."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_spmv
+    from repro_torch.core.collectives import WIRE, reset_wire
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_cg_mesh, read_plan
+    from repro_torch.solvers import make_solver
+    from repro_torch.testing.transport_check import rank_sweep
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def row(a, m):
+        return torch.from_numpy(np.array(
+            a[m.node:m.node + 1, m.core:m.core + 1])).to(m.device)
+
+    def spmv_ms(spmv, x):
+        """Median wall ms of ``REPS`` synchronised calls, and the wire's
+        share of them."""
+        spmv(x)
+        times, wire = [], 0.0
+        for _ in range(REPS):
+            sync()
+            reset_wire()
+            t0 = time.perf_counter()
+            spmv(x)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            wire += WIRE["seconds"] * 1e3
+        return statistics.median(times), wire / sum(times)
+
+    out = {}
+    for key in PROCMESH_PLANS:
+        plan = read_plan(job["dirs"][key], mesh)
+        x, b = row(job["x"][key], mesh), row(job["b"][key], mesh)
+        spmv = make_spmv(plan)
+        solve = make_solver(plan, solver="cg", precond="jacobi",
+                            check_every=CHECK_EVERY)
+        reset_launches()
+        y = spmv(x)
+        sync()
+        reset_wire()
+        t0 = time.perf_counter()
+        xs, iters, rel = solve(b, tol=1e-6, maxiter=10_000)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        wire = dict(WIRE)
+        launches = dict(LAUNCHES)
+        s_ms, s_wire = spmv_ms(spmv, x)
+        out[key] = {"y": y.cpu().numpy(), "x": xs.cpu().numpy(),
+                    "iters": int(iters), "rel": float(rel), "ms": ms,
+                    "wire": wire, "launches": launches, "spmv_ms": s_ms,
+                    "spmv_wire_share": s_wire}
+        del plan, spmv, solve
+    mesh18 = make_cg_mesh(1, 8, device=mesh.device, backend="gloo",
+                          rank=mesh.rank, world_size=8)
+    for key in PROCMESH_HALOFREE:
+        plan = read_plan(job["dirs"][key], mesh18)
+        x = row(job["x"][key], mesh18)
+        spmv = make_spmv(plan)
+        reset_launches()
+        y = spmv(x)
+        sync()
+        launches = dict(LAUNCHES)
+        s_ms, s_wire = spmv_ms(spmv, x)
+        out[key] = {"y": y.cpu().numpy(), "launches": launches,
+                    "spmv_ms": s_ms, "spmv_wire_share": s_wire}
+        del plan, spmv
+    out["golden"] = rank_sweep(mesh, job["golden"])
+    out["wire_probe"] = wire_probe(mesh, sync)
+    return out
+
+
+def wire_probe(mesh, sync, calls: int = 50) -> dict:
+    """ms per call of the process mesh's collectives on host tensors and
+    on the card's, same payloads: what gloo's loopback costs alone, and
+    what staging through the host adds on the card.  A ``psum`` of one
+    float over the world; a core-axis ``all_gather`` of one ``x`` shard
+    of the full 4x2 plans (353,760 floats)."""
+    import torch
+
+    from repro_torch.core.collectives import all_gather, psum
+
+    def per_call(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / calls
+
+    out = {}
+    for where in ("host", "card"):
+        dev = "cpu" if where == "host" else mesh.device
+        one = torch.ones((1, 1), device=dev)
+        x = torch.ones((1, 1, 353_760), device=dev)
+        out[f"psum_{where}_ms"] = per_call(lambda: psum(one, mesh=mesh))
+        out[f"gather_{where}_ms"] = per_call(
+            lambda: all_gather(x, "core", mesh=mesh))
+    return out
+
+
+def phase_procmesh(A, plans, x, b, full_rows, smi) -> dict:
+    """The full 4x2 plans on a process mesh of 8 ranks of this card (see
+    the module docstring, 6l); returns each plan's row."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import from_dist, make_spmv, to_dist
+    from repro_torch.core.transport import available_wire_dtypes
+    from repro_torch.launch.mesh import spawn_cg_mesh, write_plan
+    from repro_torch.solvers import make_solver
+    from repro_torch.testing import transport_check
+
+    t_phase = time.perf_counter()
+    keys = (*PROCMESH_PLANS, *PROCMESH_HALOFREE)
+    job = {"dirs": {}, "x": {}, "b": {}}
+    want = {}
+    with tempfile.TemporaryDirectory(prefix="procmesh_") as d:
+        t0 = time.perf_counter()
+        for key in keys:
+            plan, layout = plans[key]
+            job["dirs"][key] = write_plan(plan, f"{d}/{key.replace('/', '_')}")
+            xd = to_dist(x, layout, plan)
+            job["x"][key] = xd.cpu().numpy()
+            want[key] = {"y": make_spmv(plan)(xd).cpu().numpy()}
+            if key in PROCMESH_PLANS:
+                bd = to_dist(b, layout, plan)
+                job["b"][key] = bd.cpu().numpy()
+                xs, _, _ = make_solver(plan, solver="cg", precond="jacobi",
+                                       check_every=CHECK_EVERY)(
+                    bd, tol=1e-6, maxiter=10_000)
+                want[key]["x"] = xs.cpu().numpy()
+        golden, job["golden"] = transport_check.prepare_process(
+            ("graded",), ("ell", "sell"), 4, 2, DEVICE, f"{d}/golden",
+            wire_dtypes=available_wire_dtypes())
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_cg_mesh(procmesh_rank, 4, 2, DEVICE, args=(job,),
+                              timeout=900)
+        spawn_s = time.perf_counter() - t0
+
+    rows = {}
+    b64 = b.astype(np.float64)
+    for key in keys:
+        plan, layout = plans[key]
+        res = [r[key] for r in ranks]
+        grid = plan.n_core
+        y_ok = all(np.array_equal(
+            r["y"][0, 0].view(np.int32),
+            want[key]["y"][divmod(i, grid)].view(np.int32))
+            for i, r in enumerate(res))
+        kernel = KERNELS_OF[key]
+        launches = [r["launches"][kernel] for r in res]
+        row = {"plan": key, "ranks": len(res), "spmv_bitwise": y_ok,
+               "kernel": kernel, "launches_per_rank": launches,
+               "spmv_ms": max(r["spmv_ms"] for r in res),
+               "spmv_wire_share": max(r["spmv_wire_share"] for r in res),
+               "virtual_spmv_ms": full_rows[key]["spmv_ms"]}
+        check(y_ok, f"procmesh {key}: a rank's y differs from its row of "
+              "the virtual mesh's")
+        check(all(n > 0 for n in launches),
+              f"procmesh {key}: {kernel} did not launch on every rank "
+              f"({launches})")
+        if key in PROCMESH_PLANS:
+            its = [r["iters"] for r in res]
+            full_its = full_rows[key]["fused"]["iters"]
+            xg = from_dist(torch.from_numpy(np.concatenate(
+                [r["x"] for r in res]).reshape(plan.cg_shape)), layout,
+                plan).astype(np.float64)
+            true_rel = float(np.linalg.norm(A.matvec(xg) - b64)
+                             / np.linalg.norm(b64))
+            iters_run = -(-its[0] // CHECK_EVERY) * CHECK_EVERY
+            ms = max(r["ms"] for r in res)
+            wire_s = max(r["wire"]["seconds"] for r in res)
+            row.update(
+                iters=its[0], full_iters=full_its, rel=res[0]["rel"],
+                true_rel=true_rel, ms=ms, ms_per_iter=ms / iters_run,
+                virtual_ms_per_iter=full_rows[key]["fused"]["ms_per_iter"],
+                wire_share=wire_s * 1e3 / ms,
+                wire_calls_per_iter=res[0]["wire"]["calls"] / iters_run,
+                wire_bytes_per_iter_rank0=res[0]["wire"]["bytes"]
+                / iters_run,
+                wire_ms_per_iter_by_kind_rank0={
+                    k: v * 1e3 / iters_run
+                    for k, v in res[0]["wire"]["by_kind"].items()},
+                iterates_bitwise=all(np.array_equal(
+                    r["x"][0, 0].view(np.int32),
+                    want[key]["x"][divmod(i, grid)].view(np.int32))
+                    for i, r in enumerate(res)))
+            check(all(i == its[0] for i in its),
+                  f"procmesh {key}: iterations differ across ranks {its}")
+            check(abs(its[0] - full_its) <= 1,
+                  f"procmesh {key}: {its[0]} iterations, phase full "
+                  f"{full_its}")
+            check(float(res[0]["rel"]) <= 1e-6 and np.isfinite(xg).all(),
+                  f"procmesh {key}: CG stopped at rel {res[0]['rel']}")
+            check(true_rel < 1e-4, f"procmesh {key}: true rel {true_rel}")
+        emit("procmesh", nvidia_smi=smi, **row)
+        rows[key] = row
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        g_ok = transport_check.report_process(
+            golden, [r["golden"] for r in ranks])
+    lines = out.getvalue().strip().splitlines()
+    emit("procmesh_golden", ok=g_ok, lines=lines)
+    check(g_ok, "procmesh golden: a rank's ghosts, y or census differ "
+          "from the virtual mesh's")
+    emit("procmesh_wire", nvidia_smi=smi, **{
+        k: max(r["wire_probe"][k] for r in ranks)
+        for k in ranks[0]["wire_probe"]})
+    emit("procmesh_seconds", write_s=write_s, spawn_s=spawn_s,
+         seconds=time.perf_counter() - t_phase)
+    return rows
+
+
 def library_ms(A, x) -> float:
     """One torch.sparse CSR matvec of the global matrix (the yardstick)."""
     import torch
@@ -1967,6 +2225,7 @@ def main() -> int:
     serve_launches, serve_rows = phase_serve(A, plans, bw, f32_peak)
     phase_analyze(plans)
     phase_cli(rows)
+    phase_procmesh(A, plans, x, b, rows, smi)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
     # the batched kernels at the service's k, with their serving launches

@@ -27,16 +27,23 @@ __all__ = ["cg_solve", "make_cg"]
 
 def cg_solve(spmv: Callable, b: torch.Tensor, m_inv: torch.Tensor,
              mask: torch.Tensor, tol: float, maxiter: int,
-             check_every: int = 16):
+             check_every: int = 16, mesh=None):
     """Preconditioned CG; all vectors in CG layout.
 
-    Returns ``(x, iters, rel_residual)``, the scalars as 0-d tensors.
+    Returns ``(x, iters, rel_residual)``, the scalars as 0-d tensors.  On
+    a process ``mesh`` the vectors are the rank's shard and each dot is
+    the rank's partial summed over the ranks (``psum``), so its rounding
+    is the fused solver's, not the one full-array sum of the virtual
+    mesh.
     """
     # the solvers import the core package, so the core imports them late
+    from repro_torch.core.collectives import psum
     from repro_torch.solvers.base import local_dot
 
     def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Full-array f32 dot on CG-layout vectors (any shape) -> scalar."""
+        if mesh is not None and mesh.is_process:
+            return psum(local_dot(a, b), mesh=mesh)
         return local_dot(a.reshape(-1), b.reshape(-1))
 
     if check_every < 1:
@@ -103,7 +110,7 @@ def make_cg(plan: SpMVPlan, fused: bool = False, check_every: int = 16,
 
     def solve(b: torch.Tensor, tol: float = 1e-8, maxiter: int = 10_000):
         return cg_solve(spmv, b, m_inv, plan.mask, tol, maxiter,
-                        check_every=check_every)
+                        check_every=check_every, mesh=plan.mesh)
 
     solve.spmv = spmv
     solve.transport = spmv.transport

@@ -32,20 +32,32 @@ reference's jaxpr census.  Its ``shape`` and ``dtype`` are those of the
 tensor handed to the collective — after a wire codec's encode — for one
 shard and one column; ``nrhs`` counts the columns.
 
-These are the seam where real process groups (``torch.distributed``) will
-replace the virtual mesh's index operations.
+On a **process mesh** (``repro_torch.launch.mesh``, passed as ``mesh=``)
+each rank holds one shard, so the leading mesh axes of every tensor have
+extent 1, and each function is a ``torch.distributed`` call with the same
+meaning: ``all_to_all`` an ``all_to_all_single`` over the node group,
+``ppermute`` point-to-point sends and receives over the node group (its
+``perm`` names the pairs), ``all_gather`` over the core or node group
+(the stacked shards, concatenated along that axis), and ``psum`` an
+all-gather of the per-shard partials over the world, summed as the
+virtual mesh sums them (in shard order), so the two meshes agree bit for
+bit wherever the partials do.  gloo moves host tensors: every payload is
+staged through host memory as raw bytes (any dtype, bit for bit), which
+:data:`WIRE` times.  The records are the same on both meshes.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import time
 
 import torch
 
 __all__ = ["COLLECTIVE_OPS", "SOLVER_REDUCTION_OPS", "TRANSPORT_OPS",
            "census_split", "Collective", "record_collectives", "census",
-           "all_to_all", "ppermute", "all_gather", "psum"]
+           "all_to_all", "ppermute", "all_gather", "psum", "WIRE",
+           "reset_wire"]
 
 COLLECTIVE_OPS = ("all-reduce", "reduce-scatter", "all-gather",
                   "all-to-all", "collective-permute",
@@ -135,50 +147,182 @@ def _check_axis(axis: str) -> None:
         raise ValueError(f"mesh axis must be one of {AXES}, got {axis!r}")
 
 
+# ---------------------------------------------------------------------- #
+# the process mesh's wire: host-staged torch.distributed calls
+# ---------------------------------------------------------------------- #
+#: the process mesh's collectives since the last :func:`reset_wire`: calls,
+#: seconds spent in them (staging to the host and back included, after the
+#: card has finished the work before them) and payload bytes sent by this
+#: rank; ``by_kind`` splits the seconds by :data:`COLLECTIVE_OPS` kind
+WIRE = {"calls": 0, "seconds": 0.0, "bytes": 0, "by_kind": {}}
+
+
+def reset_wire() -> None:
+    WIRE.update(calls=0, seconds=0.0, bytes=0, by_kind={})
+
+
+def _on_ranks(mesh) -> bool:
+    return mesh is not None and mesh.is_process
+
+
+class _Staged:
+    """One process-mesh collective: payloads go to the host as raw bytes
+    and come back to ``device`` bit for bit; the block's time goes to
+    :data:`WIRE`."""
+
+    def __init__(self, device: torch.device, kind: str):
+        self.device, self.kind = device, kind
+        self.on_card = device.type == "cuda"
+
+    def __enter__(self):
+        if self.on_card:                 # the work the payload waits for
+            torch.cuda.current_stream(self.device).synchronize()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        WIRE["calls"] += 1
+        WIRE["seconds"] += dt
+        WIRE["by_kind"][self.kind] = WIRE["by_kind"].get(self.kind, 0.0) + dt
+        return False
+
+    def out(self, t: torch.Tensor) -> torch.Tensor:
+        """A contiguous host copy of ``t`` as bytes (gloo moves host
+        tensors; bytes carry every wire dtype unaltered)."""
+        h = t.detach().contiguous()
+        if self.on_card:
+            h = h.to("cpu")
+        WIRE["bytes"] += h.numel() * h.element_size()
+        return h.reshape(-1).view(torch.uint8)
+
+    def back(self, b: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
+        """Bytes received on the host -> a tensor of ``like``'s dtype,
+        ``shape``, on the device."""
+        t = b.view(like.dtype).reshape(shape)
+        return t.to(self.device, non_blocking=True) if self.on_card else t
+
+
+def _gather_over(x: torch.Tensor, group, size: int, dim: int,
+                 kind: str = "all-gather") -> torch.Tensor:
+    """Every group member's ``x``, concatenated along ``dim`` in group-rank
+    order (which is node or core order: groups list ranks ascending)."""
+    import torch.distributed as dist
+
+    if size == 1:
+        return x
+    with _Staged(x.device, kind) as st:
+        mine = st.out(x)
+        parts = [torch.empty_like(mine) for _ in range(size)]
+        dist.all_gather(parts, mine, group=group)
+        return torch.cat([st.back(p, x, x.shape) for p in parts], dim=dim)
+
+
 def all_to_all(sent: torch.Tensor, axis: str = "node", *, lead: int = 1,
-               core_gathered: bool = False) -> torch.Tensor:
+               core_gathered: bool = False, mesh=None) -> torch.Tensor:
     """Node-axis ``all_to_all`` of a send table ``(*batch, src, core, dst,
     chunk)``: returns ``recv`` ``(*batch, dst, core, src, chunk)`` with
     ``recv[dst, c, src] = sent[src, c, dst]``, a view.  With
     ``core_gathered`` each node's table was first gathered over its cores
-    (``hier``), so each shard sends ``(n_core, dst, chunk)``."""
+    (``hier``), so each shard sends ``(n_core, dst, chunk)``.  On a
+    process mesh (``src`` and ``dst`` of extent 1 on either side) an
+    ``all_to_all_single`` over the node group: chunk ``dst`` of this rank's
+    table goes to node ``dst``, and the chunks arrive stacked by ``src``."""
     if axis != "node":
         raise ValueError(f"all_to_all runs over the node axis, got {axis!r}")
     _note("all-to-all", axis, sent, lead, core_gathered)
-    return sent.transpose(lead, lead + 2)
+    if not _on_ranks(mesh):
+        return sent.transpose(lead, lead + 2)
+    import torch.distributed as dist
+
+    if mesh.n_node == 1:
+        return sent
+    table = sent.movedim(lead + 2, 0)           # (dst, *batch, 1, c, chunk)
+    with _Staged(sent.device, "all-to-all") as st:
+        mine = st.out(table)
+        got = torch.empty_like(mine)
+        dist.all_to_all_single(got, mine, group=mesh.node_group)
+        return st.back(got, sent, table.shape).movedim(0, lead + 2)
 
 
 def ppermute(chunks: torch.Tensor, axis: str = "node", *, pairs: int,
-             lead: int = 1) -> torch.Tensor:
+             lead: int = 1, perm=None, mesh=None) -> torch.Tensor:
     """Node-axis ``ppermute`` at one offset of ``chunks`` ``(*batch, pair,
     core, chunk)``: each pair's chunk as its sender gathered it.  The
     ``take`` gather already laid the chunks out by pair, so the delivery
     returns them as they are; ``pairs`` is the permutation's src != dst
-    pair count (the wire the census charges)."""
+    pair count (the wire the census charges).  On a process mesh
+    ``perm`` lists the ``(src, dst)`` node pairs: ``chunks`` holds this
+    rank's chunk for its ``dst`` (a pair axis of extent 1, or 0 if it
+    sends nothing), it goes to ``(dst, core)`` point to point over the
+    node group, and the chunk from this rank's ``src`` is returned (pair
+    axis 1, or 0 if nothing arrives)."""
     if axis != "node":
         raise ValueError(f"ppermute runs over the node axis, got {axis!r}")
     _note("collective-permute", axis, chunks, lead, pairs=pairs)
-    return chunks
+    if not _on_ranks(mesh):
+        return chunks
+    import torch.distributed as dist
+
+    if perm is None:
+        raise ValueError("ppermute on a process mesh needs perm, the "
+                         "(src, dst) node pairs")
+    to = [t for s, t in perm if s == mesh.node]
+    frm = [s for s, t in perm if t == mesh.node]
+    if chunks.shape[lead] != len(to):
+        raise ValueError(f"ppermute: node {mesh.node} sends to {to} but "
+                         f"holds {chunks.shape[lead]} chunk(s)")
+    shape = list(chunks.shape)
+    shape[lead] = len(frm)
+    if not to and not frm:
+        return chunks.new_empty(shape)
+    with _Staged(chunks.device, "collective-permute") as st:
+        ops = []
+        if to:
+            ops.append(dist.P2POp(dist.isend, st.out(chunks),
+                                  mesh.rank_of(to[0], mesh.core),
+                                  group=mesh.node_group))
+        got = torch.empty(math.prod(shape) * chunks.element_size(),
+                          dtype=torch.uint8)
+        if frm:
+            ops.append(dist.P2POp(dist.irecv, got,
+                                  mesh.rank_of(frm[0], mesh.core),
+                                  group=mesh.node_group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return st.back(got, chunks, shape)
 
 
 def all_gather(x: torch.Tensor, axis: str = "core", *, lead: int = 0,
-               core_gathered: bool = False) -> torch.Tensor:
+               core_gathered: bool = False, mesh=None) -> torch.Tensor:
     """``all_gather`` of every shard's operand along ``axis``: ``x``
     ``(*batch, n_node, n_core, *operand)`` itself, which holds each
     shard's stack (its node's row for ``core``, all of it for ``node``).
     ``core_gathered``: ``x`` was already gathered over the cores, so each
     shard's operand is ``(n_core, *operand)`` (the reference's core- then
-    node-axis gather)."""
+    node-axis gather).  On a process mesh the group's shards concatenated
+    along the axis: ``(*batch, 1, n_core, ...)`` over ``core``, ``(*batch,
+    n_node, ...)`` over ``node``."""
     _check_axis(axis)
     _note("all-gather", axis, x, lead, core_gathered)
-    return x
+    if not _on_ranks(mesh):
+        return x
+    if axis == "core":
+        return _gather_over(x, mesh.core_group, mesh.n_core, lead + 1)
+    return _gather_over(x, mesh.node_group, mesh.n_node, lead)
 
 
-def psum(partials: torch.Tensor, axis=AXES) -> torch.Tensor:
+def psum(partials: torch.Tensor, axis=AXES, *, mesh=None) -> torch.Tensor:
     """``psum`` over both mesh axes (the only reduction the port issues):
     ``partials`` ``(*batch, n_node, n_core)``, one per shard, summed to
-    ``(*batch,)``."""
+    ``(*batch,)``.  On a process mesh every rank's ``(*batch, 1, 1)``
+    partials are gathered over the world into ``(*batch, n_node,
+    n_core)`` and summed there as on the virtual mesh."""
     if tuple(axis) != AXES:
         raise ValueError(f"psum reduces over {AXES}, got {axis!r}")
     _note("all-reduce", AXES, partials, partials.dim() - 2)
+    if _on_ranks(mesh):
+        flat = _gather_over(partials.flatten(-2), mesh.world,
+                            mesh.world_size, -1, "all-reduce")
+        partials = flat.unflatten(-1, (mesh.n_node, mesh.n_core))
     return partials.sum(dim=(-2, -1))

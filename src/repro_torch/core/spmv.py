@@ -23,6 +23,13 @@ and a halo wire dtype (``f32`` | ``bf16`` | ``int8``), ``make_shard_body``
 dispatches the owner-split exchange to it, and ``transport="auto"``
 times the candidates on the plan's device and stamps the winner.
 
+A **rank-local plan** (``shard_plan``, or ``plan_from_arrays(...,
+mesh=)`` on a process mesh of ``repro_torch.launch.mesh``) is one shard of
+a whole plan: the same fields and meta, every array cut to the rank's
+``(node, core)`` with leading axes ``(1, 1)``, and ``plan.mesh`` naming
+the process mesh.  The shard body, the transports and the solvers run on
+it unchanged, and the collectives become ``torch.distributed`` calls.
+
 Plans may be rectangular (``n_cols != n``): outputs and Krylov vectors
 live in the **row space** ``(n_node, n_core, rc_pad)``, SpMV inputs in the
 **column space** ``(n_node, n_core, cc_pad)``, whose own partition keys
@@ -37,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.collectives import all_gather
-from repro_torch.core.halo import HaloPlan, build_halo_plan
+from repro_torch.core.halo import HaloPlan, build_halo_plan, pair_traffic
 from repro_torch.core.partition import partition_stats, partition_two_level
 from repro_torch.core.transport import (HaloTransport, get_codec,
                                         resolve_transport, transport_census,
@@ -48,7 +55,8 @@ from repro_torch.util import align_up, resolve_device, to_device
 
 __all__ = ["SpMVPlan", "build_spmv_plan", "plan_from_arrays", "make_spmv",
            "make_shard_body", "plan_shard_arrays", "plan_fields", "to_dist",
-           "from_dist", "COMMON_FIELDS", "MODES", "PLAN_META"]
+           "from_dist", "shard_plan", "plan_arrays", "plan_meta",
+           "COMMON_FIELDS", "MODES", "PLAN_META"]
 
 MODES = ("vector", "task", "balanced")
 
@@ -111,6 +119,16 @@ class SpMVPlan:
     # (n_node, n_core, cc_pad) 1 valid / 0 padding in the input layout;
     # ``mask`` itself on a square plan with the default column space
     mask_col: torch.Tensor | None = None
+    # a rank-local plan's process mesh (``None``: the virtual mesh), the
+    # whole plan's (dst, src) pair-traffic table (host) and its node's
+    # whole receive table (1, n_core, n_node, hs), which hier scatters
+    # through
+    mesh: object | None = None
+    traffic: np.ndarray | None = None
+    recv_node: torch.Tensor | None = None
+    # a rank-local plan's whole-plan pads for the plain versions
+    # (``ShardFormat.plain_pad``); empty: its own arrays'
+    plain_pad: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.n_cols < 0:
@@ -121,12 +139,22 @@ class SpMVPlan:
             self.mask_col = self.mask
 
     @property
+    def is_rank_local(self) -> bool:
+        return self.mesh is not None and self.mesh.is_process
+
+    @property
+    def shard_shape(self) -> tuple[int, int]:
+        """The mesh axes this plan's tensors hold: ``(n_node, n_core)``,
+        or ``(1, 1)`` on a rank-local plan."""
+        return (1, 1) if self.is_rank_local else (self.n_node, self.n_core)
+
+    @property
     def cg_shape(self) -> tuple[int, int, int]:
-        return (self.n_node, self.n_core, self.rc_pad)
+        return (*self.shard_shape, self.rc_pad)
 
     @property
     def x_shape(self) -> tuple[int, int, int]:
-        return (self.n_node, self.n_core, self.cc_pad)
+        return (*self.shard_shape, self.cc_pad)
 
     @property
     def device(self) -> torch.device:
@@ -423,7 +451,7 @@ def build_spmv_plan(A: CSRMatrix, n_node: int, n_core: int,
 
 
 def plan_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
-                     device=None) -> SpMVPlan:
+                     device=None, mesh=None) -> SpMVPlan:
     """A port ``SpMVPlan`` from another builder's plan arrays (numpy).
 
     ``arrays`` maps ``plan_fields`` names plus ``diag_a`` and ``mask`` to
@@ -434,34 +462,107 @@ def plan_from_arrays(arrays: dict[str, np.ndarray], meta: dict,
     name or ``"auto"``, the wire dtype any registered codec.  This carries
     a reference plan across unchanged, so SpMV and CG can be held against
     the reference on the identical plan, independently of the port's
-    planner.
+    planner.  A rectangular plan adds ``n_cols``/``cc_pad`` to ``meta``
+    and ``mask_col`` to ``arrays``.
+
+    With a process ``mesh`` (``repro_torch.launch.mesh``) the result is
+    this rank's rank-local plan: every array is cut to the rank's
+    ``(node, core)`` before it is read (memory-mapped arrays are read
+    only there) and placed on ``device`` (default: the mesh's).
     """
-    device = resolve_device(device)
+    rank = mesh is not None and mesh.is_process
+    device = resolve_device(device if device is not None or not rank
+                            else mesh.device)
     fmt = get_format(meta["format"])
     if str(meta["transport"]) != "auto":
         transport_stamp(str(meta["transport"]))
     get_codec(str(meta["wire_dtype"]))
-    data = {k: np.asarray(arrays[k]) for k in fmt.fields}
-    data.update(fmt.derive_aux(data, int(meta["rc_pad"])))
+    if rank and (int(meta["n_node"]), int(meta["n_core"])) != (
+            mesh.n_node, mesh.n_core):
+        raise ValueError(f"plan is {meta['n_node']}x{meta['n_core']}, the "
+                         f"mesh {mesh.n_node}x{mesh.n_core}")
 
-    dev = {k: to_device(np.asarray(arrays[k]), device)
-           for k in COMMON_FIELDS + ("diag_a", "mask")}
+    def cut(a):
+        if not rank:
+            return np.asarray(a)
+        # a copy of the rank's rows alone (of a memory map: a read of them)
+        return np.array(a[mesh.node:mesh.node + 1, mesh.core:mesh.core + 1])
+
+    data = {k: cut(arrays[k]) for k in fmt.fields}
+    data.update(fmt.derive_aux(data, int(meta["rc_pad"])))
+    names = COMMON_FIELDS + ("diag_a", "mask") + (
+        ("mask_col",) if "mask_col" in arrays else ())
+    dev = {k: to_device(cut(arrays[k]), device) for k in names}
+    extra = {k: int(meta[k]) for k in ("n_cols", "cc_pad") if k in meta}
+    if rank:
+        recv = np.asarray(arrays["recv_own"])
+        extra.update(mesh=mesh, plain_pad=dict(meta.get("plain_pad", {})),
+                     traffic=pair_traffic(recv, int(meta["g_pad"])),
+                     recv_node=to_device(np.array(recv[mesh.node:mesh.node
+                                                       + 1]), device))
     return SpMVPlan(
         fmt_data={k: to_device(v, device) for k, v in data.items()}, **dev,
         **{k: (str(meta[k]) if k in ("mode", "format", "transport",
                                      "wire_dtype") else int(meta[k]))
-           for k in PLAN_META})
+           for k in PLAN_META}, **extra)
+
+
+def plan_arrays(plan: SpMVPlan) -> dict[str, np.ndarray]:
+    """A whole plan's arrays as numpy, as :func:`plan_from_arrays` takes
+    them: the format's fields, the common fields, ``diag_a``, ``mask`` (and
+    ``mask_col`` on a rectangular plan)."""
+    if plan.is_rank_local:
+        raise ValueError("plan_arrays: a rank-local plan holds one shard")
+    names = plan_fields(plan) + ("diag_a", "mask")
+    out = {k: v.cpu().numpy() for k, v in zip(
+        names, plan_shard_arrays(plan) + (plan.diag_a, plan.mask))}
+    if plan.mask_col is not plan.mask:
+        out["mask_col"] = plan.mask_col.cpu().numpy()
+    return out
+
+
+def plan_meta(plan: SpMVPlan) -> dict:
+    """A plan's :data:`PLAN_META` (plus ``n_cols``/``cc_pad`` and the
+    plain versions' pads, ``plain_pad``) as plain values."""
+    meta = {k: getattr(plan, k) for k in PLAN_META + ("n_cols", "cc_pad")}
+    meta["plain_pad"] = get_format(plan.format).plain_pad(plan.fmt_data)
+    return meta
+
+
+def shard_plan(plan: SpMVPlan, mesh, device=None) -> SpMVPlan:
+    """Cut a whole plan to the shard of this rank of the process ``mesh``:
+    every plan array, ``fmt_data``, ``x_gather`` (the node's row),
+    ``mask`` and ``diag_a``, leading axes ``(1, 1)``; ``n_node`` /
+    ``n_core`` stay the mesh's."""
+    if mesh is None or not mesh.is_process:
+        raise ValueError("shard_plan needs a process mesh "
+                         "(repro_torch.launch.mesh.make_cg_mesh(..., "
+                         "backend='gloo', ...))")
+    return plan_from_arrays(plan_arrays(plan), plan_meta(plan),
+                            device=device, mesh=mesh)
 
 
 # ---------------------------------------------------------------------- #
 # vector layout conversion (host)
 # ---------------------------------------------------------------------- #
+def rank_rows(g: np.ndarray, plan: SpMVPlan) -> np.ndarray:
+    """A whole plan's per-shard table ``(n_node, n_core, ...)`` as the
+    plan holds it: itself, or a rank-local plan's row ``(1, 1, ...)``."""
+    if not plan.is_rank_local:
+        return g
+    m = plan.mesh
+    return g[m.node:m.node + 1, m.core:m.core + 1]
+
+
 def _space(layout: dict, plan: SpMVPlan, space: str):
-    """``(slot table, distributed shape, global length)`` of a space."""
+    """``(slot table, distributed shape, global length)`` of a space; a
+    rank-local plan reads its own rows of the whole layout's tables."""
     if space == "col":
-        return layout["global_col_of"], plan.x_shape, plan.n_cols
+        return (rank_rows(layout["global_col_of"], plan), plan.x_shape,
+                plan.n_cols)
     if space == "row":
-        return layout["global_row_of"], plan.cg_shape, plan.n
+        return (rank_rows(layout["global_row_of"], plan), plan.cg_shape,
+                plan.n)
     raise ValueError(f"space must be 'row' or 'col', got {space!r}")
 
 
@@ -471,7 +572,8 @@ def to_dist(v: np.ndarray, layout: dict, plan: SpMVPlan,
     the layout's slot tables.  ``space="col"`` (default) gives the SpMV
     input layout, ``(n_cols,)`` -> ``plan.x_shape``; ``space="row"`` the
     output / Krylov layout, ``(n,)`` -> ``plan.cg_shape``.  The two are
-    one on a square plan."""
+    one on a square plan.  A rank-local plan takes the whole plan's
+    layout and gets its own shard."""
     g, shape, _ = _space(layout, plan, space)
     v = np.asarray(v)
     out = np.zeros(shape, dtype=v.dtype)
@@ -485,7 +587,8 @@ def from_dist(vd: torch.Tensor, layout: dict, plan: SpMVPlan,
               space: str = "row") -> np.ndarray:
     """Distributed layout -> global vector (inverse of ``to_dist``;
     ``space="row"`` (default) reads ``plan.cg_shape`` outputs,
-    ``space="col"`` ``plan.x_shape`` inputs)."""
+    ``space="col"`` ``plan.x_shape`` inputs).  On a rank-local plan only
+    the rank's own entries are filled, the rest are 0."""
     g, _, n = _space(layout, plan, space)
     vd = vd.detach().cpu().numpy()
     out = np.zeros(n, dtype=vd.dtype)
@@ -497,6 +600,27 @@ def from_dist(vd: torch.Tensor, layout: dict, plan: SpMVPlan,
 # ---------------------------------------------------------------------- #
 # the distributed SpMV body (shared by make_spmv and the solvers)
 # ---------------------------------------------------------------------- #
+def _check_index_widths(plan: SpMVPlan, fmt: ShardFormat, nl: int,
+                        has_halo: bool) -> None:
+    """Raise ``ValueError`` unless every column index of the format's
+    streams lies inside the buffer it reads: ``[0, nl)`` for ``x_local``,
+    ``[0, g_pad + 1)`` for ``x_ghost`` (read only with a halo).  One
+    min/max per stream, on the host, when a body binds the plan."""
+    for st in fmt.index_streams():
+        if st.x == "ghost" and not has_halo:
+            continue
+        cols = plan.fmt_data[st.cols]
+        if cols.numel() == 0:
+            continue
+        width = nl if st.x == "local" else plan.g_pad + 1
+        lo, hi = (int(v) for v in torch.aminmax(cols))
+        if lo < 0 or hi >= width:
+            raise ValueError(
+                f"{fmt.name} plan: {st.cols!r} indices span [{lo}, {hi}] "
+                f"but x_{st.x} holds {width} entries; the kernel would read "
+                "outside it")
+
+
 def make_shard_body(plan: SpMVPlan,
                     transport: str | HaloTransport | None = None,
                     neighbor_offsets: list[int] | None = None,
@@ -527,13 +651,22 @@ def make_shard_body(plan: SpMVPlan,
     follows ``plan.wire_dtype``; ``neighbor_offsets`` overrides the
     offsets ring/pairwise derive from the plan.  Names and overrides are
     validated here, up front; ``"auto"`` is refused (``make_spmv`` and
-    ``make_solver`` resolve it).  The body carries ``body.transport`` and
+    ``make_solver`` resolve it).  The format's column indices are checked
+    here too, once on the host: each must lie inside the buffer it reads
+    (``x_local``'s ``nl_pad`` entries, ``x_ghost``'s ``g_pad + 1``), since
+    the kernels do no bounds checks.
+
+    On a rank-local plan (``plan.mesh`` a process mesh) the body runs on
+    the rank's shard, ``x`` ``(1, 1, cc_pad)`` -> ``y`` ``(1, 1,
+    rc_pad)``, with the same single-shard launches and the collectives as
+    ``torch.distributed`` calls.  The body carries ``body.transport`` and
     ``body.wire_dtype`` (resolved names), ``body.extra`` (the transport's
     device index tensors) and ``body.inputs(x) -> (x_local, x_ghost)``:
     steps 1-2 alone, what the local matvec gets.
     """
-    n_node, n_core, rc_pad = plan.n_node, plan.n_core, plan.rc_pad
-    cc_pad, g_pad = plan.cc_pad, plan.g_pad
+    # the node extent the plan's tensors hold: 1 on a rank-local plan
+    n_node, rc_pad = plan.shard_shape[0], plan.rc_pad
+    cc_pad, g_pad, mesh = plan.cc_pad, plan.g_pad, plan.mesh
     has_halo = plan.hs > 0
     transport = transport if transport is not None else plan.transport
     if transport == "auto":
@@ -549,13 +682,14 @@ def make_shard_body(plan: SpMVPlan,
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
+    _check_index_widths(plan, fmt, plan.x_gather.shape[-1], has_halo)
     if backend == "kernel":
         local_matvec = fmt.matvec_kernel
         fmt.check_kernel_layout(plan.fmt_data)
     else:
         local_matvec = fmt.matvec_plain
     F = dict(plan.fmt_data, send_own=plan.send_own, recv_own=plan.recv_own,
-             **extra)
+             **extra, **plan.plain_pad)
     # x_gather is replicated over the core axis: one row per node, int64
     # and offset into the node's flattened (n_core * cc_pad) input view
     x_gather = plan.x_gather[:, 0, :].long()
@@ -566,8 +700,8 @@ def make_shard_body(plan: SpMVPlan,
         x_ghost = (tr.exchange(x, F, state=tstate, n_node=n_node,
                                g_pad=g_pad) if has_halo else None)
         # the core-axis all_gather of each node's slice
-        x_bins = all_gather(x, "core", lead=x.dim() - 3)
-        flat = x_bins.reshape(x.shape[:-3] + (n_node, n_core * cc_pad))
+        x_bins = all_gather(x, "core", lead=x.dim() - 3, mesh=mesh)
+        flat = x_bins.reshape(x.shape[:-3] + (n_node, plan.n_core * cc_pad))
         idx = x_gather.expand(flat.shape[:-2] + x_gather.shape)
         return torch.gather(flat, flat.dim() - 1, idx), x_ghost
 

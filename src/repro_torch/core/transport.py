@@ -21,6 +21,13 @@ of its node's assembled ghost buffer, ``hier``'s receive table) is held
 once per node: ``exchange`` returns one ``(g_pad + 1,)`` buffer per node,
 which every core of the node reads.
 
+On a **process mesh** (a rank-local plan, ``plan.mesh``) the same code
+runs on each rank's shard, leading axes ``(1, 1)``: the index tables are
+the rank's own rows (``ppermute``'s ``take`` reads only the rank's ``x``
+and ``put`` writes only its partial buffer), and the collectives named
+above are ``torch.distributed`` calls (``repro_torch.core.collectives``).
+Each rank's ghosts are its row of the virtual mesh's, bit for bit.
+
 Every transport is a named plugin owning its static host state
 (``plan_state``, derived from the plan's own ``send_own``/``recv_own``),
 the device index tensors its exchange needs (``extra_arrays``, folded
@@ -118,6 +125,8 @@ class HaloTransport:
                  n_node: int, g_pad: int) -> torch.Tensor:
         """``x`` ``(n_node, n_core, cc_pad)`` (the plan's input layout) ->
         the assembled ghost buffer of every node, ``(n_node, g_pad + 1)``.
+        ``n_node`` is ``x``'s node extent (1 on a rank of a process mesh,
+        whose mesh rides in ``state["mesh"]``).
         Real slots ``< g_pad`` hold exactly the owners' bits, up to the
         wire codec; slot ``g_pad`` is write-only.  A batched ``x`` ``(nrhs,
         n_node, n_core, cc_pad)`` gives ``(nrhs, n_node, g_pad + 1)``, each
@@ -267,14 +276,17 @@ def _wire_codec(state: dict) -> WireCodec:
 # shared pieces
 # --------------------------------------------------------------------- #
 def _neighbour_state(plan) -> dict:
-    """Communicating-pair table + populated offsets from the plan arrays.
+    """Communicating-pair table + populated offsets from the plan arrays
+    (a rank-local plan carries the whole plan's table, ``plan.traffic``).
 
     Cached on the plan instance: ``transport_census`` (run at every plan
     build) and each ring/pairwise resolution would otherwise repeat the
     same device-to-host copy and scan."""
     cached = getattr(plan, "_neighbour_cache", None)
     if cached is None:
-        traffic = pair_traffic(plan.recv_own.cpu().numpy(), plan.g_pad)
+        traffic = getattr(plan, "traffic", None)
+        if traffic is None:
+            traffic = pair_traffic(plan.recv_own.cpu().numpy(), plan.g_pad)
         cached = (traffic, populated_offsets(traffic))
         plan._neighbour_cache = cached
     traffic, offsets = cached
@@ -321,20 +333,40 @@ def _expand(idx: torch.Tensor, k: int) -> torch.Tensor:
     return idx.expand(k, *idx.shape)
 
 
-def _gather_add(part: torch.Tensor) -> torch.Tensor:
+def _gather_add(part: torch.Tensor, mesh=None) -> torch.Tensor:
     """Combine the per-core partial ghost buffers ``(..., n_node, n_core,
     g_pad + 1)`` of each node: the core-axis gather + local add, a sum
     over the core axis.  Each real slot has exactly one writer, so the sum
     adds one value to zeros — exact, as an all-reduce would be."""
-    return all_gather(part, "core", lead=part.dim() - 3).sum(dim=-2)
+    return all_gather(part, "core", lead=part.dim() - 3,
+                      mesh=mesh).sum(dim=-2)
 
 
 def _owner_tables(plan) -> dict[str, torch.Tensor]:
     """int64 copies of the send and receive tables, one row per shard:
     torch's gather/scatter take int64 indices."""
-    n_node, n_core = plan.n_node, plan.n_core
-    return {"send_idx": plan.send_own.reshape(n_node, n_core, -1).long(),
-            "recv_idx": plan.recv_own.reshape(n_node, n_core, -1).long()}
+    return {"send_idx": plan.send_own.flatten(2).long(),
+            "recv_idx": plan.recv_own.flatten(2).long()}
+
+
+def _node_recv(plan) -> torch.Tensor:
+    """The receive table of every node the plan holds, all its cores:
+    ``recv_own`` itself, or a rank-local plan's ``recv_node`` (its node's
+    whole table, which hier scatters through)."""
+    recv_node = getattr(plan, "recv_node", None)
+    return plan.recv_own if recv_node is None else recv_node
+
+
+def _process_mesh(plan):
+    """The plan's process mesh, or ``None`` on the virtual mesh."""
+    mesh = getattr(plan, "mesh", None)
+    return mesh if mesh is not None and mesh.is_process else None
+
+
+def _ring_pairs(offsets, n_node: int) -> dict[int, list[tuple[int, int]]]:
+    """Every node's ``(src, dst)`` pair at each ring offset."""
+    return {d: [(i, (i + d) % n_node) for i in range(n_node)]
+            for d in offsets}
 
 
 def _send_table(xb: torch.Tensor, F: dict, codec: WireCodec) -> torch.Tensor:
@@ -352,9 +384,26 @@ def _permute_tables(plan, pairs_by_offset: dict) -> dict[str, torch.Tensor]:
     ``x[src, c, send_own[src, c, dst]]`` and ``put_<d>`` writes slot
     ``recv_own[dst, c, src]`` of ``dst``'s core-``c`` partial buffer.
     Receivers no pair names are left out, so they get zeros (their receive
-    rows are all dump slot)."""
+    rows are all dump slot).
+
+    On a rank-local plan the tables are the rank's own: ``take_<d>``
+    ``(s, 1, hs)`` reads ``send_own[me, c, dst]`` from its own ``x`` for
+    the pair it sends on (``s`` 1, or 0 if it sends nothing at ``d``) and
+    ``put_<d>`` ``(r, 1, hs)`` writes ``recv_own[me, c, src]`` of its own
+    partial buffer for the pair it receives on."""
     send = plan.send_own.cpu().numpy().astype(np.int64)
     recv = plan.recv_own.cpu().numpy().astype(np.int64)
+    mesh = _process_mesh(plan)
+    if mesh is not None:
+        out = {}
+        for d, pairs in pairs_by_offset.items():
+            to = [t for s, t in pairs if s == mesh.node]
+            frm = [s for s, t in pairs if t == mesh.node]
+            out[f"take_{d}"] = torch.from_numpy(
+                send[0, 0][to][:, None]).to(plan.device)
+            out[f"put_{d}"] = torch.from_numpy(
+                recv[0, 0][frm][:, None]).to(plan.device)
+        return out
     c = np.arange(plan.n_core)[None, :, None]
     out = {}
     for d, pairs in pairs_by_offset.items():
@@ -369,27 +418,33 @@ def _permute_tables(plan, pairs_by_offset: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def _ppermute_exchange(x, F, offsets, n_node: int, g_pad: int,
-                       codec: WireCodec) -> torch.Tensor:
+def _ppermute_exchange(x, F, perms: dict, n_node: int, g_pad: int,
+                       codec: WireCodec, mesh=None) -> torch.Tensor:
     """Shared ring/pairwise dataflow: one independent ``ppermute`` per
-    neighbour offset (each chunk encoded to the wire dtype, decoded back
-    on arrival), scattered into the per-core partial ghost buffers,
-    assembled with the core-axis gather + add."""
+    neighbour offset (``perms``: offset -> its ``(src, dst)`` pairs; each
+    chunk encoded to the wire dtype, decoded back on arrival), scattered
+    into the per-core partial ghost buffers, assembled with the core-axis
+    gather + add."""
     xb = _batch(x)
     k = xb.shape[0]
     flat = xb.reshape(k, -1)
     part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
-    for d in offsets:
+    for d, pairs in perms.items():
         take, put = F[f"take_{d}"], F[f"put_{d}"]
-        # every sender's x[send] for its pair, laid out by pair
-        got = torch.gather(flat, 1, _expand(take.reshape(-1), k))
-        got = ppermute(codec.encode(got.view((k,) + tuple(take.shape))),
-                       pairs=take.shape[0])
-        got = codec.decode(got, x.dtype)
-        # duplicate indices only ever hit the dump slot g_pad
-        part.view(k, -1).scatter_(1, _expand(put.reshape(-1), k),
-                                  got.reshape(k, -1))
-    return _unbatch(_gather_add(part), x)
+        if take.shape[0]:
+            # every sender's x[send] for its pair, laid out by pair
+            got = torch.gather(flat, 1, _expand(take.reshape(-1), k))
+            wire = codec.encode(got.view((k,) + tuple(take.shape)))
+        else:       # a rank that sends nothing at this offset
+            wire = codec.encode(x.new_zeros((k, 1) + tuple(take.shape[1:]))
+                                )[:, :0]
+        got = ppermute(wire, pairs=len(pairs), perm=pairs, mesh=mesh)
+        if put.shape[0]:        # (a rank may receive nothing at d)
+            got = codec.decode(got, x.dtype)
+            # duplicate indices only ever hit the dump slot g_pad
+            part.view(k, -1).scatter_(1, _expand(put.reshape(-1), k),
+                                      got.reshape(k, -1))
+    return _unbatch(_gather_add(part, mesh), x)
 
 
 def _host_send_table(xd, send_own, codec: WireCodec | None):
@@ -439,13 +494,15 @@ class A2ATransport(HaloTransport):
         codec = _wire_codec(state)
         xb = _batch(x)
         k = xb.shape[0]
+        mesh = state.get("mesh")
         # all_to_all over node: recv[dst, c, src] = sent[src, c, dst]
-        recv = codec.decode(all_to_all(_send_table(xb, F, codec)), x.dtype)
+        recv = codec.decode(all_to_all(_send_table(xb, F, codec),
+                                       mesh=mesh), x.dtype)
         # each core scatters its own slice; duplicates only hit slot g_pad
         part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
         part.scatter_(3, _expand(F["recv_idx"], k),
                       recv.reshape(part.shape[:3] + (-1,)))
-        return _unbatch(_gather_add(part), x)
+        return _unbatch(_gather_add(part, mesh), x)
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         return _host_pair_scatter(xd, send_own, recv_own, g_pad,
@@ -468,24 +525,23 @@ class RingTransport(HaloTransport):
     name = "ring"
 
     def plan_state(self, plan):
-        return _neighbour_state(plan)
+        return self.finalize_state(plan, _neighbour_state(plan))
 
     def finalize_state(self, plan, state):
-        return dict(state, neighbor_offsets=_norm_offsets(
-            state["neighbor_offsets"], plan.n_node))
+        offsets = _norm_offsets(state["neighbor_offsets"], plan.n_node)
+        return dict(state, neighbor_offsets=offsets,
+                    pairs_by_offset=_ring_pairs(offsets, plan.n_node))
 
     def validate(self, plan, state):
         _validate_offsets("ring", plan, state)
 
     def extra_arrays(self, plan, state):
-        n = plan.n_node
-        return _permute_tables(plan, {
-            d: [(i, (i + d) % n) for i in range(n)]
-            for d in state["neighbor_offsets"]})
+        return _permute_tables(plan, state["pairs_by_offset"])
 
     def exchange(self, x, F, *, state, n_node, g_pad):
-        return _ppermute_exchange(x, F, state["neighbor_offsets"], n_node,
-                                  g_pad, _wire_codec(state))
+        return _ppermute_exchange(x, F, state["pairs_by_offset"], n_node,
+                                  g_pad, _wire_codec(state),
+                                  state.get("mesh"))
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         n_node = send_own.shape[0]
@@ -538,7 +594,8 @@ class PairwiseTransport(HaloTransport):
 
     def exchange(self, x, F, *, state, n_node, g_pad):
         return _ppermute_exchange(x, F, state["pairs_by_offset"], n_node,
-                                  g_pad, _wire_codec(state))
+                                  g_pad, _wire_codec(state),
+                                  state.get("mesh"))
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         return _host_pair_scatter(xd, send_own, recv_own, g_pad,
@@ -565,7 +622,7 @@ class HierTransport(HaloTransport):
         # the whole node's table is scattered at once, so a real slot
         # with two writers would be a race (scatter order on the card is
         # unspecified); only the dump slot g_pad may repeat
-        if plan.hs and (ghost_writer_counts(plan.recv_own.cpu().numpy(),
+        if plan.hs and (ghost_writer_counts(_node_recv(plan).cpu().numpy(),
                                             plan.g_pad) > 1).any():
             raise ValueError("hier transport: a real ghost slot has more "
                              "than one writer in recv_own")
@@ -574,8 +631,9 @@ class HierTransport(HaloTransport):
         # every core of node dst scatters the node's *whole* receive table
         # (the reference replicates it over the core axis,
         # (n_node, n_core, n_core, n_node, hs)); one copy per node here
+        recv = _node_recv(plan)
         return {"send_idx": _owner_tables(plan)["send_idx"],
-                "recv_all": plan.recv_own.reshape(plan.n_node, -1).long()}
+                "recv_all": recv.reshape(recv.shape[0], -1).long()}
 
     def exchange(self, x, F, *, state, n_node, g_pad):
         codec = _wire_codec(state)
@@ -584,8 +642,11 @@ class HierTransport(HaloTransport):
         # the core-axis gather of the encoded send chunks to the node's
         # leader (the table already holds every core's), then one
         # all_to_all of the combined per-node payload over nodes
-        sendtab = all_gather(_send_table(xb, F, codec), "core", lead=1)
-        recv = codec.decode(all_to_all(sendtab, core_gathered=True),
+        mesh = state.get("mesh")
+        sendtab = all_gather(_send_table(xb, F, codec), "core", lead=1,
+                             mesh=mesh)
+        recv = codec.decode(all_to_all(sendtab, core_gathered=True,
+                                       mesh=mesh),
                             x.dtype)              # (k, dst, c, src, hs)
         # the intra-node scatter through the node's whole receive table
         # assembles the full ghost buffer — no core-axis sum
@@ -744,6 +805,7 @@ def resolve_transport(transport, plan, neighbor_offsets=None,
     tr.validate(plan, state)
     state["wire_codec"] = get_codec(
         wire_dtype if wire_dtype is not None else plan_wire_dtype(plan))
+    state["mesh"] = getattr(plan, "mesh", None)
     return tr, state
 
 
@@ -770,8 +832,9 @@ def make_exchange(plan, transport: str | HaloTransport = "a2a",
     """Ghost-buffer probe: input-layout ``x`` (``plan.x_shape``) ->
     ``(n_node, n_core, g_pad + 1)``, the reference's per-shard shape, each
     node's assembled buffer repeated over the core axis — exactly what the
-    shard body feeds the off-diagonal matvec.  Raises on halo-free plans (there is no exchange
-    to probe)."""
+    shard body feeds the off-diagonal matvec (``(1, 1, g_pad + 1)`` on a
+    rank of a process mesh).  Raises on halo-free plans (there is no
+    exchange to probe)."""
     if plan.hs == 0:
         raise ValueError("plan has no halo traffic (hs == 0): "
                          "there is no exchange to probe")
@@ -779,7 +842,7 @@ def make_exchange(plan, transport: str | HaloTransport = "a2a",
                                   wire_dtype=wire_dtype)
     F = {"send_own": plan.send_own, "recv_own": plan.recv_own,
          **tr.extra_arrays(plan, state)}
-    n_node, n_core, g_pad = plan.n_node, plan.n_core, plan.g_pad
+    (n_node, n_core), g_pad = plan.shard_shape, plan.g_pad
 
     def probe(xd: torch.Tensor) -> torch.Tensor:
         ghost = tr.exchange(xd, F, state=state, n_node=n_node, g_pad=g_pad)
@@ -824,6 +887,11 @@ def autotune_transport(plan, candidates: tuple[str, ...] | None = None,
     """
     from repro_torch.core.spmv import make_spmv
 
+    if _process_mesh(plan) is not None:
+        raise ValueError(
+            "transport='auto' is not offered on a process mesh: the ranks "
+            "would have to agree on one winner (time on rank 0, broadcast), "
+            "which is queued (ROADMAP A7b follow-ups); name a transport")
     names = tuple(candidates) if candidates else available_transports()
     if plan.hs == 0:
         plan.transport = "a2a"

@@ -290,7 +290,8 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
                     ovals: torch.Tensor, ocols: torch.Tensor,
                     ostart: torch.Tensor, owidth: torch.Tensor,
                     x_local: torch.Tensor, x_ghost: torch.Tensor | None,
-                    rc_pad: int, slice_height: int = 8) -> torch.Tensor:
+                    rc_pad: int, slice_height: int = 8,
+                    plain_pad: tuple = (None, None)) -> torch.Tensor:
     """One-pass two-phase sliced-ELL SpMV -> ``(n_node, n_core, rc_pad)``.
 
     Flat slice-major streams ``(n_node, n_core, L)`` with per-slice
@@ -305,12 +306,16 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
     binds a plan (``make_shard_body``), not per launch.  Batched
     ``x_local``/``x_ghost`` (a leading ``nrhs`` axis) give ``(nrhs,
     n_node, n_core, rc_pad)`` in one launch
-    (``fused_sell_spmv_batched`` / ``sell_spmv_batched``)."""
+    (``fused_sell_spmv_batched`` / ``sell_spmv_batched``).  ``plain_pad``
+    is the plain version's ``(dwmax, owmax)`` on the CPU
+    (``ref.fused_sell_spmv_ref``); the kernel sums each slot alone and
+    takes none."""
     if _on_cpu(dvals):
         _nrhs("fused_sell_spmv", x_local, x_ghost, dvals.shape[0])
         return ref.fused_sell_spmv_ref(dvals, dcols, dstart, dwidth, ovals,
                                        ocols, ostart, owidth, x_local,
-                                       x_ghost, rc_pad, slice_height)
+                                       x_ghost, rc_pad, slice_height,
+                                       *plain_pad)
     from repro_torch.kernels.spmv_cuda import library
 
     name = "sell_spmv" if x_ghost is None else "fused_sell_spmv"

@@ -68,7 +68,8 @@ def fused_ell_spmv_ref(dvals, dcols, ovals, ocols, x_local, x_ghost):
 
 def sell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,
                   start: torch.Tensor, width: torch.Tensor, x: torch.Tensor,
-                  rc_pad: int, slice_height: int = 8) -> torch.Tensor:
+                  rc_pad: int, slice_height: int = 8,
+                  wmax: int | None = None) -> torch.Tensor:
     """Per-slot sum over one flat SELL stream.
 
     vals/cols ``(n_node, n_core, L)`` slice-major streams; start/width
@@ -77,10 +78,14 @@ def sell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,
     ``q`` sits at ``start[s] + (q - s·C)·width[s] + k`` with
     ``s = q // C``; slot ``q`` sums its ``width[s]`` entries in order.
     Slots of absent slices (width 0) get 0.  Returns
-    ``(n_node, n_core, rc_pad)`` float32.
+    ``(n_node, n_core, rc_pad)`` float32.  Each slot's entries are padded
+    to the widest slice's width before the sum, whose rounding depends on
+    it: ``wmax`` pads to a given width instead (a rank-local plan's shard
+    passes its whole plan's, so it sums as that plan does).
     """
     n_node, n_core = vals.shape[:2]
-    wmax = int(width.max()) if width.numel() else 0
+    if wmax is None:
+        wmax = int(width.max()) if width.numel() else 0
     if wmax == 0 or vals.shape[-1] == 0:
         return torch.zeros((n_node, n_core, rc_pad), dtype=torch.float32,
                            device=vals.device)
@@ -101,19 +106,21 @@ def sell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,
 
 def fused_sell_spmv_ref(dvals, dcols, dstart, dwidth, ovals, ocols, ostart,
                         owidth, x_local, x_ghost, rc_pad: int,
-                        slice_height: int = 8):
+                        slice_height: int = 8, dwmax: int | None = None,
+                        owmax: int | None = None):
     """Diag SELL stream × ``x_local``, then the offd stream × ``x_ghost``
-    added onto it; ``x_ghost=None`` is the diag-only kernel."""
+    added onto it; ``x_ghost=None`` is the diag-only kernel.
+    ``dwmax``/``owmax``: each stream's ``wmax`` (``sell_spmv_ref``)."""
     if x_local.dim() == 3:
         return _per_column(lambda xl, xg: fused_sell_spmv_ref(
             dvals, dcols, dstart, dwidth, ovals, ocols, ostart, owidth, xl,
-            xg, rc_pad, slice_height), x_local, x_ghost)
+            xg, rc_pad, slice_height, dwmax, owmax), x_local, x_ghost)
     y = sell_spmv_ref(dvals, dcols, dstart, dwidth, x_local, rc_pad,
-                      slice_height)
+                      slice_height, dwmax)
     if x_ghost is None:
         return y
     return y + sell_spmv_ref(ovals, ocols, ostart, owidth, x_ghost, rc_pad,
-                             slice_height)
+                             slice_height, owmax)
 
 
 def binned_matvec_ref(vals: torch.Tensor, cols: torch.Tensor,

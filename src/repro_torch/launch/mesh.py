@@ -1,0 +1,273 @@
+"""The ``(node, core)`` mesh of the distributed SpMV/CG: virtual or one
+process per shard.
+
+``make_cg_mesh(n_node, n_core)`` is the hybrid (MPI × OpenMP) mesh of the
+paper's benchmark, the counterpart of the JAX package's ``make_cg_mesh``.
+Two backends run it:
+
+* the **virtual mesh** (no process arguments): one device holds the whole
+  grid as the leading ``(n_node, n_core)`` axes of every tensor, and the
+  collectives of ``repro_torch.core.collectives`` are index operations;
+* the **process mesh** (``backend="gloo"``, ``rank``, ``world_size``,
+  ``init_method``): one process per shard, rank ``r`` at ``(node, core) =
+  divmod(r, n_core)`` (the JAX mesh's row-major device order).  Each rank
+  holds only its own shard of every plan array and vector (leading axes
+  ``(1, 1)``), and the four collectives are ``torch.distributed`` calls
+  over the **node group** (same core, all nodes: ``all_to_all``,
+  ``ppermute``, node-axis ``all_gather``), the **core group** (same node,
+  all cores: core-axis ``all_gather``) and the world (``psum``).  gloo
+  moves host tensors, so a rank on a card stages every collective through
+  host memory: that staging is the wire of a process mesh on one card.
+
+``spawn_cg_mesh(fn, n_node, n_core, device)`` starts the ``n_node ·
+n_core`` ranks on this host, runs ``fn(mesh, *args)`` on each and returns
+every rank's result.  ``write_plan`` / ``read_plan`` hand a plan built
+once by the launcher to the ranks: each rank maps the arrays and reads
+only its own shard (``plan_from_arrays(..., mesh=)``).
+
+NCCL (one card per rank) is not offered: the machine this was built on
+has one card, and an untested path is not shipped.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import json
+import os
+import pickle
+import shutil
+import sys
+import tempfile
+import time
+from pathlib import Path
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.util import resolve_device
+
+__all__ = ["CGMesh", "make_cg_mesh", "spawn_cg_mesh", "write_plan",
+           "read_plan", "BACKENDS"]
+
+#: the process mesh's backends: gloo on any device (host-staged on a card)
+BACKENDS = ("gloo",)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CGMesh:
+    """A ``(n_node, n_core)`` mesh.  On the virtual mesh ``node``/``core``
+    and the groups are ``None``; on a process mesh they are this rank's
+    shard and its process groups."""
+
+    n_node: int
+    n_core: int
+    device: torch.device
+    backend: str = "virtual"
+    node: int | None = None
+    core: int | None = None
+    node_group: Any = None      # same core, every node
+    core_group: Any = None      # same node, every core
+    world: Any = None           # every rank
+
+    @property
+    def is_process(self) -> bool:
+        return self.backend != "virtual"
+
+    @property
+    def world_size(self) -> int:
+        return self.n_node * self.n_core
+
+    @property
+    def rank(self) -> int | None:
+        return None if self.node is None else self.rank_of(self.node,
+                                                           self.core)
+
+    @property
+    def shard_shape(self) -> tuple[int, int]:
+        """The mesh axes of a tensor this mesh holds: the whole grid on the
+        virtual mesh, ``(1, 1)`` on a rank."""
+        return (1, 1) if self.is_process else (self.n_node, self.n_core)
+
+    def rank_of(self, node: int, core: int) -> int:
+        """Global rank of shard ``(node, core)``."""
+        return node * self.n_core + core
+
+    def destroy(self) -> None:
+        """Tear down the process group (a no-op on the virtual mesh)."""
+        if self.is_process:
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def make_cg_mesh(n_node: int, n_core: int, *, device=None,
+                 backend: str | None = None, rank: int | None = None,
+                 world_size: int | None = None,
+                 init_method: str | None = None,
+                 timeout: float = 60.0) -> CGMesh:
+    """The hybrid (MPI × OpenMP) mesh.  With no process arguments, the
+    virtual mesh on ``device`` (default ``cuda``).  With ``backend="gloo"``
+    this process joins a process mesh as ``rank`` of ``world_size ==
+    n_node * n_core`` through ``init_method`` (``file://...`` or
+    ``tcp://host:port``), and builds the node and core groups (every rank
+    must call this, in the same order).  A process already in a group of
+    ``world_size`` ranks builds a further mesh over it without
+    ``init_method`` (a 2x2 and a 1x4 mesh of one four-rank group).
+    ``timeout`` (seconds) bounds every collective, so a rank that dies
+    does not leave the others blocked."""
+    if n_node < 1 or n_core < 1:
+        raise ValueError(f"mesh must be at least 1x1, got {n_node}x{n_core}")
+    device = resolve_device(device)
+    if backend is None and rank is None and world_size is None \
+            and init_method is None:
+        return CGMesh(n_node, n_core, device)
+    if backend == "nccl":
+        raise ValueError(
+            "backend='nccl' needs one card per rank; the process mesh runs "
+            "on gloo here (host-staged on a card).  NCCL is queued as "
+            "ROADMAP A7c, for a machine with more than one card")
+    if backend not in BACKENDS:
+        raise ValueError(f"process mesh backend must be one of {BACKENDS} "
+                         f"(or no backend for the virtual mesh), got "
+                         f"{backend!r}")
+    world = n_node * n_core
+    if world_size != world:
+        raise ValueError(f"world_size {world_size} != n_node * n_core = "
+                         f"{world}")
+    if rank is None or not 0 <= rank < world:
+        raise ValueError(f"rank must be in [0, {world}), got {rank!r}")
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        if init_method is None:
+            raise ValueError("a process mesh needs an init_method "
+                             "('file://<path>' or 'tcp://<host>:<port>')")
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=timeout))
+    elif (dist.get_rank(), dist.get_world_size()) != (rank, world):
+        raise ValueError(
+            f"the process group is rank {dist.get_rank()} of "
+            f"{dist.get_world_size()}, not {rank} of {world}")
+    node, core = divmod(rank, n_core)
+    node_group = core_group = None
+    # new_group is collective over the world: every rank builds every group
+    for c in range(n_core):
+        g = dist.new_group([n * n_core + c for n in range(n_node)])
+        if c == core:
+            node_group = g
+    for n in range(n_node):
+        g = dist.new_group([n * n_core + c for c in range(n_core)])
+        if n == node:
+            core_group = g
+    return CGMesh(n_node, n_core, device, backend, node, core, node_group,
+                  core_group, dist.group.WORLD)
+
+
+# ---------------------------------------------------------------------- #
+# the launcher
+# ---------------------------------------------------------------------- #
+def _rank_main(rank: int, n_node: int, n_core: int, device,
+               init_method: str, out_dir: str) -> None:
+    """One spawned rank: join the mesh, run the call ``out_dir`` holds,
+    write its result there."""
+    # every rank is on this host: gloo's sockets bind to the loopback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.set_num_threads(1)
+    with open(Path(out_dir) / "call.pkl", "rb") as f:
+        fn, args = pickle.load(f)
+    mesh = make_cg_mesh(n_node, n_core, device=device, backend="gloo",
+                        rank=rank, world_size=n_node * n_core,
+                        init_method=init_method)
+    result = fn(mesh, *args)
+    tmp = Path(out_dir) / f"result_{rank}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(result, f)
+    os.replace(tmp, Path(out_dir) / f"result_{rank}.pkl")
+    import torch.distributed as dist
+    dist.barrier()          # every rank is done with every other
+    mesh.destroy()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # skip the interpreter's teardown: a gloo group's threads met there
+    # can abort the process after its result is written
+    os._exit(0)
+
+
+def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
+                  *, args: tuple = (), timeout: float = 120.0) -> list:
+    """Run ``fn(mesh, *args)`` on ``n_node * n_core`` spawned ranks of a
+    gloo process mesh on this host; return the ranks' results in rank
+    order (each must pickle).
+
+    ``fn`` must be importable by name (a module-level function).  The
+    rendezvous is a ``file://`` in a fresh temporary directory, so
+    concurrent launches never share a port.  When one rank exits non-zero
+    the others are killed and this raises with its traceback; when the
+    ranks have not all finished after ``timeout`` seconds, every rank is
+    killed and this raises ``TimeoutError``.  On a card the kernel
+    library is built here once, before any rank starts."""
+    import torch.multiprocessing as mp
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        from repro_torch.kernels import spmv_cuda
+        spmv_cuda.build()
+    world = n_node * n_core
+    tmp = tempfile.mkdtemp(prefix="cg_mesh_")
+    try:
+        # the call goes through a file: arguments larger than a pipe's
+        # buffer would make each rank's start wait for the one before
+        with open(Path(tmp) / "call.pkl", "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
+        ctx = mp.start_processes(
+            _rank_main, args=(n_node, n_core, str(device),
+                              f"file://{tmp}/rendezvous", tmp),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=0.1):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"spawn_cg_mesh: {world} ranks not done after "
+                        f"{timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        out = []
+        for r in range(world):
+            with open(Path(tmp) / f"result_{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------- #
+# plans handed from the launcher to the ranks
+# ---------------------------------------------------------------------- #
+def write_plan(plan, directory) -> Path:
+    """Write a whole plan's arrays (``plan_arrays``, one ``.npy`` each) and
+    meta (``meta.json``) into ``directory``, for :func:`read_plan`."""
+    from repro_torch.core.spmv import plan_arrays, plan_meta
+
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    for name, a in plan_arrays(plan).items():
+        np.save(d / f"{name}.npy", a)
+    (d / "meta.json").write_text(json.dumps(plan_meta(plan)))
+    return d
+
+
+def read_plan(directory, mesh: CGMesh):
+    """This rank's shard of the plan :func:`write_plan` wrote: the arrays
+    are memory-mapped and only the rank's rows are read."""
+    from repro_torch.core.spmv import plan_from_arrays
+
+    d = Path(directory)
+    meta = json.loads((d / "meta.json").read_text())
+    arrays = {p.stem: np.load(p, mmap_mode="r") for p in d.glob("*.npy")}
+    return plan_from_arrays(arrays, meta, device=mesh.device, mesh=mesh)

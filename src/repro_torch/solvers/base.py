@@ -85,15 +85,17 @@ def local_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float32) * b.to(torch.float32)).sum(-1)
 
 
-def pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def pdot(a: torch.Tensor, b: torch.Tensor, *, mesh=None) -> torch.Tensor:
     """VecDot on ``(nrhs, n_node, n_core, rc_pad)``: per-shard partials,
-    then the ``psum`` over the shards -> ``(nrhs,)``.  One reduction."""
-    return psum(local_dot(a, b))
+    then the ``psum`` over the shards -> ``(nrhs,)``.  One reduction.  On
+    a process ``mesh`` the blocks are the rank's ``(nrhs, 1, 1, rc_pad)``
+    and every rank gets the same sum."""
+    return psum(local_dot(a, b), mesh=mesh)
 
 
-def pdot_stack(*pairs) -> torch.Tensor:
+def pdot_stack(*pairs, mesh=None) -> torch.Tensor:
     """k VecDots stacked into one ``(k, nrhs)`` reduction."""
-    return psum(torch.stack([local_dot(a, b) for a, b in pairs]))
+    return psum(torch.stack([local_dot(a, b) for a, b in pairs]), mesh=mesh)
 
 
 # --------------------------------------------------------------------- #
@@ -105,13 +107,16 @@ class SolverCtx:
 
     ``spmv``/``precond`` act on ``(nrhs, n_node, n_core, rc_pad)`` blocks;
     ``maxiter_static`` caps every solve's ``maxiter``; ``options`` holds
-    the solver-specific static options ``Solver.prepare`` resolved.
+    the solver-specific static options ``Solver.prepare`` resolved;
+    ``mesh`` is the plan's process mesh (``None`` on the virtual mesh),
+    which every ``pdot`` of the loop names.
     """
 
     spmv: Callable[[torch.Tensor], torch.Tensor]
     precond: Callable[[torch.Tensor], torch.Tensor]
     maxiter_static: int = 10_000
     options: dict = dataclasses.field(default_factory=dict)
+    mesh: object | None = None
 
 
 class Solver:
@@ -235,7 +240,9 @@ class Solver:
         if check_every < 1:
             raise ValueError(f"check_every must be >= 1, got {check_every}")
         aux, state = self.loop_setup(ctx, b, tol, maxiter)
-        while bool(self.loop_cond(ctx, aux, state)):    # one host sync
+        # one host sync per block; on a process mesh every rank reads the
+        # same psum'd residuals, so all leave at the same block
+        while bool(self.loop_cond(ctx, aux, state)):
             for _ in range(check_every):
                 state = self.loop_body(ctx, aux, state)
         return self.loop_finish(ctx, aux, state)
@@ -277,8 +284,10 @@ def to_dist_batch(B, layout: dict, plan, dtype=None) -> torch.Tensor:
     """Stack ``(nrhs, n)`` global RHS columns into the batched CG layout
     ``(n_node, n_core, nrhs, rc_pad)`` (the JAX package's layout), in
     ``dtype`` (default: the plan's).  Packed on the host and moved in one
-    transfer; column ``j`` is ``to_dist(B[j])`` byte for byte."""
-    g = layout["global_row_of"]
+    transfer; column ``j`` is ``to_dist(B[j])`` byte for byte.  A
+    rank-local plan gets its own shard ``(1, 1, nrhs, rc_pad)``."""
+    from repro_torch.core.spmv import rank_rows
+    g = rank_rows(layout["global_row_of"], plan)
     B = np.asarray(B)
     out = np.zeros(plan.cg_shape[:2] + (B.shape[0], plan.rc_pad),
                    dtype=B.dtype)
@@ -291,8 +300,9 @@ def to_dist_batch(B, layout: dict, plan, dtype=None) -> torch.Tensor:
 
 def from_dist_batch(xd: torch.Tensor, layout: dict, plan) -> np.ndarray:
     """Inverse of :func:`to_dist_batch` -> ``(nrhs, n)`` numpy array (one
-    device-to-host copy)."""
-    g = layout["global_row_of"]
+    device-to-host copy); a rank-local plan fills only its own rows."""
+    from repro_torch.core.spmv import rank_rows
+    g = rank_rows(layout["global_row_of"], plan)
     xh = xd.detach().cpu().numpy()
     out = np.zeros((xh.shape[2], plan.n), dtype=xh.dtype)
     ii, cc, ss = np.nonzero(g >= 0)
@@ -357,6 +367,14 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     ``solve.parts(b, tol, maxiter)`` returns ``(solver, ctx, b block, tol,
     maxiter)`` as the loop sees them (:func:`reduction_census` runs one
     body on them).
+
+    On a rank-local plan (a process mesh, ``plan.mesh``) every rank calls
+    ``make_solver`` and ``solve`` alike, with its own shard of ``b``
+    (``(1, 1, rc_pad)``, or ``(1, 1, k, rc_pad)``) and gets its shard of
+    ``x``; the dots are ``psum``s over the ranks, so every rank stops at
+    the same iteration.  Shard-local preconditioners only (``two_level``
+    is refused by its ``bind``), and a named transport (``"auto"`` is
+    refused).
     """
     from repro_torch.core.spmv import make_shard_body
 
@@ -379,7 +397,8 @@ def make_solver(plan, *, solver: str | Solver = "cg",
                            neighbor_offsets=neighbor_offsets,
                            wire_dtype=wire_dtype)
     ctx = SolverCtx(spmv=body, precond=lambda r: papply(pdata, r),
-                    maxiter_static=maxiter_static, options=opts)
+                    maxiter_static=maxiter_static, options=opts,
+                    mesh=plan.mesh)
     batched = nrhs is not None
 
     def parts(b: torch.Tensor, tol: float, maxiter: int):

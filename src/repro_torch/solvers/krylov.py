@@ -73,7 +73,7 @@ class CGSolver(Solver):
                 "rz": "scalar", "rr": "scalar", "pap": "scalar"}
 
     def loop_aux(self, ctx: SolverCtx, b, tol, maxiter):
-        bnorm = torch.sqrt(pdot(b, b))
+        bnorm = torch.sqrt(pdot(b, b, mesh=ctx.mesh))
         return {"cap": _cap(ctx, maxiter), "bnorm": bnorm,
                 "tol2": _tol2(tol, bnorm)}
 
@@ -82,7 +82,7 @@ class CGSolver(Solver):
         # r = b − Ax, p = z = M⁻¹r.  From x = 0, A·0 is exactly 0
         r = b - ctx.spmv(x)
         z = ctx.precond(r)
-        s = pdot_stack((r, z), (r, r))
+        s = pdot_stack((r, z), (r, r), mesh=ctx.mesh)
         return {"k": k, "x": x, "r": r, "p": z, "rz": s[0], "rr": s[1],
                 "pap": torch.ones_like(s[0])}
 
@@ -94,12 +94,13 @@ class CGSolver(Solver):
         rz, rr = state["rz"], state["rr"]
         active = (k < aux["cap"]) & (rr > aux["tol2"])
         ap = ctx.spmv(p)
-        den = pdot(p, ap)                      # reduction 1
+        den = pdot(p, ap, mesh=ctx.mesh)       # reduction 1
         alpha = _col(rz / den)
         x = _gate(active, x + alpha * p, x)
         r = _gate(active, r - alpha * ap, r)
         z = ctx.precond(r)
-        s = pdot_stack((r, z), (r, r))         # reduction 2: [r·z, r·r]
+        # reduction 2: [r·z, r·r]
+        s = pdot_stack((r, z), (r, r), mesh=ctx.mesh)
         beta = _col(s[0] / rz)
         p = _gate(active, z + beta * p, p)
         return {"k": k + active.to(k.dtype), "x": x, "r": r, "p": p,
@@ -155,7 +156,7 @@ class PipelinedCGSolver(Solver):
                 "g_prev": "scalar", "a_prev": "scalar", "rr": "scalar"}
 
     def loop_aux(self, ctx: SolverCtx, b, tol, maxiter):
-        bnorm = torch.sqrt(pdot(b, b))
+        bnorm = torch.sqrt(pdot(b, b, mesh=ctx.mesh))
         # the drift restart inside loop_body needs b: carry it in aux
         return {"cap": _cap(ctx, maxiter), "bnorm": bnorm,
                 "tol2": _tol2(tol, bnorm), "b": b}
@@ -164,7 +165,7 @@ class PipelinedCGSolver(Solver):
         r = b - ctx.spmv(x)
         u = ctx.precond(r)
         w = ctx.spmv(u)
-        rr = pdot(r, r)
+        rr = pdot(r, r, mesh=ctx.mesh)
         zeros = torch.zeros_like(x)
         return {"t": 0, "k": k, "x": x, "r": r, "u": u, "w": w,
                 "z": zeros, "q": zeros, "s": zeros, "p": zeros,
@@ -195,7 +196,8 @@ class PipelinedCGSolver(Solver):
             g_prev = _gate(active, torch.full_like(g_prev, math.inf), g_prev)
         # the ONE stacked reduction; the preconditioner and SpMV below do
         # not depend on it
-        S = pdot_stack((r, u), (w, u), (r, r))      # [γ, δ, r·r]
+        S = pdot_stack((r, u), (w, u), (r, r),     # [γ, δ, r·r]
+                       mesh=ctx.mesh)
         m = ctx.precond(w)
         n = ctx.spmv(m)
         gamma, delta = S[0], S[1]
@@ -218,7 +220,8 @@ class PipelinedCGSolver(Solver):
                 "rr": _gate(active, S[2], rr)}
 
     def loop_finish(self, ctx: SolverCtx, aux, state):
-        rr = pdot(state["r"], state["r"])      # fresh ‖r‖, post-loop
+        # fresh ‖r‖, post-loop
+        rr = pdot(state["r"], state["r"], mesh=ctx.mesh)
         rel = torch.sqrt(rr) / torch.clamp(aux["bnorm"], min=1e-30)
         return state["x"], state["k"], rel
 
@@ -283,7 +286,7 @@ class ChebyshevSolver(Solver):
     def loop_aux(self, ctx: SolverCtx, b, tol, maxiter):
         lmin = float(ctx.options["lmin"])
         lmax = float(ctx.options["lmax"])
-        bnorm = torch.sqrt(pdot(b, b))
+        bnorm = torch.sqrt(pdot(b, b, mesh=ctx.mesh))
         # a-priori trip count from the error bound, in f32 on the f32 tol
         # as the JAX package computes it (a quotient by a tensor: 2.0 / t
         # would be a reciprocal times 2)
@@ -321,7 +324,8 @@ class ChebyshevSolver(Solver):
                 "a_prev": _gate(active, alpha, a_prev), "kb": kb}
 
     def loop_finish(self, ctx: SolverCtx, aux, state):
-        rr = pdot(state["r"], state["r"])      # one reduction, post-loop
+        # one reduction, post-loop
+        rr = pdot(state["r"], state["r"], mesh=ctx.mesh)
         rel = torch.sqrt(rr) / torch.clamp(aux["bnorm"], min=1e-30)
         return state["x"], state["k"], rel
 

@@ -156,8 +156,9 @@ class JacobiPrecond(Preconditioner):
         return lambda r: inv * r
 
 
-def _core_block_inverses(layout: dict, A):
-    """Dense f64 inverse of every core bin's diagonal block of ``A``.
+def _core_block_inverses(layout: dict, A, only=None):
+    """Dense f64 inverse of every core bin's diagonal block of ``A`` (of
+    bin ``only = (node, core)`` alone, if given).
 
     Yields ``(i, c, rows, inv)`` per non-empty bin: ``rows`` the bin's
     global row range (two-level partitions keep bins contiguous) and
@@ -171,6 +172,8 @@ def _core_block_inverses(layout: dict, A):
     for i, cb in enumerate(layout["core_bounds"]):
         lo = int(node_bounds[i])
         for c in range(len(cb) - 1):
+            if only is not None and (i, c) != tuple(only):
+                continue
             blo, bhi = lo + int(cb[c]), lo + int(cb[c + 1])
             nb = bhi - blo
             if nb == 0:
@@ -191,18 +194,22 @@ class BlockJacobiPrecond(Preconditioner):
     plan's slot ordering (format row permutations folded in via
     ``layout["global_row_of"]``), rounded once from f64 to f32; padding
     rows and columns are zero, so padding slots stay exactly 0.  The apply
-    is one batched dense product over the shards.
+    is one batched dense product over the shards.  A rank-local plan
+    builds and holds its own block alone, ``(1, 1, rc_pad, rc_pad)``.
     """
 
     name = "block_jacobi"
 
     def build(self, plan, layout=None, A=None):
         g_of = np.asarray(layout["global_row_of"]) if layout else None
-        binv = np.zeros((plan.n_node, plan.n_core, plan.rc_pad, plan.rc_pad))
-        for i, c, (blo, bhi), inv in _core_block_inverses(layout, A):
+        mesh = plan.mesh if getattr(plan, "is_rank_local", False) else None
+        only = None if mesh is None else (mesh.node, mesh.core)
+        binv = np.zeros(plan.cg_shape[:2] + (plan.rc_pad, plan.rc_pad))
+        for i, c, (blo, bhi), inv in _core_block_inverses(layout, A, only):
             slots = np.flatnonzero(g_of[i, c] >= 0)
             bl = g_of[i, c, slots] - blo      # bin-local row of each slot
-            binv[i, c, slots[:, None], slots[None, :]] = inv[np.ix_(bl, bl)]
+            at = (0, 0) if only else (i, c)
+            binv[at + (slots[:, None], slots[None, :])] = inv[np.ix_(bl, bl)]
         return {"binv": to_device(binv, plan.device)}
 
     def apply(self, P, r):
@@ -294,6 +301,12 @@ class TwoLevelPrecond(Preconditioner):
         Galerkin inverse) and ``apply_fn.plans`` the R and P
         ``(plan, layout)`` pairs."""
         opts = self.validate_options(options)
+        if getattr(plan, "is_rank_local", False):
+            raise ValueError(
+                "two_level is not offered on a process mesh: its coarse "
+                "correction (core- then node-axis gathers, R and P plans) "
+                "runs on the virtual mesh only (queued, ROADMAP A7b "
+                "follow-ups); use jacobi or block_jacobi")
         if layout is None or A is None:
             raise ValueError("two_level needs the host matrix and layout: "
                              "make_solver(..., A=A, layout=layout)")

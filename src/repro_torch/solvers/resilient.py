@@ -177,6 +177,11 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
     """
     from repro_torch.core.spmv import make_shard_body
 
+    if getattr(plan, "is_rank_local", False):
+        raise ValueError(
+            "the resilient driver runs on the virtual mesh only: its "
+            "guard, rollback and checkpoints are not offered on a process "
+            "mesh (queued, ROADMAP A7b follow-ups); use make_solver")
     sol = get_solver(solver)
     pre = get_precond(precond)
     pre.validate_options(precond_options)

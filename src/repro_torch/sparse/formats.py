@@ -132,6 +132,13 @@ class ShardFormat:
         arrays' shapes do not show; run once when a shard body binds a
         plan.  Default: nothing to check."""
 
+    def plain_pad(self, data: dict[str, torch.Tensor]) -> dict[str, int]:
+        """What the plain versions pad every shard to, from the whole
+        plan's arrays: a rank-local plan hands it back to them in ``F``
+        (``SpMVPlan.plain_pad``), so its shard sums as the whole plan's
+        does.  Default: nothing (the stored widths are the whole plan's)."""
+        return {}
+
     def matvec_plain(self, F: dict[str, torch.Tensor], x_local: torch.Tensor,
                      x_ghost: torch.Tensor | None,
                      rc_pad: int) -> torch.Tensor:
@@ -382,17 +389,28 @@ class SELLFormat(ShardFormat):
                 F["sell_dwidth"], F["sell_ovals"], F["sell_ocols"],
                 F["sell_ostart"], F["sell_owidth"]), x_ghost
 
+    def plain_pad(self, data):
+        """Each stream's widest slice over the whole plan."""
+        return {f"sell_{k}wmax": int(data[f"sell_{k}width"].max())
+                if data[f"sell_{k}width"].numel() else 0 for k in "do"}
+
     def matvec_plain(self, F, x_local, x_ghost, rc_pad):
         from repro_torch.kernels.ref import fused_sell_spmv_ref
         args, x_ghost = self._args(F, x_ghost)
         return fused_sell_spmv_ref(*args, x_local, x_ghost, rc_pad,
-                                   self.slice_height)
+                                   self.slice_height, *self._pad(F))
 
     def matvec_kernel(self, F, x_local, x_ghost, rc_pad):
         from repro_torch.kernels.ops import fused_sell_spmv
         args, x_ghost = self._args(F, x_ghost)
         return fused_sell_spmv(*args, x_local, x_ghost, rc_pad,
-                               self.slice_height)
+                               self.slice_height, plain_pad=self._pad(F))
+
+    @staticmethod
+    def _pad(F):
+        """A rank-local plan's whole-plan ``(dwmax, owmax)`` (``None``:
+        the shard's own)."""
+        return F.get("sell_dwmax"), F.get("sell_owmax")
 
 
 # --------------------------------------------------------------------- #

@@ -3,6 +3,7 @@
 Usage:  python -m repro_torch.testing.dist_check [--device cpu] \
             --n-node 4 --n-core 2 --mode balanced [--cg] [--fused] \
             [--solver all --nrhs 4] [--check-every 25 --inject-fault nan@30]
+            [--mesh process]
 
 The port of ``repro.testing.dist_check``: the same flags, output lines
 (``SPMV_REL_ERR``, ``CG_ITERS``, ``FUSED_ITERS``, ``SOLVER``,
@@ -14,11 +15,22 @@ wrappers: the CUDA kernels on the card, their plain versions on the CPU)
 or ``plain`` (the plain versions on any device); the solves always run
 the wrappers, which the port selects by device.  ``--inject-fault
 preempt@N`` SIGKILLs this process mid-solve.
+
+``--mesh process`` runs the same lines on a process mesh
+(``repro_torch.launch.mesh``): this process builds the plan once and
+spawns one gloo rank per shard, each on ``--device`` with its own shard;
+the lines are printed from the ranks' shards, and a line is ``BAD`` unless
+every rank reports the same iterations.  A ``MESH`` line adds each
+rank's SpMV ``y`` against its row of the virtual mesh's (bit for bit) and
+a jacobi-cg solve's iterations against the virtual mesh's (±1).  The
+resilient driver (``--check-every``) and ``--transport auto`` run on the
+virtual mesh only.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import tempfile
 
 import numpy as np
 
@@ -74,31 +86,23 @@ def main(argv=None) -> int:
                     help="with --check-every: persist per-chunk "
                          "checkpoints here")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="virtual",
+                    choices=["virtual", "process"],
+                    help="virtual: the grid on one device; process: one "
+                         "spawned gloo rank per shard")
     args = ap.parse_args(argv)
+    if args.mesh == "process":
+        return process_main(args)
 
     from repro_torch.core import (build_spmv_plan, from_dist, make_cg,
                                   make_shard_body, make_spmv, to_dist)
-    from repro_torch.sparse import (extruded_mesh_matrix,
-                                    graded_extruded_mesh_matrix,
-                                    random_spd_matrix)
 
-    if args.matrix == "mesh":
-        A = extruded_mesh_matrix(args.n_surface, args.layers, seed=0)
-    elif args.matrix == "graded":
-        A = graded_extruded_mesh_matrix(args.n_surface, args.layers, seed=0)
-    else:
-        A = random_spd_matrix(args.n, nnz_per_row=9, seed=0)
-
+    A = _matrix(args)
     plan, layout = build_spmv_plan(A, args.n_node, args.n_core,
                                    mode=args.mode,
                                    node_partition=args.node_partition,
                                    format=args.format, device=args.device)
-    nb = layout["node_bounds"]
-    print(f"FORMAT {layout['format']} "
-          f"NODE_SIZES {np.diff(nb).tolist()} "
-          f"NODE_IMB {layout['stats']['node_imbalance']:.3f} "
-          f"CORE_IMB {layout['stats']['core_imbalance']:.3f} "
-          f"WASTE {layout['stats']['padding_waste']:.3f}")
+    _format_line(layout)
     spmv = make_spmv(plan, transport=args.transport,
                      neighbor_offsets=layout["neighbor_offsets"])
     print(f"TRANSPORT {spmv.transport}"
@@ -114,45 +118,23 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(1)
     x = rng.normal(size=A.n_rows)
-    y_ref = A.matvec(x)
-    y = from_dist(spmv(to_dist(x, layout, plan)), layout, plan)
-    err = float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
-    print(f"SPMV_REL_ERR {err:.3e}")
-    ok = err < 5e-5
+    ok = spmv_line(from_dist(spmv(to_dist(x, layout, plan)), layout, plan),
+                   A.matvec(x))
 
     if args.cg or args.fused:
-        # tol above the float32 attainable-accuracy floor of these small
-        # matrices (~1e-4 true residual): below it iteration counts are
-        # reduction-order noise
-        cg_tol = 1e-5
         solve = make_cg(plan)
         b = rng.normal(size=A.n_rows)
         bd = to_dist(b, layout, plan)
-        xd, iters, rel = solve(bd, tol=cg_tol, maxiter=2000)
+        xd, iters, rel = solve(bd, tol=CG_TOL, maxiter=2000)
         xs = from_dist(xd, layout, plan)
-        true_rel = float(np.linalg.norm(A.matvec(xs) - b) / np.linalg.norm(b))
-        print(f"CG_ITERS {int(iters)} CG_REL {float(rel):.3e} "
-              f"TRUE_REL {true_rel:.3e}")
-        ok = ok and true_rel < 2e-4 and int(iters) < 2000
+        ok = cg_line(A, b, xs, int(iters), float(rel)) and ok
 
     if args.fused:
         fsolve = make_cg(plan, fused=True, transport=args.transport,
                          neighbor_offsets=layout["neighbor_offsets"])
-        xf, itf, relf = fsolve(bd, tol=cg_tol, maxiter=2000)
-        xfs = from_dist(xf, layout, plan)
-        f_rel = float(np.linalg.norm(A.matvec(xfs) - b) / np.linalg.norm(b))
-        dx = float(np.abs(xfs - xs).max() / max(np.abs(xs).max(), 1e-30))
-        diters = abs(int(itf) - int(iters))
-        # the fused solution must agree with a solve that never touches
-        # the distributed layout
-        xh = host_cg(A, b, tol=1e-8, maxiter=4000)
-        dx_host = float(np.linalg.norm(xfs - xh)
-                        / max(np.linalg.norm(xh), 1e-30))
-        print(f"FUSED_ITERS {int(itf)} FUSED_REL {float(relf):.3e} "
-              f"FUSED_TRUE_REL {f_rel:.3e} DX {dx:.3e} DITERS {diters} "
-              f"DX_HOST {dx_host:.3e}")
-        ok = (ok and f_rel < 2e-4 and diters <= 1 and dx < 1e-3
-              and dx_host < 1e-2)
+        xf, itf, relf = fsolve(bd, tol=CG_TOL, maxiter=2000)
+        ok = fused_line(A, b, xs, int(iters), from_dist(xf, layout, plan),
+                        int(itf), float(relf)) and ok
 
     if args.solver:
         ok = solvers(args, A, plan, layout, rng,
@@ -162,34 +144,129 @@ def main(argv=None) -> int:
     return 0 if ok else 1
 
 
+# ---------------------------------------------------------------------- #
+# the lines, from global vectors (either mesh)
+# ---------------------------------------------------------------------- #
+# tol above the float32 attainable-accuracy floor of these small matrices
+# (~1e-4 true residual): below it iteration counts are reduction-order
+# noise
+CG_TOL = SOLVER_TOL = 1e-5
+#: f32 attainable true-residual / solution-error floors per solver:
+#: pipelined CG trades ~1 digit of attainable accuracy for the overlap,
+#: Chebyshev stops on its a-priori error bound
+BOUNDS = {"cg": (2e-4, 1e-2), "pipelined_cg": (1e-3, 3e-2),
+          "chebyshev": (2e-3, 5e-2)}
+
+
+def _matrix(args):
+    from repro_torch.sparse import (extruded_mesh_matrix,
+                                    graded_extruded_mesh_matrix,
+                                    random_spd_matrix)
+
+    if args.matrix == "mesh":
+        return extruded_mesh_matrix(args.n_surface, args.layers, seed=0)
+    if args.matrix == "graded":
+        return graded_extruded_mesh_matrix(args.n_surface, args.layers,
+                                           seed=0)
+    return random_spd_matrix(args.n, nnz_per_row=9, seed=0)
+
+
+def _format_line(layout) -> None:
+    nb = layout["node_bounds"]
+    print(f"FORMAT {layout['format']} "
+          f"NODE_SIZES {np.diff(nb).tolist()} "
+          f"NODE_IMB {layout['stats']['node_imbalance']:.3f} "
+          f"CORE_IMB {layout['stats']['core_imbalance']:.3f} "
+          f"WASTE {layout['stats']['padding_waste']:.3f}")
+
+
+def _true_rel(A, x, b) -> float:
+    return float(np.linalg.norm(A.matvec(x) - b) / np.linalg.norm(b))
+
+
+def spmv_line(y, y_ref) -> bool:
+    err = float(np.abs(y - y_ref).max() / np.abs(y_ref).max())
+    print(f"SPMV_REL_ERR {err:.3e}")
+    return err < 5e-5
+
+
+def cg_line(A, b, xs, iters: int, rel: float, tail: str = "") -> bool:
+    true_rel = _true_rel(A, xs, b)
+    print(f"CG_ITERS {iters} CG_REL {rel:.3e} TRUE_REL {true_rel:.3e}"
+          + tail)
+    return true_rel < 2e-4 and iters < 2000
+
+
+def fused_line(A, b, xs, iters: int, xfs, itf: int, relf: float,
+               tail: str = "") -> bool:
+    """The fused solve against the unfused one and against a solve that
+    never touches the distributed layout."""
+    f_rel = _true_rel(A, xfs, b)
+    dx = float(np.abs(xfs - xs).max() / max(np.abs(xs).max(), 1e-30))
+    diters = abs(itf - iters)
+    xh = host_cg(A, b, tol=1e-8, maxiter=4000)
+    dx_host = float(np.linalg.norm(xfs - xh)
+                    / max(np.linalg.norm(xh), 1e-30))
+    print(f"FUSED_ITERS {itf} FUSED_REL {relf:.3e} "
+          f"FUSED_TRUE_REL {f_rel:.3e} DX {dx:.3e} DITERS {diters} "
+          f"DX_HOST {dx_host:.3e}" + tail)
+    return f_rel < 2e-4 and diters <= 1 and dx < 1e-3 and dx_host < 1e-2
+
+
+def solver_line(name: str, precond: str, A, b, xs, its: int, rel: float,
+                xh, agree: bool = True) -> bool:
+    tr_max, dx_max = BOUNDS.get(name, (2e-3, 5e-2))
+    tr = _true_rel(A, xs, b)
+    dxh = float(np.linalg.norm(xs - xh)) / max(float(np.linalg.norm(xh)),
+                                               1e-30)
+    ok = agree and tr < tr_max and dxh < dx_max and its < 5000
+    print(f"SOLVER {name} PRECOND {precond} ITERS {its} "
+          f"REL {rel:.3e} TRUE_REL {tr:.3e} "
+          f"DX_HOST {dxh:.3e} {'ok' if ok else 'BAD'}")
+    return ok
+
+
+def batched_line(name: str, Xs, Xh, itb: list, agree: bool = True) -> bool:
+    worst = max(float(np.linalg.norm(Xs[j] - Xh[j]))
+                / max(float(np.linalg.norm(Xh[j])), 1e-30)
+                for j in range(len(Xh)))
+    ok = agree and worst < BOUNDS.get(name, (2e-3, 5e-2))[1] \
+        and max(itb) < 5000
+    print(f"SOLVER {name} NRHS {len(Xh)} ITERS {itb} "
+          f"WORST_DX_HOST {worst:.3e} {'ok' if ok else 'BAD'}")
+    return ok
+
+
+def _solver_rhs(args, A, rng, b):
+    """The ``--solver`` lines' right-hand sides and their host oracles:
+    ``(names, b, xh, B, Xh)`` (``B``/``Xh`` ``None`` without ``--nrhs``)."""
+    from repro_torch.solvers import available_solvers
+
+    names = (available_solvers() if args.solver == "all"
+             else tuple(args.solver.split(",")))
+    b = rng.normal(size=A.n_rows) if b is None else b
+    xh = host_cg(A, b, tol=1e-10, maxiter=20_000)
+    B = Xh = None
+    if args.nrhs > 1:
+        B = np.random.default_rng(11).normal(size=(args.nrhs, A.n_rows))
+        Xh = [host_cg(A, B[j], tol=1e-10, maxiter=20_000)
+              for j in range(args.nrhs)]
+    return names, b, xh, B, Xh
+
+
 def solvers(args, A, plan, layout, rng, b) -> bool:
     """The ``--solver`` lines: each solver (monolithic or resilient, and
     batched with ``--nrhs``) against the f64 host-CG oracle."""
     from repro_torch.core import from_dist, to_dist
-    from repro_torch.solvers import (available_solvers, from_dist_batch,
-                                     make_solver, resilient_solve,
-                                     to_dist_batch)
+    from repro_torch.solvers import (from_dist_batch, make_solver,
+                                     resilient_solve, to_dist_batch)
 
-    solver_tol = 1e-5
-    # f32 attainable true-residual / solution-error floors per solver:
-    # pipelined CG trades ~1 digit of attainable accuracy for the overlap,
-    # Chebyshev stops on its a-priori error bound
-    bounds = {"cg": (2e-4, 1e-2), "pipelined_cg": (1e-3, 3e-2),
-              "chebyshev": (2e-3, 5e-2)}
-    names = (available_solvers() if args.solver == "all"
-             else tuple(args.solver.split(",")))
-    b = rng.normal(size=A.n_rows) if b is None else b
+    names, b, xh, B, Xh = _solver_rhs(args, A, rng, b)
     bd = to_dist(b, layout, plan)
-    xh = host_cg(A, b, tol=1e-10, maxiter=20_000)
     xh_norm = max(float(np.linalg.norm(xh)), 1e-30)
-    if args.nrhs > 1:
-        B = np.random.default_rng(11).normal(size=(args.nrhs, A.n_rows))
-        Bd = to_dist_batch(B, layout, plan)
-        Xh = [host_cg(A, B[j], tol=1e-10, maxiter=20_000)
-              for j in range(args.nrhs)]
     ok = True
     for name in names:
-        tr_max, dx_max = bounds.get(name, (2e-3, 5e-2))
+        tr_max, dx_max = BOUNDS.get(name, (2e-3, 5e-2))
         if args.check_every > 0:
             # chunking (and any injected fault + rollback) must not change
             # where the solve lands
@@ -200,7 +277,7 @@ def solvers(args, A, plan, layout, rng, b) -> bool:
                 plan, b, layout=layout, A=A, solver=name,
                 precond=args.precond, transport=args.transport,
                 neighbor_offsets=layout["neighbor_offsets"],
-                tol=solver_tol, maxiter=5000, check_every=args.check_every,
+                tol=SOLVER_TOL, maxiter=5000, check_every=args.check_every,
                 checkpoint_dir=args.checkpoint_dir,
                 resume_from=args.resume_from, injector=inj)
             dxh = float(np.linalg.norm(res.x - xh)) / xh_norm
@@ -217,35 +294,190 @@ def solvers(args, A, plan, layout, rng, b) -> bool:
                   f"{'ok' if line_ok else 'BAD'}")
             ok = ok and line_ok
             continue
-        solve = make_solver(plan, solver=name, precond=args.precond,
-                            transport=args.transport,
-                            neighbor_offsets=layout["neighbor_offsets"],
-                            A=A, layout=layout)
-        xd, its, rel = solve(bd, tol=solver_tol, maxiter=5000)
-        xs = from_dist(xd, layout, plan)
-        tr = float(np.linalg.norm(A.matvec(xs) - b) / np.linalg.norm(b))
-        dxh = float(np.linalg.norm(xs - xh)) / xh_norm
-        line_ok = tr < tr_max and dxh < dx_max and int(its) < 5000
-        print(f"SOLVER {name} PRECOND {args.precond} ITERS {int(its)} "
-              f"REL {float(rel):.3e} TRUE_REL {tr:.3e} "
-              f"DX_HOST {dxh:.3e} {'ok' if line_ok else 'BAD'}")
-        ok = ok and line_ok
-        if args.nrhs > 1:
-            bsolve = make_solver(plan, solver=name, precond=args.precond,
-                                 transport=args.transport,
-                                 neighbor_offsets=layout["neighbor_offsets"],
-                                 nrhs=args.nrhs, A=A, layout=layout)
-            Xd, itb, _ = bsolve(Bd, tol=solver_tol, maxiter=5000)
-            Xs = from_dist_batch(Xd, layout, plan)
-            worst = max(float(np.linalg.norm(Xs[j] - Xh[j]))
-                        / max(float(np.linalg.norm(Xh[j])), 1e-30)
-                        for j in range(args.nrhs))
-            itb = np.asarray(itb.cpu())
-            b_ok = worst < dx_max and int(itb.max()) < 5000
-            print(f"SOLVER {name} NRHS {args.nrhs} ITERS {itb.tolist()} "
-                  f"WORST_DX_HOST {worst:.3e} {'ok' if b_ok else 'BAD'}")
-            ok = ok and b_ok
+        kw = dict(solver=name, precond=args.precond,
+                  transport=args.transport,
+                  neighbor_offsets=layout["neighbor_offsets"], A=A,
+                  layout=layout)
+        xd, its, rel = make_solver(plan, **kw)(bd, tol=SOLVER_TOL,
+                                               maxiter=5000)
+        ok = solver_line(name, args.precond, A, b,
+                         from_dist(xd, layout, plan), int(its), float(rel),
+                         xh) and ok
+        if B is not None:
+            Xd, itb, _ = make_solver(plan, nrhs=args.nrhs, **kw)(
+                to_dist_batch(B, layout, plan), tol=SOLVER_TOL,
+                maxiter=5000)
+            ok = batched_line(name, from_dist_batch(Xd, layout, plan), Xh,
+                              np.asarray(itb.cpu()).tolist()) and ok
     return ok
+
+
+# ---------------------------------------------------------------------- #
+# --mesh process
+# ---------------------------------------------------------------------- #
+def _row(a, mesh):
+    import torch
+
+    return torch.from_numpy(np.array(
+        a[mesh.node:mesh.node + 1, mesh.core:mesh.core + 1])).to(mesh.device)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _rank(mesh, plan_dir: str, job: dict) -> dict:
+    """One rank's share of every line: its shard of each result and its
+    iteration counts."""
+    from repro_torch.core import make_cg, make_shard_body, make_spmv
+    from repro_torch.launch.mesh import read_plan
+    from repro_torch.solvers import make_solver
+
+    a = job["args"]
+    plan = read_plan(plan_dir, mesh)
+    route = dict(transport=a["transport"],
+                 neighbor_offsets=job["layout"]["neighbor_offsets"])
+    spmv = (make_shard_body(plan, backend="plain", **route)
+            if a["backend"] == "plain" else make_spmv(plan, **route))
+    out = {"y": _np(spmv(_row(job["x"], mesh))), "solvers": {}}
+    if a["cg"] or a["fused"]:
+        xd, it, rel = make_cg(plan)(_row(job["b"], mesh), tol=CG_TOL,
+                                    maxiter=2000)
+        out["cg"] = (_np(xd), int(it), float(rel))
+    if a["fused"]:
+        xd, it, rel = make_cg(plan, fused=True, **route)(
+            _row(job["b"], mesh), tol=CG_TOL, maxiter=2000)
+        out["fused"] = (_np(xd), int(it), float(rel))
+    for name in job["solvers"]:
+        kw = dict(solver=name, precond=a["precond"], A=job["A"],
+                  layout=job["layout"], options=job["options"].get(name),
+                  **route)
+        xd, it, rel = make_solver(plan, **kw)(
+            _row(job["b_solver"], mesh), tol=SOLVER_TOL, maxiter=5000)
+        res = {"x": _np(xd), "iters": int(it), "rel": float(rel)}
+        if job["B"] is not None:
+            Xd, itb, _ = make_solver(plan, nrhs=a["nrhs"], **kw)(
+                _row(job["B"], mesh), tol=SOLVER_TOL, maxiter=5000)
+            res.update(X=_np(Xd), iters_b=_np(itb).tolist())
+        out["solvers"][name] = res
+    xd, it, _ = make_solver(plan, **route)(_row(job["b_mesh"], mesh),
+                                           tol=CG_TOL, maxiter=2000)
+    out["mesh_cg"] = int(it)
+    return out
+
+
+def _whole(rows, plan):
+    """The ranks' shards ``(1, 1, ...)``, in rank order, as one
+    ``(n_node, n_core, ...)`` tensor on the CPU."""
+    import torch
+
+    a = np.concatenate([r[0, 0][None] for r in rows])
+    return torch.from_numpy(a.reshape((plan.n_node, plan.n_core)
+                                      + a.shape[1:]))
+
+
+def _agree(vals) -> bool:
+    return all(v == vals[0] for v in vals)
+
+
+def process_main(args) -> int:
+    """The lines of :func:`main` on a process mesh (see the module
+    docstring)."""
+    import torch
+
+    from repro_torch.core import build_spmv_plan, from_dist, make_spmv, to_dist
+    from repro_torch.launch.mesh import spawn_cg_mesh, write_plan
+    from repro_torch.solvers import (from_dist_batch, make_solver,
+                                     to_dist_batch)
+
+    if args.check_every > 0 or args.transport == "auto":
+        print("dist_check: --check-every and --transport auto run on the "
+              "virtual mesh only", file=sys.stderr)
+        return 2
+    A = _matrix(args)
+    # the launcher's copy of the plan, on the host: each rank places its
+    # own shard on --device
+    plan, layout = build_spmv_plan(A, args.n_node, args.n_core,
+                                   mode=args.mode,
+                                   node_partition=args.node_partition,
+                                   format=args.format, device="cpu")
+    _format_line(layout)
+    print(f"TRANSPORT {args.transport}")
+
+    # the same draws, in the same order, as the virtual mesh's lines
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=A.n_rows)
+    b = rng.normal(size=A.n_rows) if (args.cg or args.fused) else None
+    names, b_solver, xh, B, Xh = (_solver_rhs(args, A, rng, b)
+                                  if args.solver else ((), None, None,
+                                                       None, None))
+    b_mesh = np.random.default_rng(3).normal(size=A.n_rows)
+    # Chebyshev's bounds, estimated once on the host as make_solver would
+    options = {name: make_solver(plan, solver=name, precond=args.precond,
+                                 A=A, layout=layout).options
+               for name in names if name == "chebyshev"}
+
+    def dist(v):
+        return None if v is None else _np(to_dist(v, layout, plan))
+
+    job = {"args": vars(args), "A": A, "layout": layout, "solvers": names,
+           "options": options, "x": dist(x), "b": dist(b),
+           "b_solver": dist(b_solver), "b_mesh": dist(b_mesh),
+           "B": None if B is None else _np(to_dist_batch(B, layout, plan))}
+    with tempfile.TemporaryDirectory(prefix="dist_check_") as d:
+        write_plan(plan, d)
+        ranks = spawn_cg_mesh(_rank, args.n_node, args.n_core, args.device,
+                              args=(d, job), timeout=600)
+
+    def whole(rows):
+        return from_dist(_whole(rows, plan), layout, plan)
+
+    y_rows = _whole([r["y"] for r in ranks], plan)
+    ok = spmv_line(from_dist(y_rows, layout, plan), A.matvec(x))
+    for key in ("cg", "fused"):
+        if key not in ranks[0]:
+            continue
+        its = [r[key][1] for r in ranks]
+        xk = whole([r[key][0] for r in ranks])
+        tail = f" RANKS {'ok' if _agree(its) else 'BAD'}"
+        if key == "cg":
+            xs, iters = xk, its[0]
+            ok = cg_line(A, b, xs, iters, ranks[0][key][2], tail) and ok
+        else:
+            ok = fused_line(A, b, xs, iters, xk, its[0], ranks[0][key][2],
+                            tail) and ok
+        ok = ok and _agree(its)
+    for name in names:
+        res = [r["solvers"][name] for r in ranks]
+        its = [r["iters"] for r in res]
+        ok = solver_line(name, args.precond, A, b_solver,
+                         whole([r["x"] for r in res]), its[0],
+                         res[0]["rel"], xh, agree=_agree(its)) and ok
+        if B is not None:
+            itb = [r["iters_b"] for r in res]
+            Xs = from_dist_batch(_whole([r["X"] for r in res], plan),
+                                 layout, plan)
+            ok = batched_line(name, Xs, Xh, itb[0], agree=_agree(itb)) and ok
+
+    # against the virtual mesh on the same device: SpMV bits, cg counts
+    vp, vl = build_spmv_plan(A, args.n_node, args.n_core, mode=args.mode,
+                             node_partition=args.node_partition,
+                             format=args.format, device=args.device)
+    route = dict(transport=args.transport,
+                 neighbor_offsets=vl["neighbor_offsets"])
+    yv = make_spmv(vp, **route)(to_dist(x, vl, vp))
+    y_bits = torch.equal(yv.cpu().view(torch.int32),
+                         y_rows.view(torch.int32))
+    _, itv, _ = make_solver(vp, **route)(to_dist(b_mesh, vl, vp),
+                                         tol=CG_TOL, maxiter=2000)
+    its = [r["mesh_cg"] for r in ranks]
+    m_ok = y_bits and _agree(its) and abs(its[0] - int(itv)) <= 1
+    print(f"MESH process RANKS {len(ranks)} SPMV_BITWISE "
+          f"{'ok' if y_bits else 'BAD'} CG_ITERS {its[0]} VIRTUAL "
+          f"{int(itv)} {'ok' if m_ok else 'BAD'}")
+    ok = ok and m_ok
+    print("OK" if ok else "FAIL")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -32,11 +32,28 @@ on any case with halo traffic the run must then FAIL (exit 1).
 
 Exit code 0 iff every check passed.  The virtual mesh holds the whole
 ``n_node x n_core`` grid on ``--device`` (default ``cuda``).
+
+``--mesh process`` holds every rank of a process mesh
+(``repro_torch.launch.mesh``: one spawned gloo rank per shard, each on
+``--device`` with its own shard of the plan) to the virtual mesh's
+``a2a`` at the same wire dtype, per (case, format, wire dtype,
+transport):
+
+  ghost   each rank's assembled ghost buffer is **bit-identical** to its
+          row of the virtual mesh's at every real slot;
+  spmv    each rank's ``y`` is its row of the virtual mesh's, bit for bit;
+  census  each rank's recorded collectives equal the transport's
+          ``predicted_cost`` plus the shard body's one ``all_gather``.
+
+One spawn covers every case (the halo-free case is a ``1 x (n_node *
+n_core)`` mesh over the same ranks).  ``--autotune`` runs on the virtual
+mesh only.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import tempfile
 
 CASES = ("graded", "uniform", "single", "dense", "halofree")
 
@@ -175,6 +192,11 @@ def main(argv=None) -> int:
                          "before the sweep; on any case with halo traffic "
                          "the harness is EXPECTED to fail it (exit 1)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="virtual",
+                    choices=["virtual", "process"],
+                    help="virtual: the grid on one device; process: one "
+                         "spawned gloo rank per shard, each held to its row "
+                         "of the virtual mesh")
     args = ap.parse_args(argv)
 
     from repro_torch.core.transport import (FaultyTransport,
@@ -187,6 +209,16 @@ def main(argv=None) -> int:
     transports = (tuple(args.transports.split(","))
                   if args.transports else None)
     cases = CASES if args.case == "all" else (args.case,)
+    if args.mesh == "process":
+        if args.autotune:
+            print("transport_check: --autotune runs on the virtual mesh "
+                  "only", file=sys.stderr)
+            return 2
+        ok = check_process(cases, args.formats.split(","), args.n_node,
+                           args.n_core, args.device, transports,
+                           wire_dtypes, args.include_faulty)
+        print("OK" if ok else "FAIL")
+        return 0 if ok else 1
     if args.include_faulty:
         register_transport(FaultyTransport())
     try:
@@ -202,6 +234,160 @@ def main(argv=None) -> int:
             unregister_transport("faulty")
     print("OK" if ok else "FAIL")
     return 0 if ok else 1
+
+
+# ---------------------------------------------------------------------- #
+# --mesh process
+# ---------------------------------------------------------------------- #
+def rank_sweep(mesh, jobs: list, include_faulty: bool = False) -> list:
+    """Each job's ghosts, ``y`` and census on this rank's shard, for every
+    (wire dtype, transport)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_exchange, make_spmv
+    from repro_torch.core.collectives import census, record_collectives
+    from repro_torch.core.transport import (FaultyTransport,
+                                            register_transport)
+    from repro_torch.launch.mesh import make_cg_mesh, read_plan
+
+    if include_faulty:
+        register_transport(FaultyTransport())
+    meshes = {(mesh.n_node, mesh.n_core): mesh}
+    out = []
+    for job in jobs:
+        shape = job["shape"]
+        if shape not in meshes:     # the halo-free 1 x world mesh
+            meshes[shape] = make_cg_mesh(*shape, device=mesh.device,
+                                         backend="gloo", rank=mesh.rank,
+                                         world_size=mesh.world_size)
+        m = meshes[shape]
+        plan = read_plan(job["dir"], m)
+        x = torch.from_numpy(np.array(
+            job["x"][m.node:m.node + 1, m.core:m.core + 1])).to(m.device)
+        res = {}
+        for wd, name in job["sweep"]:
+            with record_collectives() as log:
+                y = make_spmv(plan, transport=name, wire_dtype=wd)(x)
+            ghost = (make_exchange(plan, name, wire_dtype=wd)(x)
+                     if plan.hs else None)
+            res[(wd, name)] = (None if ghost is None else
+                               ghost.cpu().numpy(), y.cpu().numpy(),
+                               census(log))
+        out.append(res)
+    return out
+
+
+def prepare_process(cases, formats, n_node: int, n_core: int, device,
+                    directory, transports=None, wire_dtypes=("f32",)):
+    """Write each (case, format)'s plan under ``directory`` and compute
+    the virtual mesh's yardsticks on ``device``: ``(virtual, jobs)``, the
+    jobs for :func:`rank_sweep` and what :func:`report_process` holds its
+    results to."""
+    import numpy as np
+
+    from repro_torch.core import (available_transports, make_exchange,
+                                  make_spmv, resolve_transport, to_dist)
+    from repro_torch.launch.mesh import write_plan
+
+    names = transports or available_transports()
+    virtual, jobs = [], []
+    for case in cases:
+        for fmt in formats:
+            A, plan, layout = build_case(case, n_node, n_core, fmt, "cpu")
+            xd = to_dist(np.random.default_rng(7).normal(size=A.n_rows),
+                         layout, plan)
+            path = f"{directory}/{case}_{fmt}"
+            write_plan(plan, path)
+            sweep = [(wd, name) for wd in wire_dtypes for name in names]
+            jobs.append({"dir": path, "x": xd.numpy(),
+                         "shape": (plan.n_node, plan.n_core), "sweep": sweep})
+            # the yardstick at each wire dtype: the virtual mesh's a2a,
+            # which every honest transport equals
+            vplan = plan_on(plan, device)
+            xv = xd.to(vplan.device)
+            ref = {wd: (make_exchange(vplan, "a2a", wire_dtype=wd)(
+                xv).cpu().numpy() if plan.hs else None,
+                make_spmv(vplan, transport="a2a", wire_dtype=wd)(
+                    xv).cpu().numpy()) for wd in wire_dtypes}
+            want = {}
+            for wd, name in sweep:
+                tr, st = resolve_transport(name, vplan, wire_dtype=wd)
+                want[(wd, name)] = ref[wd] + (tr.predicted_cost(vplan, st),)
+            virtual.append((case, fmt, plan, want))
+    return virtual, jobs
+
+
+def report_process(virtual, ranks) -> bool:
+    """Hold every rank's results (``ranks[r][j]``: rank ``r``'s
+    :func:`rank_sweep` result of job ``j``) to the virtual mesh's; print
+    one line per (case, format) and per (wire dtype, transport)."""
+    import numpy as np
+
+    ok = True
+    for j, (case, fmt, plan, want) in enumerate(virtual):
+        g = plan.g_pad
+        print(f"CASE {case} FORMAT {fmt} n_node={plan.n_node} "
+              f"n_core={plan.n_core} hs={plan.hs} g_pad={g} "
+              f"MESH process RANKS {len(ranks)}")
+        for key, (gv, yv, pred) in want.items():
+            g_ok = s_ok = c_ok = True
+            for r, res in enumerate(ranks):
+                node, core = divmod(r, plan.n_core)
+                ghost, y, cen = res[j][key]
+                if gv is not None:
+                    g_ok &= bool(np.array_equal(
+                        ghost[0, 0, :g].view(np.int32),
+                        gv[node, core, :g].view(np.int32)))
+                s_ok &= bool(np.array_equal(y[0, 0].view(np.int32),
+                                            yv[node, core].view(np.int32)))
+                c_ok &= all(cen[k] == pred[k] + (k == "all-gather")
+                            for k in ("all-to-all", "collective-permute",
+                                      "all-gather")) \
+                    and cen["all-reduce"] == 0
+            line = [f"TRANSPORT {key[1]} WIRE {key[0]}"]
+            if gv is not None:
+                line.append(f"ghost={'ok' if g_ok else 'BAD'}")
+            line += [f"spmv={'ok' if s_ok else 'BAD'}",
+                     f"census={'ok' if c_ok else 'BAD'}"]
+            print(" ".join(line))
+            ok &= g_ok and s_ok and c_ok
+    return ok
+
+
+def check_process(cases, formats, n_node: int, n_core: int, device,
+                  transports=None, wire_dtypes=("f32",),
+                  include_faulty: bool = False) -> bool:
+    """Every (case, format, wire dtype, transport) on a process mesh of
+    ``n_node * n_core`` spawned ranks against the virtual mesh on
+    ``device``; print one line per (wire dtype, transport); return whether
+    all passed."""
+    from repro_torch.core.transport import (FaultyTransport,
+                                            register_transport,
+                                            unregister_transport)
+    from repro_torch.launch.mesh import spawn_cg_mesh
+
+    if include_faulty:
+        register_transport(FaultyTransport())
+    try:
+        with tempfile.TemporaryDirectory(prefix="transport_check_") as d:
+            virtual, jobs = prepare_process(cases, formats, n_node, n_core,
+                                            device, d, transports,
+                                            wire_dtypes)
+            ranks = spawn_cg_mesh(rank_sweep, n_node, n_core, device,
+                                  args=(jobs, include_faulty), timeout=600)
+    finally:
+        if include_faulty:
+            unregister_transport("faulty")
+    return report_process(virtual, ranks)
+
+
+def plan_on(plan, device):
+    """The whole plan on ``device`` (the virtual mesh's copy)."""
+    from repro_torch.core.spmv import plan_arrays, plan_from_arrays, plan_meta
+
+    return plan_from_arrays(plan_arrays(plan), plan_meta(plan),
+                            device=device)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,10 @@ bitwise equal (each row is summed in entry order, and the padding the
 lengths skip adds exactly 0).  Rectangular plans against the host f64
 matvec within 1e-5 relative, every transport bit for bit a2a; each
 preconditioner's apply on the card within 2e-5 relative of the CPU's, and
-cg counts with block_jacobi / two_level within ±1 of the CPU's.
+cg counts with block_jacobi / two_level within ±1 of the CPU's.  A plan
+whose column indices exceed its ``x`` is refused before any launch; a
+process mesh of 8 ranks on the card gives the virtual mesh's ghosts and
+``y`` bit for bit.
 """
 import dataclasses
 import json
@@ -786,3 +789,33 @@ def test_live_census_equals_the_trace(case, golden):
         rep = check_solver_hlo(plan, name, "jacobi", A=A, layout=layout,
                                options=opts)
         assert rep.checks == 1 and rep.violations == [], name
+
+
+@pytest.mark.parametrize("case,field", [("ell/4x2", "diag_cols"),
+                                        ("ell/4x2", "offd_cols"),
+                                        ("sell/4x2", "sell_dcols"),
+                                        ("sell/4x2", "sell_ocols")])
+def test_a_plan_wider_than_its_x_is_refused_before_any_launch(case, field,
+                                                              golden):
+    """A column index past ``x_local``'s ``nl_pad`` (or ``x_ghost``'s
+    ``g_pad + 1``) would be read out of bounds by the kernel: the shard
+    body refuses the plan when it binds it, and nothing launches."""
+    A, _, _ = golden
+    plan, _ = _plan(case, A)
+    width = (plan.nl_pad if field in ("diag_cols", "sell_dcols")
+             else plan.g_pad + 1)
+    plan.fmt_data[field].view(-1)[-1] = width
+    reset_launches()
+    with pytest.raises(ValueError, match=f"{field}.*holds {width} entries"):
+        make_spmv(plan)
+    torch.cuda.synchronize()
+    assert not any(LAUNCHES.values())
+
+
+def test_process_mesh_on_the_card_is_the_virtual_mesh(golden):
+    """8 gloo ranks on this card, host-staged: every transport's ghosts,
+    ``y`` and census on the golden 4x2 plans equal the virtual mesh's."""
+    from repro_torch.testing import transport_check
+
+    assert transport_check.main(["--mesh", "process", "--device", "cuda",
+                                 "--case", "graded"]) == 0

@@ -40,7 +40,8 @@ def _imports(tree):
 
 def test_scan_covers_every_module_of_the_port():
     """The scans below walk the whole package: the verifier, the
-    collectives, the preconditioners and the test CLIs among them."""
+    collectives, the preconditioners, the test CLIs and the process mesh
+    among them."""
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"analysis/__init__.py", "analysis/report.py",
             "analysis/plan_check.py", "analysis/kernel_check.py",
@@ -48,7 +49,8 @@ def test_scan_covers_every_module_of_the_port():
             "solvers/precond.py", "testing/rect_check.py",
             "testing/precond_check.py", "testing/analyze.py",
             "testing/dist_check.py", "testing/square_golden.py",
-            "testing/bench_spmv.py"} <= names
+            "testing/bench_spmv.py", "launch/mesh.py",
+            "testing/transport_check.py"} <= names
 
 
 def _root(name: str) -> str:
