@@ -219,9 +219,23 @@ check raises, so the exit code is not 0.
             bit, each rank's census equal to ``predicted_cost`` + 1
             ``all_gather``).  Then ms per ``psum`` and per core-axis
             ``all_gather`` of an ``x`` shard, on host tensors against the
-            card's (gloo alone, and the staging the card adds).  Eight
-            processes share one card and their wire is host memory: no
-            inter-node wire is measured;
+            card's (gloo alone, and the staging the card adds).  Then
+            the layers above the solvers on the same ranks:
+            ``transport="auto"`` on both 4x2 plans (one winner on every
+            rank, each candidate's µs); two_level (agg 256, jacobi
+            smoother) cg to 1e-6 on the sell plan (iterations equal on
+            every rank and within ±1 of phase 6h's, B1 launched at R's
+            and P's shapes on every rank, per-rank host build seconds);
+            the resilient driver there in chunks of 50 (every rank's
+            rows of the whole ``x`` bit for bit its monolithic shard,
+            ``nan@60`` rolled back once with one trajectory on every
+            rank); the service (nrhs 4, the first 5 of phase 6i's
+            requests, one spliced in mid-solve: iterations equal on
+            every rank and within ±1 of phase 6i's, ``recompiles == 0``
+            and the batched B2 launched on every rank, true residuals
+            under 1e-4, 2e-4 at tol 1e-4; makespan reported, not gated);
+            and ``resilience_check --mesh process --device cuda``.  Eight processes share one card and
+            their wire is host memory: no inter-node wire is measured;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
@@ -1366,7 +1380,7 @@ def phase_precond(A, plans, b) -> dict:
     reference's counts, cg with jacobi / block_jacobi / two_level on the
     32,000-row 4x2 plans, and jacobi then two_level (agg 256, jacobi
     smoother) on the full sell 4x2 plan.  Launch counts are zeroed before
-    and read after; returns them."""
+    and read after.  Returns the full plan's two_level row."""
     import numpy as np
     import torch
 
@@ -1440,7 +1454,7 @@ def phase_precond(A, plans, b) -> dict:
     # the solves run A's own kernel (sell_spmv runs on no plan here)
     for name in ("fused_ell_spmv", "ell_spmv", "fused_sell_spmv"):
         check(launches[name] > 0, f"{name} never launched in precond")
-    return launches
+    return row
 
 
 #: the batched kernels (B1-B4 under vmap): name -> (plan key, the TPU
@@ -1765,8 +1779,8 @@ def phase_serve(A, plans, bw, f32_peak) -> tuple[dict, dict]:
     then the serving path — batched CG on every full-size plan, the
     service, its splice, ``serve_check --device cuda`` — with launch
     counts zeroed just before it and read just after.  Returns the
-    batched kernels' launches on that path and their k = SERVE_NRHS
-    rows."""
+    batched kernels' launches on that path, their k = SERVE_NRHS rows and
+    the service's row."""
     import numpy as np
 
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1779,7 +1793,7 @@ def phase_serve(A, plans, bw, f32_peak) -> tuple[dict, dict]:
     B = rng.standard_normal((N, A.n_rows))
     reset_launches()
     batched_cg(A, plans, B[:SERVE_NRHS])
-    serve_engine(A, B, N)
+    service = serve_engine(A, B, N)
     rc, lines = run_cli(serve_check.main, ["--device", "cuda"])
     launches = dict(LAUNCHES)
     emit("serve_check", rc=rc, lines=lines)
@@ -1788,7 +1802,7 @@ def phase_serve(A, plans, bw, f32_peak) -> tuple[dict, dict]:
     for name in BATCHED:
         check(launches[name] > 0, f"{name} never launched on the serving "
               "path")
-    return launches, rows
+    return launches, rows, service
 
 
 def phase_analyze(plans) -> None:
@@ -1939,6 +1953,12 @@ def phase_cli(full_rows) -> None:
 #: phase procmesh's plans, run on 8 ranks of one card
 PROCMESH_PLANS = ("ell/4x2", "sell/4x2")
 PROCMESH_HALOFREE = ("ell/1x8", "sell/1x8")
+#: phase procmesh's service: the first requests of phase serve's queue
+#: (five, so that one is spliced in mid-solve; eight made the script run
+#: past its time)
+PROCMESH_REQUESTS = 5
+#: phase procmesh's two_level: phase precond's full-plan options
+PROCMESH_TWO_LEVEL = {"agg_size": 256, "smoother": "jacobi"}
 
 
 def procmesh_rank(mesh, job: dict) -> dict:
@@ -2017,6 +2037,109 @@ def procmesh_rank(mesh, job: dict) -> dict:
         del plan, spmv
     out["golden"] = rank_sweep(mesh, job["golden"])
     out["wire_probe"] = wire_probe(mesh, sync)
+    out["layers"] = procmesh_layers(mesh, job, sync, out["sell/4x2"])
+    return out
+
+
+def procmesh_layers(mesh, job, sync, mono: dict) -> dict:
+    """The layers above the solvers on one rank of phase ``procmesh``:
+    the autotuner on both 4x2 plans, then on the sell plan two_level and
+    the resilient driver (chunks of 50: clean, against ``mono``, this
+    rank's monolithic solve, and with ``nan@60``), then the service.
+    Launch counts and the wire are zeroed just before each run and read
+    just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.collectives import WIRE, reset_wire
+    from repro_torch.core.transport import autotune_transport
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import read_plan
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.serve import EngineConfig, PlanCache, SolveService
+    from repro_torch.solvers import make_solver, resilient_solve
+
+    def start():
+        sync()
+        reset_launches()
+        reset_wire()
+        return time.perf_counter()
+
+    def done(t0) -> dict:
+        sync()
+        return {"ms": (time.perf_counter() - t0) * 1e3,
+                "launches": dict(LAUNCHES), "wire": dict(WIRE)}
+
+    out = {"auto": {}}
+    A, layout, b = job["A"], job["layout"], job["b_global"]
+    for key in PROCMESH_PLANS:
+        plan = read_plan(job["dirs"][key], mesh)
+        t0 = time.perf_counter()
+        res = autotune_transport(plan, iters=5, reps=3)
+        out["auto"][key] = {"winner": res.winner, "us": res.timings_us,
+                            "min_us": res.timings_min_us,
+                            "seconds": time.perf_counter() - t0}
+        del plan
+
+    plan = read_plan(job["dirs"]["sell/4x2"], mesh)
+    bd = torch.from_numpy(np.array(job["b"]["sell/4x2"][
+        mesh.node:mesh.node + 1, mesh.core:mesh.core + 1])).to(mesh.device)
+    t0 = time.perf_counter()
+    solve = make_solver(plan, solver="cg", precond="two_level", A=A,
+                        layout=layout, precond_options=PROCMESH_TWO_LEVEL,
+                        check_every=CHECK_EVERY)
+    build_s = time.perf_counter() - t0
+    t0 = start()
+    xs, iters, rel = solve(bd, tol=1e-6, maxiter=10_000)
+    out["two_level"] = {"iters": int(iters), "rel": float(rel),
+                        "x": xs.cpu().numpy(), "build_s": build_s,
+                        "host_s": solve.papply.host_seconds, **done(t0)}
+    del solve
+
+    # chunked = monolithic: every rank holds the whole x, and its rows
+    # must be its monolithic shard's bits (the verdicts read the chunks'
+    # device probe; resilience_check below reads the host residual)
+    kw = dict(layout=layout, tol=1e-6, maxiter=10_000, check_every=50)
+    t0 = start()
+    clean = resilient_solve(plan, b, **kw)
+    row = done(t0)
+    g = layout["global_row_of"][mesh.node, mesh.core]
+    row.update(
+        iters=int(clean.iters), chunks=clean.chunks, rel=float(clean.rel),
+        true_rel=clean.true_rel, rollbacks=clean.rollbacks,
+        x_bitwise_monolithic=bool(int(clean.iters) == mono["iters"]
+                                  and np.array_equal(
+                                      clean.x[g[g >= 0]].view(np.int32),
+                                      mono["x"][0, 0][g >= 0].view(
+                                          np.int32))))
+    nan = resilient_solve(plan, b, injector=FaultInjector.parse(
+        "nan@60", shard=(2, 1)), **kw)
+    row.update(nan_rollbacks=nan.rollbacks, nan_iters=int(nan.iters),
+               nan_converged=nan.converged, nan_rel=float(nan.rel),
+               nan_trajectory=nan.trajectory)
+    out["resilient"] = row
+    del plan
+
+    cfg = EngineConfig(nrhs=SERVE_NRHS, n_node=4, n_core=2, format="sell",
+                       transport="a2a", wire_dtype="f32", solver="cg",
+                       precond="jacobi", check_every=SERVE_CHECK_EVERY)
+    t0 = time.perf_counter()
+    svc = SolveService(A, cfg, cache=PlanCache(), mesh=mesh)
+    build_s = time.perf_counter() - t0
+    if mesh.rank == 0:          # phase serve's first requests, its tols
+        B = np.random.default_rng(SEED + 7).standard_normal(
+            (4 * SERVE_NRHS, A.n_rows))
+        for i in range(PROCMESH_REQUESTS):
+            svc.submit(B[i], tol=SERVE_TOLS[i % 3])
+    t0 = start()
+    res = svc.drain()
+    row = done(t0)
+    st = svc.stats()
+    row.update(build_s=build_s, iters=[r.iterations for r in res],
+               true_rel=[r.residual for r in res],
+               **{k: st[k] for k in ("splices", "chunks", "retired",
+                                     "recompiles")})
+    out["serve"] = row
     return out
 
 
@@ -2050,11 +2173,15 @@ def wire_probe(mesh, sync, calls: int = 50) -> dict:
     return out
 
 
-def phase_procmesh(A, plans, x, b, full_rows, smi) -> dict:
+def phase_procmesh(A, plans, x, b, full_rows, smi, two_level: dict,
+                   service: dict) -> dict:
     """The full 4x2 plans on a process mesh of 8 ranks of this card (see
-    the module docstring, 6l); returns each plan's row."""
+    the module docstring, 6l), held to the virtual mesh's rows of phase
+    ``full``, ``precond`` (``two_level``) and ``serve`` (``service``);
+    returns each plan's row."""
     import contextlib
     import io
+    import os
     import tempfile
 
     import numpy as np
@@ -2068,7 +2195,10 @@ def phase_procmesh(A, plans, x, b, full_rows, smi) -> dict:
 
     t_phase = time.perf_counter()
     keys = (*PROCMESH_PLANS, *PROCMESH_HALOFREE)
-    job = {"dirs": {}, "x": {}, "b": {}}
+    # the host matrix, the sell plan's whole layout and b: two_level,
+    # the resilient driver and the service build from them on each rank
+    job = {"dirs": {}, "x": {}, "b": {}, "A": A, "b_global": b,
+           "layout": plans["sell/4x2"][1]}
     want = {}
     with tempfile.TemporaryDirectory(prefix="procmesh_") as d:
         t0 = time.perf_counter()
@@ -2164,9 +2294,132 @@ def phase_procmesh(A, plans, x, b, full_rows, smi) -> dict:
     emit("procmesh_wire", nvidia_smi=smi, **{
         k: max(r["wire_probe"][k] for r in ranks)
         for k in ranks[0]["wire_probe"]})
+    procmesh_layers_report(A, plans, b, smi, [r["layers"] for r in ranks],
+                           two_level, service)
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.testing.resilience_check",
+         "--mesh", "process", "--device", "cuda"], capture_output=True,
+        text=True, env=env, cwd=ROOT, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    emit("procmesh_resilience_check", rc=res.returncode,
+         seconds=time.perf_counter() - t0, lines=lines,
+         stderr_tail=res.stderr[-2000:])
+    check(res.returncode == 0 and lines and lines[-1] == "OK",
+          "resilience_check --mesh process --device cuda did not print OK")
     emit("procmesh_seconds", write_s=write_s, spawn_s=spawn_s,
          seconds=time.perf_counter() - t_phase)
     return rows
+
+
+def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
+                           service: dict) -> None:
+    """Phase ``procmesh``'s layers (``procmesh_layers`` on every rank)
+    against each other and against the virtual mesh's rows: one line and
+    its gates per layer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import from_dist
+
+    for key in PROCMESH_PLANS:
+        got = [r["auto"][key] for r in ranks]
+        winners = [g["winner"] for g in got]
+        emit("procmesh_auto", nvidia_smi=smi, plan=key, winners=winners,
+             us=got[0]["us"], min_us=got[0]["min_us"],
+             seconds=max(g["seconds"] for g in got))
+        check(all(w == winners[0] for w in winners),
+              f"procmesh auto {key}: ranks picked {winners}")
+
+    plan, layout = plans["sell/4x2"]
+    tl = [r["two_level"] for r in ranks]
+    its = [t["iters"] for t in tl]
+    iters_run = -(-its[0] // CHECK_EVERY) * CHECK_EVERY
+    xg = from_dist(torch.from_numpy(np.concatenate(
+        [t["x"] for t in tl]).reshape(plan.cg_shape)), layout,
+        plan).astype(np.float64)
+    b64 = b.astype(np.float64)
+    true_rel = float(np.linalg.norm(A.matvec(xg) - b64)
+                     / np.linalg.norm(b64))
+    b1 = [t["launches"]["fused_ell_spmv"] for t in tl]
+    ms = max(t["ms"] for t in tl)
+    emit("procmesh_two_level", nvidia_smi=smi, plan="sell/4x2",
+         options=PROCMESH_TWO_LEVEL, iters=its[0],
+         virtual_iters=two_level["iters"], rel=tl[0]["rel"],
+         true_rel=true_rel, ms=ms, ms_per_iter=ms / iters_run,
+         virtual_ms_per_iter=two_level["ms_per_iter"],
+         wire_share=max(t["wire"]["seconds"] for t in tl) * 1e3 / ms,
+         wire_ms_per_iter_by_kind_rank0={
+             k: v * 1e3 / iters_run
+             for k, v in tl[0]["wire"]["by_kind"].items()},
+         build_s_per_rank=[t["build_s"] for t in tl],
+         host_s_rank0=tl[0]["host_s"], fused_ell_spmv_per_rank=b1,
+         fused_sell_spmv_per_rank=[t["launches"]["fused_sell_spmv"]
+                                   for t in tl])
+    check(all(i == its[0] for i in its),
+          f"procmesh two_level: iterations differ across ranks {its}")
+    check(abs(its[0] - two_level["iters"]) <= 1,
+          f"procmesh two_level: {its[0]} iterations, phase precond "
+          f"{two_level['iters']}")
+    check(tl[0]["rel"] <= 1e-6 and true_rel < 1e-4,
+          f"procmesh two_level: rel {tl[0]['rel']}, true rel {true_rel}")
+    check(all(n > 0 for n in b1), "procmesh two_level: fused_ell_spmv "
+          f"(R and P) did not launch on every rank ({b1})")
+
+    rs = [r["resilient"] for r in ranks]
+    ms = max(r["ms"] for r in rs)
+    emit("procmesh_resilient", nvidia_smi=smi, plan="sell/4x2",
+         check_every=50, iters=rs[0]["iters"], chunks=rs[0]["chunks"],
+         rel=rs[0]["rel"], true_rel=rs[0]["true_rel"], ms=ms,
+         ms_per_iter=ms / max(rs[0]["iters"], 1),
+         x_bitwise_monolithic=[r["x_bitwise_monolithic"] for r in rs],
+         wire_ms_by_kind_rank0={k: v * 1e3 for k, v in
+                                rs[0]["wire"]["by_kind"].items()},
+         nan_rollbacks=[r["nan_rollbacks"] for r in rs],
+         nan_iters=rs[0]["nan_iters"], nan_rel=rs[0]["nan_rel"],
+         nan_converged=rs[0]["nan_converged"],
+         fused_sell_spmv_per_rank=[r["launches"]["fused_sell_spmv"]
+                                   for r in rs])
+    check(all(r["x_bitwise_monolithic"] for r in rs),
+          "procmesh resilient: a rank's chunked x differs from its "
+          "monolithic solve's")
+    check(all(r["nan_rollbacks"] == 1 and r["nan_converged"]
+              and r["nan_trajectory"] == rs[0]["nan_trajectory"]
+              for r in rs), "procmesh resilient: nan@60 not rolled back "
+          "once with one trajectory on every rank")
+    check(all(r["launches"]["fused_sell_spmv"] > 0 for r in rs),
+          "procmesh resilient: fused_sell_spmv did not launch on every rank")
+
+    sv = [r["serve"] for r in ranks]
+    its = [s["iters"] for s in sv]
+    want = service["iters"][:PROCMESH_REQUESTS]
+    b2 = [s["launches"]["fused_sell_spmv_batched"] for s in sv]
+    ms = max(s["ms"] for s in sv)
+    emit("procmesh_serve", nvidia_smi=smi, plan="sell/4x2",
+         requests=PROCMESH_REQUESTS, nrhs=SERVE_NRHS, tols=SERVE_TOLS,
+         iters=its[0], virtual_iters=want, true_rel=sv[0]["true_rel"],
+         makespan_s=ms / 1e3, chunks=sv[0]["chunks"],
+         splices=sv[0]["splices"], build_s=max(s["build_s"] for s in sv),
+         recompiles=[s["recompiles"] for s in sv],
+         wire_ms_by_kind_rank0={k: v * 1e3 for k, v in
+                                sv[0]["wire"]["by_kind"].items()},
+         fused_sell_spmv_batched_per_rank=b2)
+    check(all(i == its[0] for i in its) and len(its[0]) == len(want),
+          f"procmesh serve: iterations differ across ranks {its}")
+    check(all(abs(a - w) <= 1 for a, w in zip(its[0], want)),
+          f"procmesh serve: iterations {its[0]}, phase serve {want}")
+    check(all(s["recompiles"] == 0 for s in sv),
+          "procmesh serve: a rank recompiled while serving")
+    check(all(n > 0 for n in b2), "procmesh serve: fused_sell_spmv_batched "
+          f"did not launch on every rank ({b2})")
+    # a request at tol 1e-4 stops just under it: its true residual is
+    # held to twice its tol (phase serve's 2e-4), the others to 1e-4
+    tols = [SERVE_TOLS[i % 3] for i in range(PROCMESH_REQUESTS)]
+    check(all(r < max(1e-4, 2 * t) for r, t in zip(sv[0]["true_rel"],
+                                                    tols)),
+          f"procmesh serve: true rel {sv[0]['true_rel']}")
 
 
 def library_ms(A, x) -> float:
@@ -2221,11 +2474,12 @@ def main() -> int:
     phase_resilience(plans, b, cheb_opts)
     phase_example()
     rect_launches, rect = phase_rect(A, plans, bw, f32_peak)
-    phase_precond(A, plans, b)
-    serve_launches, serve_rows = phase_serve(A, plans, bw, f32_peak)
+    two_level = phase_precond(A, plans, b)
+    serve_launches, serve_rows, service = phase_serve(A, plans, bw,
+                                                      f32_peak)
     phase_analyze(plans)
     phase_cli(rows)
-    phase_procmesh(A, plans, x, b, rows, smi)
+    phase_procmesh(A, plans, x, b, rows, smi, two_level, service)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
     # the batched kernels at the service's k, with their serving launches

@@ -57,7 +57,7 @@ import torch
 __all__ = ["COLLECTIVE_OPS", "SOLVER_REDUCTION_OPS", "TRANSPORT_OPS",
            "census_split", "Collective", "record_collectives", "census",
            "all_to_all", "ppermute", "all_gather", "psum", "WIRE",
-           "reset_wire"]
+           "reset_wire", "CONTROL", "host_control"]
 
 COLLECTIVE_OPS = ("all-reduce", "reduce-scatter", "all-gather",
                   "all-to-all", "collective-permute",
@@ -153,12 +153,38 @@ def _check_axis(axis: str) -> None:
 #: the process mesh's collectives since the last :func:`reset_wire`: calls,
 #: seconds spent in them (staging to the host and back included, after the
 #: card has finished the work before them) and payload bytes sent by this
-#: rank; ``by_kind`` splits the seconds by :data:`COLLECTIVE_OPS` kind
+#: rank; ``by_kind`` splits the seconds by :data:`COLLECTIVE_OPS` kind,
+#: and files the mesh's host control under :data:`CONTROL`
 WIRE = {"calls": 0, "seconds": 0.0, "bytes": 0, "by_kind": {}}
 
 
 def reset_wire() -> None:
     WIRE.update(calls=0, seconds=0.0, bytes=0, by_kind={})
+
+
+def _account(kind: str, seconds: float, nbytes: int = 0) -> None:
+    WIRE["calls"] += 1
+    WIRE["seconds"] += seconds
+    WIRE["bytes"] += nbytes
+    WIRE["by_kind"][kind] = WIRE["by_kind"].get(kind, 0.0) + seconds
+
+
+#: the :data:`WIRE` kind of a process mesh's host control (an agreed
+#: decision, a vector gathered whole, a barrier: ``CGMesh.agree`` and its
+#: kin).  Not a collective of the shard bodies: never recorded, so no
+#: census or ``predicted_cost`` sees it
+CONTROL = "control"
+
+
+@contextlib.contextmanager
+def host_control(nbytes: int = 0):
+    """Time one host-control exchange of a process mesh into :data:`WIRE`
+    under :data:`CONTROL` (``nbytes``: the payload this rank sent)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _account(CONTROL, time.perf_counter() - t0, nbytes)
 
 
 def _on_ranks(mesh) -> bool:
@@ -181,10 +207,7 @@ class _Staged:
         return self
 
     def __exit__(self, *exc):
-        dt = time.perf_counter() - self.t0
-        WIRE["calls"] += 1
-        WIRE["seconds"] += dt
-        WIRE["by_kind"][self.kind] = WIRE["by_kind"].get(self.kind, 0.0) + dt
+        _account(self.kind, time.perf_counter() - self.t0)
         return False
 
     def out(self, t: torch.Tensor) -> torch.Tensor:

@@ -884,14 +884,17 @@ def autotune_transport(plan, candidates: tuple[str, ...] | None = None,
     plan autotuned once keeps its winner for every later build.  Halo-free
     plans skip timing — every transport builds the same exchange-free
     body — and stamp ``a2a``.
+
+    On a rank-local plan every rank calls this alike: each repetition
+    starts at a barrier, every rank times it, and a repetition's time is
+    the **slowest rank's** (the MAX over the world, gathered as host
+    control), which is what a solve on the mesh waits for.  Every rank
+    then holds the same table, so every rank stamps the same winner; ties
+    go to the earlier candidate.
     """
     from repro_torch.core.spmv import make_spmv
 
-    if _process_mesh(plan) is not None:
-        raise ValueError(
-            "transport='auto' is not offered on a process mesh: the ranks "
-            "would have to agree on one winner (time on rank 0, broadcast), "
-            "which is queued (ROADMAP A7b follow-ups); name a transport")
+    mesh = _process_mesh(plan)
     names = tuple(candidates) if candidates else available_transports()
     if plan.hs == 0:
         plan.transport = "a2a"
@@ -919,16 +922,24 @@ def autotune_transport(plan, candidates: tuple[str, ...] | None = None,
         rep_times = []
         for _ in range(max(reps, 1)):
             sync()
+            if mesh is not None:
+                mesh.barrier()
             t0 = time.perf_counter()
             for _ in range(iters):
                 spmv(x)
             sync()
             rep_times.append((time.perf_counter() - t0) / iters * 1e6)
         reps_us[name] = rep_times
-        timings[name] = float(np.median(rep_times))
-        timings_min[name] = float(np.min(rep_times))
         fns[name] = spmv
-    winner = min(timings_min, key=lambda n: timings_min[n])
+    if mesh is not None:            # every rank: the slowest rank's reps
+        every = mesh.allgather(reps_us)
+        reps_us = {n: [max(r[n][i] for r in every)
+                       for i in range(len(reps_us[n]))] for n in names}
+    for name in names:
+        timings[name] = float(np.median(reps_us[name]))
+        timings_min[name] = float(np.min(reps_us[name]))
+    # min() keeps the first of equal keys: ties go to the earlier name
+    winner = min(names, key=lambda n: timings_min[n])
     plan.transport = winner
     return AutotuneResult(winner, timings, fns[winner], reps_us,
                           timings_min)

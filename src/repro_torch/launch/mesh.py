@@ -19,11 +19,23 @@ Two backends run it:
   moves host tensors, so a rank on a card stages every collective through
   host memory: that staging is the wire of a process mesh on one card.
 
+Above the collectives, a process mesh carries **host control**: one
+decision taken on rank 0 and held by every rank (:meth:`CGMesh.agree`),
+every rank's object (:meth:`CGMesh.allgather`), a rank's rows of a host
+vector gathered into the whole vector (:meth:`CGMesh.gather_rows`) and a
+barrier.  The upper layers (the resilient driver's verdicts and
+checkpoints, the solve service's admission, the autotuner's timings) use
+them so that ranks never decide apart.  They are not collectives of the
+shard bodies: no census records them, and ``WIRE`` times them under
+``CONTROL``.  On the virtual mesh each is the identity.
+
 ``spawn_cg_mesh(fn, n_node, n_core, device)`` starts the ``n_node ·
 n_core`` ranks on this host, runs ``fn(mesh, *args)`` on each and returns
-every rank's result.  ``write_plan`` / ``read_plan`` hand a plan built
-once by the launcher to the ranks: each rank maps the arrays and reads
-only its own shard (``plan_from_arrays(..., mesh=)``).
+every rank's result; ranks that die without one (a preemption's SIGKILL)
+end it with :class:`RanksKilled`, naming every rank's exit code.
+``write_plan`` / ``read_plan`` hand a plan built once by the launcher to
+the ranks: each rank maps the arrays and reads only its own shard
+(``plan_from_arrays(..., mesh=)``).
 
 NCCL (one card per rank) is not offered: the machine this was built on
 has one card, and an untested path is not shipped.
@@ -36,6 +48,7 @@ import json
 import os
 import pickle
 import shutil
+import signal
 import sys
 import tempfile
 import time
@@ -48,7 +61,7 @@ import torch
 from repro_torch.util import resolve_device
 
 __all__ = ["CGMesh", "make_cg_mesh", "spawn_cg_mesh", "write_plan",
-           "read_plan", "BACKENDS"]
+           "read_plan", "BACKENDS", "RanksKilled"]
 
 #: the process mesh's backends: gloo on any device (host-staged on a card)
 BACKENDS = ("gloo",)
@@ -92,6 +105,72 @@ class CGMesh:
     def rank_of(self, node: int, core: int) -> int:
         """Global rank of shard ``(node, core)``."""
         return node * self.n_core + core
+
+    # -- host control (see the module docstring) ------------------------ #
+    def agree(self, obj):
+        """Rank 0's ``obj`` on every rank (every rank calls this; the
+        others' ``obj`` is ignored).  The virtual mesh: ``obj``."""
+        if not self.is_process:
+            return obj
+        import torch.distributed as dist
+
+        from repro_torch.core.collectives import host_control
+        box = [obj]
+        with host_control():
+            dist.broadcast_object_list(box, src=0, group=self.world)
+        return box[0]
+
+    def allgather(self, obj) -> list:
+        """Every rank's ``obj``, in rank order, on every rank.  The virtual
+        mesh: ``[obj]``."""
+        if not self.is_process:
+            return [obj]
+        import torch.distributed as dist
+
+        from repro_torch.core.collectives import host_control
+        out = [None] * self.world_size
+        with host_control():
+            dist.all_gather_object(out, obj, group=self.world)
+        return out
+
+    def gather_rows(self, values: np.ndarray, rows: np.ndarray, n: int, *,
+                    to: int | None = 0) -> np.ndarray | None:
+        """The whole host vector ``(..., n)`` from every rank's ``values``
+        ``(..., m)`` at its global ``rows`` ``(m,)`` (rows no rank holds
+        are 0), bit for bit: on rank ``to`` (``None`` on the others), or on
+        every rank with ``to=None``.  The virtual mesh holds every row:
+        ``values`` scattered to ``rows``."""
+        values, rows = np.asarray(values), np.asarray(rows)
+        parts = [(values, rows)]
+        if self.is_process:
+            import torch.distributed as dist
+
+            from repro_torch.core.collectives import host_control
+            with host_control(values.nbytes + rows.nbytes):
+                if to is None:
+                    parts = self.allgather((values, rows))
+                else:
+                    got = [None] * self.world_size if self.rank == to \
+                        else None
+                    dist.gather_object((values, rows), got, dst=to,
+                                       group=self.world)
+                    if got is None:
+                        return None
+                    parts = got
+        out = np.zeros(values.shape[:-1] + (n,), values.dtype)
+        for v, r in parts:
+            out[..., r] = v
+        return out
+
+    def barrier(self) -> None:
+        """Every rank has reached this point (a no-op on the virtual
+        mesh)."""
+        if self.is_process:
+            import torch.distributed as dist
+
+            from repro_torch.core.collectives import host_control
+            with host_control():
+                dist.barrier(group=self.world)
 
     def destroy(self) -> None:
         """Tear down the process group (a no-op on the virtual mesh)."""
@@ -195,6 +274,27 @@ def _rank_main(rank: int, n_node: int, n_core: int, device,
     os._exit(0)
 
 
+class RanksKilled(RuntimeError):
+    """Ranks of a :func:`spawn_cg_mesh` that ended without a result and
+    without a Python traceback: killed by a signal (a preemption's
+    SIGKILL, ``-9``) or exited non-zero.  ``exitcodes`` holds every
+    rank's exit code, in rank order (a negative code is the signal)."""
+
+    def __init__(self, exitcodes: list):
+        self.exitcodes = list(exitcodes)
+        super().__init__(f"ranks ended without a result; exit codes by "
+                         f"rank: {self.exitcodes}")
+
+
+#: the thread-count variables of the BLAS libraries numpy may load
+_BLAS_THREADS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                 "MKL_NUM_THREADS")
+
+#: seconds the other ranks get to end on their own once one has died (a
+#: preemption kills every rank at one chunk boundary)
+_GRACE_S = 5.0
+
+
 def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
                   *, args: tuple = (), timeout: float = 120.0) -> list:
     """Run ``fn(mesh, *args)`` on ``n_node * n_core`` spawned ranks of a
@@ -203,11 +303,15 @@ def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
 
     ``fn`` must be importable by name (a module-level function).  The
     rendezvous is a ``file://`` in a fresh temporary directory, so
-    concurrent launches never share a port.  When one rank exits non-zero
-    the others are killed and this raises with its traceback; when the
-    ranks have not all finished after ``timeout`` seconds, every rank is
-    killed and this raises ``TimeoutError``.  On a card the kernel
-    library is built here once, before any rank starts."""
+    concurrent launches never share a port.  When one rank raises, the
+    others are ended and this raises with its traceback; when one dies
+    without a traceback (killed by a signal), the others get a few
+    seconds to end on their own, the rest are ended, and this raises
+    :class:`RanksKilled` with every rank's exit code (also when a rank
+    raised and another died by SIGKILL: the preemption is the cause).  When the ranks
+    have not all finished after ``timeout`` seconds, every rank is killed
+    and this raises ``TimeoutError``.  On a card the kernel library is
+    built here once, before any rank starts."""
     import torch.multiprocessing as mp
 
     device = resolve_device(device)
@@ -216,22 +320,47 @@ def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
         spmv_cuda.build()
     world = n_node * n_core
     tmp = tempfile.mkdtemp(prefix="cg_mesh_")
+    # one BLAS thread per rank (unless the caller set a count): the ranks
+    # share this host's cores, and pools that each size themselves to the
+    # whole host oversubscribe it (a dense inverse then takes seconds)
+    blas = {k: os.environ.get(k) for k in _BLAS_THREADS}
     try:
         # the call goes through a file: arguments larger than a pipe's
         # buffer would make each rank's start wait for the one before
         with open(Path(tmp) / "call.pkl", "wb") as f:
             pickle.dump((fn, tuple(args)), f)
-        ctx = mp.start_processes(
-            _rank_main, args=(n_node, n_core, str(device),
-                              f"file://{tmp}/rendezvous", tmp),
-            nprocs=world, join=False, start_method="spawn")
+        for k in _BLAS_THREADS:
+            os.environ.setdefault(k, "1")
+        try:
+            ctx = mp.start_processes(
+                _rank_main, args=(n_node, n_core, str(device),
+                                  f"file://{tmp}/rendezvous", tmp),
+                nprocs=world, join=False, start_method="spawn")
+        finally:                # the ranks have read their environment
+            for k, v in blas.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         deadline = time.monotonic() + timeout
         try:
-            while not ctx.join(timeout=0.1):
+            while not ctx.join(timeout=0.1, grace_period=_GRACE_S):
                 if time.monotonic() > deadline:
                     raise TimeoutError(
                         f"spawn_cg_mesh: {world} ranks not done after "
                         f"{timeout} s")
+        except mp.ProcessExitedException:
+            # join ended every rank before raising: all exit codes are in
+            raise RanksKilled([p.exitcode for p in ctx.processes]) from None
+        except mp.ProcessRaisedException as e:
+            # a rank whose peer was SIGKILLed (a preemption) can fail in
+            # the collective it was finishing before its own kill: the
+            # signal is the cause (join ends the others with SIGTERM, and
+            # SIGKILLs only a rank that outlives the grace)
+            codes = [p.exitcode for p in ctx.processes]
+            if -signal.SIGKILL in codes:
+                raise RanksKilled(codes) from e
+            raise
         finally:
             for p in ctx.processes:
                 if p.is_alive():

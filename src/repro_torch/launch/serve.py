@@ -8,6 +8,11 @@ default ``cuda``; ``cpu`` runs the kernels' plain versions):
 
 Prints one JSON dict: per-request convergence/latency aggregates, engine
 counters, and the plan-cache stats (hits / misses / build seconds).
+
+``--mesh process`` serves on a process mesh (``repro_torch.launch.mesh``):
+one spawned gloo rank per shard, requests submitted on rank 0; the dict
+is rank 0's, plus ``ranks`` and ``ranks_agree`` (every rank retired the
+same requests at the same iterations).
 """
 from __future__ import annotations
 
@@ -46,8 +51,33 @@ def main(argv=None) -> int:
                          "solution error")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs: cuda (default) or cpu")
+    ap.add_argument("--mesh", default="virtual",
+                    choices=["virtual", "process"],
+                    help="virtual: the grid on one device; process: one "
+                         "spawned gloo rank per shard")
     args = ap.parse_args(argv)
 
+    if args.mesh == "process":
+        from repro_torch.launch.mesh import spawn_cg_mesh
+        ranks = spawn_cg_mesh(_rank_run, args.n_node, args.n_core,
+                              args.device, args=(args,), timeout=3600)
+        out = ranks[0]
+        out.update(ranks=len(ranks), ranks_agree=all(
+            r["iterations"] == out["iterations"] for r in ranks))
+    else:
+        out = run(args)
+    print(json.dumps(out))
+    return 0
+
+
+def _rank_run(mesh, args) -> dict:
+    return run(args, mesh)
+
+
+def run(args, mesh=None) -> dict:
+    """Serve ``--requests`` RHS; the JSON dict (on a process ``mesh``
+    every rank serves, rank 0 submits, and ``iterations`` is each rank's
+    own)."""
     import numpy as np
 
     from repro_torch.serve import EngineConfig, PlanCache, SolveService
@@ -64,19 +94,23 @@ def main(argv=None) -> int:
         check_every=args.check_every, maxiter=args.maxiter,
         default_tol=args.tol)
     t0 = time.perf_counter()
-    svc = SolveService(A, cfg, cache=PlanCache(), device=args.device)
+    svc = SolveService(A, cfg, cache=PlanCache(),
+                       device=args.device if mesh is None else mesh.device,
+                       mesh=mesh)
     t_build = time.perf_counter() - t0
 
     rng = np.random.default_rng(args.seed)
     B = rng.normal(size=(args.requests, A.n_rows))
     tols = ([args.tol, 3 * args.tol, 10 * args.tol]
             if args.tol_spread else [args.tol])
+    decides = mesh is None or mesh.rank == 0
     futs = [svc.submit(B[i], tol=tols[i % len(tols)])
-            for i in range(args.requests)]
+            for i in range(args.requests)] if decides else []
     t0 = time.perf_counter()
     results = svc.drain()
     t_serve = time.perf_counter() - t0
-    resolved = [f.result() for f in futs]
+    # rank 0's futures; elsewhere the results themselves (x is rank 0's)
+    resolved = [f.result() for f in futs] if decides else results
 
     out = {"requests": args.requests, "nrhs": args.nrhs,
            "solver": args.solver, "n_node": args.n_node,
@@ -86,12 +120,12 @@ def main(argv=None) -> int:
            "converged": len(resolved),
            "iterations": [r.iterations for r in resolved],
            "worst_residual_over_tol": max(
-               r.residual / r.tol for r in resolved),
+               r.residual / r.tol for r in resolved) if decides else None,
            "build_s": round(t_build, 2), "serve_s": round(t_serve, 3),
            "solves_per_s": round(len(results) / max(t_serve, 1e-9), 1),
            **{k: v for k, v in svc.stats().items()
               if k != "executables"}}
-    if args.oracle:
+    if args.oracle and decides:
         from repro_torch.testing.refine_check import host_cg
         errs = []
         for i, r in enumerate(resolved):
@@ -99,8 +133,7 @@ def main(argv=None) -> int:
             errs.append(float(np.linalg.norm(r.x - xo)
                               / np.linalg.norm(xo)))
         out["worst_oracle_err"] = max(errs)
-    print(json.dumps(out))
-    return 0
+    return out
 
 
 if __name__ == "__main__":

@@ -49,6 +49,18 @@ iteration counts) through ``repro_torch.checkpoint`` in the JAX package's
 format; :meth:`restore` re-enters on a fresh engine — any grid,
 partition, format or transport, and either package's checkpoint —
 through the same ``restart`` program.
+
+On a **process mesh** (``mesh=``, ``repro_torch.launch.mesh``) every rank
+runs the same engine on its shard, and every rank calls ``drain`` (or
+``step``) alike; requests are submitted on rank 0.  What reads a clock
+or the queue is rank 0's and agreed (``CGMesh.agree``): the cold-launch
+deferral, the admitted ``(id, tol, b)`` (each rank packs its own rows),
+and which slots retire (converged, over budget or past a deadline).  The
+per-column state retirement reads is ``psum``'d, equal on every rank.  A
+retired ``x`` and a checkpoint's iterate are gathered to rank 0, which
+computes the true residual and writes the checkpoint; results are whole
+on rank 0 (the other ranks' carry ``x = None``).  The batched kernels
+then run as single-shard launches ``(k, 1, 1, ...)`` on every rank.
 """
 from __future__ import annotations
 
@@ -58,6 +70,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.spmv import rank_rows
 from repro_torch.serve.plans import PlanCache
 from repro_torch.solvers.resilient import SolveFailure
 from repro_torch.util import resolve_device
@@ -166,26 +179,36 @@ class SolveEngine:
 
     ``A`` is a host CSR matrix (``repro_torch.sparse``); ``config`` an
     :class:`EngineConfig`; ``device`` where the plan and the batch live
-    (``cuda`` unless the caller passes another, e.g. ``"cpu"``); ``cache``
-    an optional shared :class:`~repro_torch.serve.plans.PlanCache` (a
-    fresh private one otherwise).  Building the engine builds (or
-    cache-hits) the plan and the warm restart/chunk/finish triple at
-    serving shapes; everything after is warm.
+    (``cuda`` unless the caller passes another, e.g. ``"cpu"``; on a
+    ``mesh``, the mesh's device by default); ``cache`` an optional shared
+    :class:`~repro_torch.serve.plans.PlanCache` (a fresh private one
+    otherwise); ``mesh`` the ``(n_node, n_core)`` mesh
+    (``repro_torch.launch.mesh``; ``None``: the virtual mesh), which must
+    match the config's.  Building the engine builds (or cache-hits) the
+    plan and the warm restart/chunk/finish triple at serving shapes;
+    everything after is warm.
     """
 
     def __init__(self, A, config: EngineConfig, device=None,
-                 cache: PlanCache | None = None):
-        import scipy.sparse
-
+                 cache: PlanCache | None = None, mesh=None):
         cfg = config.validate()
+        if mesh is not None and (mesh.n_node, mesh.n_core) != (cfg.n_node,
+                                                             cfg.n_core):
+            raise ValueError(f"config is {cfg.n_node}x{cfg.n_core}, the "
+                             f"mesh {mesh.n_node}x{mesh.n_core}")
         self.cfg = cfg
         self.A = A
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None
+                                     or mesh is None else mesh.device)
+        #: the process mesh whose ranks run this engine (None: virtual)
+        self.mesh = mesh if mesh is not None and mesh.is_process else None
+        #: whether this engine's queue and clock decide (rank 0's do)
+        self._decides = self.mesh is None or self.mesh.rank == 0
         self.cache = cache if cache is not None else PlanCache()
         plan_kw = dict(n_node=cfg.n_node, n_core=cfg.n_core, mode=cfg.mode,
                        node_partition=cfg.node_partition, format=cfg.format,
                        transport=cfg.transport, wire_dtype=cfg.wire_dtype,
-                       device=self.device)
+                       device=self.device, mesh=self.mesh)
         key = self.cache.plan_key(A, **plan_kw)
         self.plan, self.layout = self.cache.plan_for(
             A, fingerprint=key.fingerprint, **plan_kw)
@@ -195,24 +218,30 @@ class SolveEngine:
             maxiter_static=cfg.maxiter_static, A=A, options=cfg.options)
         self.kinds = self.rs.kinds
         # the host f64 operator of the retirement residual (a CSR product,
-        # ~10x numpy's bincount matvec at full size)
-        self._A64 = scipy.sparse.csr_matrix(
-            (np.asarray(A.data, np.float64), A.indices, A.indptr),
-            shape=A.shape)
-        # global row -> flat slot of the (n_node, n_core, rc_pad) layout,
+        # ~10x numpy's bincount matvec at full size), where it is computed
+        self._A64 = None
+        if self._decides:
+            import scipy.sparse
+            self._A64 = scipy.sparse.csr_matrix(
+                (np.asarray(A.data, np.float64), A.indices, A.indptr),
+                shape=A.shape)
+        # the global rows this engine holds (all of them on the virtual
+        # mesh, ascending) and their flat slots of the plan's cg layout,
         # on the host (packing a column) and the device (extracting one)
-        g = np.asarray(self.layout["global_row_of"]).reshape(-1)
-        self._slot_of_row = np.empty(self.plan.n, np.int64)
-        self._slot_of_row[g[g >= 0]] = np.flatnonzero(g >= 0)
+        g = rank_rows(np.asarray(self.layout["global_row_of"]),
+                      self.plan).reshape(-1)
+        slots = np.flatnonzero(g >= 0)
+        order = np.argsort(g[slots], kind="stable")
+        self._rows, self._row_slots = g[slots][order], slots[order]
         dev, k, n = self.plan.device, cfg.nrhs, self.plan.n
-        self._slot_dev = torch.from_numpy(self._slot_of_row).to(dev)
+        self._slot_dev = torch.from_numpy(self._row_slots).to(dev)
         self._mxd = torch.tensor(cfg.maxiter, dtype=torch.int32, device=dev)
 
         self._B = np.zeros((k, n))          # host f64 mirror of the batch
         self._tol = np.full((k,), _IDLE_TOL, np.float32)
         self._told = torch.from_numpy(self._tol).to(dev)
-        shape = (k, self.plan.n_node, self.plan.n_core, self.plan.rc_pad)
-        self._bd = torch.zeros(shape, dtype=torch.float32, device=dev)
+        self._bd = torch.zeros((k, *self.plan.cg_shape),
+                               dtype=torch.float32, device=dev)
         self._state = self.rs.restart(
             self._bd, self._told, self._mxd, torch.zeros_like(self._bd),
             torch.zeros((k,), dtype=torch.int32, device=dev))
@@ -238,8 +267,12 @@ class SolveEngine:
                now: float | None = None) -> Request:
         """Queue one RHS.  Raises :class:`SolveFailure` (reason
         ``queue_full``) past ``max_queue`` and ``ValueError`` on a
-        malformed request — both before the RHS touches any device."""
+        malformed request — both before the RHS touches any device — or
+        on a process mesh's rank other than 0 (its queue decides)."""
         cfg = self.cfg
+        if not self._decides:
+            raise ValueError("a process mesh's requests are submitted on "
+                             f"rank 0, not rank {self.mesh.rank}")
         b = np.asarray(b, np.float64)
         if b.shape != (self.plan.n,):
             raise ValueError(f"b must be shape ({self.plan.n},), "
@@ -282,7 +315,7 @@ class SolveEngine:
         same float64 -> float32 rounding)."""
         out = np.zeros((len(cols), self._bd[0].numel()), np.float32)
         for i, j in enumerate(cols):
-            out[i, self._slot_of_row] = self._B[j]
+            out[i, self._row_slots] = self._B[j][self._rows]
         return torch.from_numpy(out).to(self.plan.device).view(
             (len(cols),) + tuple(self._bd.shape[1:]))
 
@@ -330,7 +363,14 @@ class SolveEngine:
         self._state = merged
         self.counters["splices"] += len(assignments)
 
-    def _admit(self, now: float) -> None:
+    def _agree(self, obj):
+        """Rank 0's ``obj`` on every rank of a process mesh; ``obj``
+        itself on the virtual mesh."""
+        return obj if self.mesh is None else self.mesh.agree(obj)
+
+    def _admissions(self, now: float) -> list[tuple[int, Request | None]]:
+        """Rank 0's admission decision: each free slot takes the next
+        queued request, or is re-based to idle after an eviction."""
         assignments: list[tuple[int, Request | None]] = []
         for j, slot in enumerate(self._slots):
             if slot is not None:
@@ -339,12 +379,22 @@ class SolveEngine:
                 req = self._queue.pop(0)
                 req.admit_t = now
                 req.slot = j
-                self._slots[j] = req
                 assignments.append((j, req))
-                self._force_idle.discard(j)
             elif j in self._force_idle:
                 assignments.append((j, None))
-                self._force_idle.discard(j)
+        return assignments
+
+    def _admit(self, now: float) -> None:
+        self._apply(self._agree(self._admissions(now) if self._decides
+                                else None))
+
+    def _apply(self, assignments: list[tuple[int, Request | None]]):
+        """Take an (agreed) admission decision: fill the slots and splice
+        them."""
+        for j, req in assignments:
+            if req is not None:
+                self._slots[j] = req
+            self._force_idle.discard(j)
         if assignments:
             self._splice(assignments)
 
@@ -361,12 +411,17 @@ class SolveEngine:
         real_time = now is None
         now = time.perf_counter() if real_time else now
         cfg = self.cfg
-        if (self.in_flight == 0 and self._queue
+        decision = None                     # None: defer the cold launch
+        if self._decides and not (
+                self.in_flight == 0 and self._queue
                 and len(self._queue) < cfg.nrhs
                 and cfg.batch_fill_timeout_s > 0
                 and now - self._queue[0].submit_t < cfg.batch_fill_timeout_s):
+            decision = self._admissions(now)
+        decision = self._agree(decision)
+        if decision is None:
             return []
-        self._admit(now)
+        self._apply(decision)
         if self.in_flight == 0:
             return []
         state, _, _, active = self.rs.chunk(
@@ -377,10 +432,11 @@ class SolveEngine:
         return self._retire(active,
                             time.perf_counter() if real_time else now)
 
-    def _retire(self, active: np.ndarray, now: float) -> list[SlotResult]:
-        cfg = self.cfg
-        k = self._state["k"].cpu().numpy()
-        results: list[SlotResult] = []
+    def _retirements(self, active: np.ndarray, k: np.ndarray,
+                     now: float) -> list[tuple[int, str]]:
+        """Rank 0's retirement decision: ``(slot, "deadline" | "maxiter"
+        | "converged")`` for each slot that leaves the batch now."""
+        out = []
         for j, req in enumerate(self._slots):
             if req is None:
                 continue
@@ -388,14 +444,38 @@ class SolveEngine:
                              and now - req.submit_t > req.deadline_s)
             if active[j] and not over_deadline:
                 continue
+            out.append((j, "deadline" if active[j] else "maxiter"
+                        if int(k[j]) >= self.cfg.maxiter else "converged"))
+        return out
+
+    def _gather_x(self, cols: list[int]) -> list:
+        """Columns ``cols`` of the batch's ``x`` in global row order:
+        gathered on the device, one copy; on a process mesh every rank's
+        rows gathered to rank 0 (``None`` on the others)."""
+        if not cols:
+            return []
+        vals = self._state["x"][cols].reshape(len(cols), -1)[
+            :, self._slot_dev].cpu().numpy()
+        if self.mesh is not None:
+            vals = self.mesh.gather_rows(vals, self._rows, self.plan.n)
+            if vals is None:
+                return [None] * len(cols)
+        return list(vals)
+
+    def _retire(self, active: np.ndarray, now: float) -> list[SlotResult]:
+        cfg = self.cfg
+        k = self._state["k"].cpu().numpy()
+        verdicts = self._agree(self._retirements(active, k, now)
+                               if self._decides else None)
+        xs = self._gather_x([j for j, _ in verdicts])
+        results: list[SlotResult] = []
+        for (j, kind), xj in zip(verdicts, xs):
+            req = self._slots[j]
             iters = int(k[j])
-            # from_dist of column j: gathered on the device, one copy of
-            # its n values
-            xj = self._state["x"][j].reshape(-1)[self._slot_dev].cpu().numpy()
-            rel = self._true_rel(xj, req.b)
+            rel = float("nan") if xj is None else self._true_rel(xj, req.b)
             queue_s = (req.admit_t or req.submit_t) - req.submit_t
             solve_s = now - (req.admit_t or req.submit_t)
-            if over_deadline and active[j]:
+            if kind == "deadline":
                 fail = SolveFailure(
                     f"request {req.rid} missed its {req.deadline_s:.3g}s "
                     f"deadline at iteration {iters}",
@@ -408,7 +488,7 @@ class SolveEngine:
                 self.counters["evicted"] += 1
                 self.counters["failed"] += 1
                 self._force_idle.add(j)     # zombie column: re-base to idle
-            elif iters >= cfg.maxiter:
+            elif kind == "maxiter":
                 fail = SolveFailure(
                     f"request {req.rid} hit maxiter={cfg.maxiter} at "
                     f"residual {rel:.3g} (tol {req.tol:.3g})",
@@ -433,12 +513,14 @@ class SolveEngine:
                      / max(np.linalg.norm(b), 1e-30))
 
     def drain(self) -> list[SlotResult]:
-        """Run chunks until queue and batch are empty; all retirements."""
+        """Run chunks until queue and batch are empty (rank 0's, on a
+        process mesh); all retirements."""
         results: list[SlotResult] = []
-        while not self.idle():
+        while not self._agree(self.idle()):
             got = self.step()
             results.extend(got)
-            if not got and self.in_flight == 0 and self._queue:
+            if (not got and self.in_flight == 0
+                    and self._agree(bool(self._queue))):
                 # cold batch deferred by the fill timeout: nothing else
                 # can arrive inside drain, so launch immediately
                 self._admit(time.perf_counter())
@@ -451,27 +533,34 @@ class SolveEngine:
         """Persist the in-flight batch: global-ordered iterates + RHS block
         + per-slot tols/budgets/request ids, in the JAX package's format.
         Queued (unadmitted) requests are the caller's to resubmit — they
-        hold no solver state."""
+        hold no solver state.  On a process mesh every rank calls this;
+        rank 0 writes the gathered iterate, and every rank returns its
+        path once it is written."""
         from repro_torch.checkpoint import save
         g = self.rs.sol.state_to_global(
             {"x": self._state["x"].permute(1, 2, 0, 3)}, self.layout,
             self.plan)
-        tree = {"x": np.asarray(g["x"], np.float32),
-                "b": np.asarray(self._B, np.float32)}
-        k = self._state["k"].cpu().numpy().astype(np.int32)
-        extra = {"n": int(self.plan.n), "nrhs": int(self.cfg.nrhs),
-                 "solver": self.cfg.solver,
-                 "iteration": k.tolist(),
-                 "tol": np.asarray(self._tol, np.float64).tolist(),
-                 "rids": [r.rid if r is not None else None
-                          for r in self._slots]}
-        return save(path, int(np.max(k)) if step is None else step,
-                    tree, extra=extra)
+        d = None
+        if g is not None:
+            tree = {"x": np.asarray(g["x"], np.float32),
+                    "b": np.asarray(self._B, np.float32)}
+            k = self._state["k"].cpu().numpy().astype(np.int32)
+            extra = {"n": int(self.plan.n), "nrhs": int(self.cfg.nrhs),
+                     "solver": self.cfg.solver,
+                     "iteration": k.tolist(),
+                     "tol": np.asarray(self._tol, np.float64).tolist(),
+                     "rids": [r.rid if r is not None else None
+                              for r in self._slots]}
+            d = save(path, int(np.max(k)) if step is None else step,
+                     tree, extra=extra)
+        return self._agree(d)
 
     def restore(self, path: str, step: int | None = None) -> list[Request]:
         """Re-enter the latest (or given) checkpoint on THIS engine — any
         grid/partition/format/transport, via ``loop_restart`` re-basing.
-        Returns the re-created in-flight requests (fresh clocks)."""
+        Returns the re-created in-flight requests (fresh clocks).  On a
+        process mesh every rank reads the checkpoint and takes its own
+        rows."""
         from repro_torch.checkpoint import latest_step, load
         from repro_torch.solvers.base import to_dist_batch
         cfg = self.cfg

@@ -29,7 +29,10 @@ kept) at build, not in the first request's latency.
 
 The JAX package's ``batch_sharding`` (the committed ``NamedSharding``
 every serving array rides) has no counterpart: the virtual mesh lives on
-one device, whose tensors carry no sharding to key a program on.
+one device, whose tensors carry no sharding to key a program on.  On a
+process mesh (``repro_torch.launch.mesh``) each rank holds its own cache:
+the key carries the rank, and the plan is built whole on the host and cut
+to that rank's shard (``shard_plan``).
 
 The matrix fingerprint hashes the full CSR content (shape, indptr,
 indices, values), not just the sparsity pattern: a plan packs *values*
@@ -63,7 +66,9 @@ def matrix_fingerprint(A) -> str:
 @dataclasses.dataclass(frozen=True)
 class PlanKey:
     """Identity of one packed SpMV plan.  ``device`` is the port's: a plan
-    lives on one device and serves only engines there."""
+    lives on one device and serves only engines there.  ``rank`` is the
+    process-mesh rank whose shard the plan holds (``None``: the virtual
+    mesh's whole plan)."""
 
     fingerprint: str
     n_node: int
@@ -74,6 +79,7 @@ class PlanKey:
     transport: str
     wire_dtype: str
     device: str = "cuda"
+    rank: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +111,8 @@ class PlanCache:
     """The two-level plan/program cache.
 
     One cache instance may back many engines/services; keys carry the
-    virtual mesh's shape (n_node, n_core) and the device.
+    mesh's shape (n_node, n_core), the device and, on a process mesh, the
+    rank.
     """
 
     def __init__(self):
@@ -120,7 +127,7 @@ class PlanCache:
                  mode: str = "balanced", node_partition: str | None = None,
                  format: str = "ell", transport: str = "a2a",
                  wire_dtype: str = "f32", fingerprint: str | None = None,
-                 device="cuda") -> PlanKey:
+                 device="cuda", mesh=None) -> PlanKey:
         if node_partition is None:
             node_partition = "nnz" if mode == "balanced" else "rows"
         return PlanKey(
@@ -128,31 +135,37 @@ class PlanCache:
             n_node=int(n_node), n_core=int(n_core), mode=mode,
             node_partition=node_partition, format=format,
             transport=transport, wire_dtype=wire_dtype,
-            device=str(torch.device(device)))
+            device=str(torch.device(device)),
+            rank=mesh.rank if mesh is not None and mesh.is_process
+            else None)
 
     def plan_for(self, A, *, n_node: int, n_core: int,
                  mode: str = "balanced", node_partition: str | None = None,
                  format: str = "ell", transport: str = "a2a",
                  wire_dtype: str = "f32", fingerprint: str | None = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """``(plan, layout)`` for this operator/partition/format/transport
-        on ``device``, building (and caching) on first sight."""
+        on ``device``, building (and caching) on first sight; on a process
+        ``mesh`` this rank's shard of the plan, with the whole layout."""
         key = self.plan_key(A, n_node=n_node, n_core=n_core, mode=mode,
                             node_partition=node_partition, format=format,
                             transport=transport, wire_dtype=wire_dtype,
-                            fingerprint=fingerprint, device=device)
+                            fingerprint=fingerprint, device=device,
+                            mesh=mesh)
         hit = self._plans.get(key)
         if hit is not None:
             self.stats.plan_hits += 1
             return hit
         self.stats.plan_misses += 1
         t0 = time.perf_counter()
-        from repro_torch.core.spmv import build_spmv_plan
+        from repro_torch.core.spmv import build_spmv_plan, shard_plan
         plan, layout = build_spmv_plan(
             A, key.n_node, key.n_core, mode=key.mode,
             node_partition=key.node_partition, format=key.format,
             transport=key.transport, wire_dtype=key.wire_dtype,
-            device=key.device)
+            device=key.device if key.rank is None else "cpu")
+        if key.rank is not None:
+            plan = shard_plan(plan, mesh, device=key.device)
         self.stats.compile_s += time.perf_counter() - t0
         self._plans[key] = (plan, layout)
         self._plan_builds[key] = self._plan_builds.get(key, 0) + 1
@@ -198,8 +211,8 @@ class PlanCache:
         from the chunk's output, as a splice forms it.  On CUDA the first
         launch builds and loads the kernel library here."""
         dev = plan.device
-        shape = (nrhs, plan.n_node, plan.n_core, plan.rc_pad)
-        bd = torch.zeros(shape, dtype=torch.float32, device=dev)
+        bd = torch.zeros((nrhs, *plan.cg_shape), dtype=torch.float32,
+                         device=dev)
         tol = torch.ones((nrhs,), dtype=torch.float32, device=dev)
         mxd = torch.tensor(1, dtype=torch.int32, device=dev)
         k0 = torch.zeros((nrhs,), dtype=torch.int32, device=dev)

@@ -39,7 +39,7 @@ class SolveResult:
     """Structured per-request outcome."""
 
     request_id: int
-    x: np.ndarray                       # (n,) global solution
+    x: np.ndarray | None                # (n,) global solution (rank 0's)
     iterations: int
     residual: float                     # host f64 true relative residual
     tol: float
@@ -88,13 +88,19 @@ class SolveService:
     ``cache`` an optional shared :class:`~repro_torch.serve.plans.PlanCache`
     so several services over the same operator share plans and warm
     programs; ``device`` where the engine runs (``cuda`` unless the caller
-    passes another, e.g. ``"cpu"``).
+    passes another, e.g. ``"cpu"``); ``mesh`` the engine's mesh
+    (``repro_torch.launch.mesh``; ``None``: the virtual mesh).
+
+    On a process mesh every rank holds a service and calls ``drain``
+    alike; requests are submitted on rank 0, whose futures and results
+    carry the whole ``x``.  The other ranks' results hold the same
+    iterations with ``x = None`` (see ``SolveEngine``).
     """
 
     def __init__(self, A, config: EngineConfig | None = None,
-                 cache: PlanCache | None = None, device=None):
+                 cache: PlanCache | None = None, device=None, mesh=None):
         self.engine = SolveEngine(A, config or EngineConfig(),
-                                  device=device, cache=cache)
+                                  device=device, cache=cache, mesh=mesh)
         self._futures: dict[int, SolveFuture] = {}
 
     # ------------------------------------------------------------------ #

@@ -1,6 +1,6 @@
 from repro_torch.solvers.base import (Solver, SolverCtx, available_solvers,
                                       count_reductions, from_dist_batch,
-                                      get_solver, local_dot,
+                                      gather_dist_batch, get_solver, local_dot,
                                       make_precond_apply, make_solver,
                                       pdot, pdot_stack, reduction_census,
                                       register_solver, to_dist_batch)
@@ -20,6 +20,7 @@ from repro_torch.solvers.resilient import (ResilientResult, SolveFailure,
                                            make_resilient, resilient_solve)
 
 __all__ = ["Solver", "SolverCtx", "available_solvers", "from_dist_batch",
+           "gather_dist_batch",
            "get_solver", "local_dot", "make_solver", "pdot", "pdot_stack",
            "register_solver", "to_dist_batch", "count_reductions",
            "make_precond_apply", "BlockJacobiPrecond", "TwoLevelPrecond",

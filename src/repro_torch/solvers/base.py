@@ -58,7 +58,7 @@ __all__ = ["local_dot", "pdot", "pdot_stack", "SolverCtx", "Solver",
            "register_solver", "get_solver", "available_solvers",
            "make_solver", "to_dist_batch", "from_dist_batch",
            "count_reductions", "reduction_census", "make_precond_apply",
-           "check_nrhs"]
+           "check_nrhs", "gather_dist_batch"]
 
 
 # --------------------------------------------------------------------- #
@@ -217,8 +217,11 @@ class Solver:
     def state_to_global(self, state_host: dict, layout: dict, plan) -> dict:
         """State -> checkpoint payload in global row order.  ``x`` is in
         batched layout ``(n_node, n_core, nrhs, rc_pad)``; the default
-        persists the iterate alone, all ``loop_restart`` needs."""
-        return {"x": from_dist_batch(state_host["x"], layout, plan)}
+        persists the iterate alone, all ``loop_restart`` needs.  On a
+        rank-local plan every rank calls this and rank 0 gets the whole
+        payload (:func:`gather_dist_batch`); the others get ``None``."""
+        x = gather_dist_batch(state_host["x"], layout, plan)
+        return None if x is None else {"x": x}
 
     def state_from_global(self, gstate: dict, layout: dict, plan,
                           dtype=None) -> torch.Tensor:
@@ -310,6 +313,23 @@ def from_dist_batch(xd: torch.Tensor, layout: dict, plan) -> np.ndarray:
     return out
 
 
+def gather_dist_batch(xd: torch.Tensor, layout: dict, plan,
+                      to: int | None = 0) -> np.ndarray | None:
+    """:func:`from_dist_batch` of the whole mesh: on a rank-local plan
+    every rank's rows gathered bit for bit into the whole ``(nrhs, n)``
+    on rank ``to`` (``None`` on the others), or on every rank with
+    ``to=None`` (``CGMesh.gather_rows``, host control).  On the virtual
+    mesh :func:`from_dist_batch` itself."""
+    if not getattr(plan, "is_rank_local", False):
+        return from_dist_batch(xd, layout, plan)
+    from repro_torch.core.spmv import rank_rows
+    g = rank_rows(layout["global_row_of"], plan)
+    xh = xd.detach().cpu().numpy()
+    ii, cc, ss = np.nonzero(g >= 0)
+    return plan.mesh.gather_rows(xh[ii, cc, :, ss].T, g[ii, cc, ss],
+                                 plan.n, to=to)
+
+
 def check_nrhs(nrhs: int | None) -> None:
     """Raise unless ``nrhs`` is ``None`` or fits one batched launch."""
     from repro_torch.kernels.ops import MAX_NRHS
@@ -372,9 +392,9 @@ def make_solver(plan, *, solver: str | Solver = "cg",
     ``make_solver`` and ``solve`` alike, with its own shard of ``b``
     (``(1, 1, rc_pad)``, or ``(1, 1, k, rc_pad)``) and gets its shard of
     ``x``; the dots are ``psum``s over the ranks, so every rank stops at
-    the same iteration.  Shard-local preconditioners only (``two_level``
-    is refused by its ``bind``), and a named transport (``"auto"`` is
-    refused).
+    the same iteration.  ``"auto"`` times every candidate on every rank
+    and picks one winner for all (``autotune_transport``); ``two_level``
+    cuts its R and P plans to the rank.
     """
     from repro_torch.core.spmv import make_shard_body
 

@@ -242,11 +242,11 @@ class TwoLevelPrecond(Preconditioner):
 
     One apply = smoother apply (shard-local) + R SpMV + the core- and
     node-axis ``all_gather`` of the coarse residual (a view of the virtual
-    mesh) + the redundant coarse solve + P SpMV.  Every shard holds the
-    same inverse and the same gathered residual, so the coarse product is
-    made once and its result read by every shard: each shard's copy is the
-    same bits.  Gathers only — **zero reductions**
-    (``reductions_per_apply = 0``).
+    mesh, group calls on a process mesh) + the redundant coarse solve + P
+    SpMV.  Every shard holds the same inverse and the same gathered
+    residual, so the coarse product is made once and its result read by
+    every shard: each shard's copy is the same bits.  Gathers only —
+    **zero reductions** (``reductions_per_apply = 0``).
 
     Options: ``agg_size`` (int >= 2, default 16) — fine rows per
     aggregate; ``smoother`` — name of any registered *local*
@@ -299,14 +299,15 @@ class TwoLevelPrecond(Preconditioner):
         """``(pdata, apply_fn)``; ``apply_fn.host_seconds`` holds the
         seconds of each host step (smoother build, R and P plans,
         Galerkin inverse) and ``apply_fn.plans`` the R and P
-        ``(plan, layout)`` pairs."""
+        ``(plan, layout)`` pairs.
+
+        On a rank-local plan every rank builds the whole R and P plans on
+        the host (the build is deterministic: the same bytes on every
+        rank) and cuts them to its shard (``shard_plan``); ``ainv_c`` is
+        ``(1, 1, nc, nc)``, ``coarse_gather`` and ``p_col_map`` the
+        rank's rows, and the coarse residual's gathers run over the
+        mesh's core and node groups."""
         opts = self.validate_options(options)
-        if getattr(plan, "is_rank_local", False):
-            raise ValueError(
-                "two_level is not offered on a process mesh: its coarse "
-                "correction (core- then node-axis gathers, R and P plans) "
-                "runs on the virtual mesh only (queued, ROADMAP A7b "
-                "follow-ups); use jacobi or block_jacobi")
         if layout is None or A is None:
             raise ValueError("two_level needs the host matrix and layout: "
                              "make_solver(..., A=A, layout=layout)")
@@ -314,7 +315,8 @@ class TwoLevelPrecond(Preconditioner):
             raise ValueError("two_level preconditions square operators; "
                              f"got plan shape ({plan.n}, {plan.n_cols})")
         # late import: solvers sits above core in the layering
-        from repro_torch.core.spmv import build_spmv_plan, make_shard_body
+        from repro_torch.core.spmv import (build_spmv_plan, make_shard_body,
+                                           rank_rows, shard_plan)
 
         seconds = {}
         t0 = time.perf_counter()
@@ -324,6 +326,9 @@ class TwoLevelPrecond(Preconditioner):
 
         n, n_node, n_core = plan.n, plan.n_node, plan.n_core
         device = plan.device
+        mesh = plan.mesh if getattr(plan, "is_rank_local", False) else None
+        # a rank builds the whole plans on the host, then cuts its shard
+        build_on = device if mesh is None else "cpu"
         agg_of, nc = self._aggregates(n, opts["agg_size"])
         t0 = time.perf_counter()
         R = CSRMatrix.from_coo(agg_of, np.arange(n, dtype=np.int64),
@@ -334,19 +339,22 @@ class TwoLevelPrecond(Preconditioner):
         plan_R, layout_R = build_spmv_plan(
             R, n_node, n_core, mode="balanced", node_partition="nnz",
             format="ell", transport="a2a", col_space=layout["row_space"],
-            device=device)
+            device=build_on)
         plan_P, layout_P = build_spmv_plan(
             R.transpose(), n_node, n_core, mode="balanced",
             node_partition="nnz", format="ell", transport="a2a",
             row_space=layout["row_space"], col_space=layout_R["row_space"],
-            device=device)
+            device=build_on)
+        if mesh is not None:
+            plan_R = shard_plan(plan_R, mesh, device=device)
+            plan_P = shard_plan(plan_P, mesh, device=device)
         seconds["plans"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         ainv = self._galerkin_inverse(A, agg_of, nc)
         # one f32 inverse on the card, every shard's copy a view of it
-        pdata["ainv_c"] = to_device(ainv, device).expand(n_node, n_core,
-                                                         nc, nc)
+        pdata["ainv_c"] = to_device(ainv, device).expand(
+            *plan.shard_shape, nc, nc)
         seconds["galerkin"] = time.perf_counter() - t0
 
         # global coarse id -> flat slot of the core+node-gathered R output
@@ -355,10 +363,10 @@ class TwoLevelPrecond(Preconditioner):
         coarse_gather = np.zeros(nc, dtype=np.int64)
         coarse_gather[gR[ii, cc, ss]] = (ii * n_core + cc) * plan_R.rc_pad + ss
         pdata["coarse_gather"] = torch.from_numpy(coarse_gather).to(
-            device).expand(n_node, n_core, nc)
+            device).expand(*plan.shard_shape, nc)
         # per-shard map from the replicated coarse vector into P's input
         # (column-space) layout; padding slots read an appended zero
-        gPc = np.asarray(layout_P["global_col_of"])
+        gPc = rank_rows(np.asarray(layout_P["global_col_of"]), plan_P)
         pdata["p_col_map"] = torch.from_numpy(
             np.where(gPc >= 0, gPc, nc)).to(device)
 
@@ -370,9 +378,10 @@ class TwoLevelPrecond(Preconditioner):
             # one batched R and P body for all columns of r
             k = r.shape[0]
             rc = body_R(r)                      # (k, n_node, n_core, rc_R)
-            # the core- then node-axis all_gather: the flat view
-            full = all_gather(all_gather(rc, "core", lead=1), "node",
-                              lead=1, core_gathered=True)
+            # the core- then node-axis all_gather: the flat view (on a
+            # rank, every rank's shard over its groups)
+            full = all_gather(all_gather(rc, "core", lead=1, mesh=mesh),
+                              "node", lead=1, core_gathered=True, mesh=mesh)
             r_c = full.reshape(k, -1)[:, P["coarse_gather"][0, 0]]  # (k, nc)
             ainv = P["ainv_c"][0, 0]
             # the redundant solve; each column's product reads only its own

@@ -40,6 +40,20 @@ SIGKILL preemption mid-solve (``repro_torch.testing.resilience_check``).
 Inside the loop a vector is ``(nrhs, n_node, n_core, rc_pad)``; a global
 ``x`` crosses in the batched layout ``(n_node, n_core, nrhs, rc_pad)``
 (``to_dist_batch`` / ``from_dist_batch``).
+
+On a **process mesh** (a rank-local plan, ``repro_torch.launch.mesh``)
+every rank runs the driver alike, and every chunk ends in one verdict all
+ranks hold, so no rank rolls back, checkpoints or stops apart from the
+others (ranks that did would hang each other in the next collective).
+The guard's device scalars are ``psum``'d, equal on every rank; the host
+f64 true residual (over ``x`` gathered to rank 0) and the watchdog's
+straggler flag are rank 0's, and rank 0's verdict is agreed
+(``CGMesh.agree``).  A checkpoint is ``x`` gathered to rank 0 and written
+there in the same format, then a barrier; a resume reads it on every
+rank, each taking its rows, so checkpoints cross between the process
+mesh, the virtual mesh and the JAX package.  ``nan`` poisons the rank
+that owns the injector's shard; ``preempt`` kills every rank at the same
+chunk boundary, after the last checkpoint's barrier.
 """
 from __future__ import annotations
 
@@ -51,8 +65,9 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.fault import FaultInjector, StepGuard, Watchdog
-from repro_torch.solvers.base import (SolverCtx, check_nrhs, from_dist_batch,
-                                      get_solver, pdot, to_dist_batch)
+from repro_torch.solvers.base import (SolverCtx, check_nrhs,
+                                      gather_dist_batch, get_solver, pdot,
+                                      to_dist_batch)
 from repro_torch.solvers.precond import get_precond
 
 __all__ = ["resilient_solve", "make_resilient", "ResilientResult",
@@ -173,15 +188,11 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
     ``backend`` is the shard body's local matvec (``"kernel"``: the
     kernel wrappers; ``"plain"``: their plain versions everywhere).  The
     result counts its program builds in ``builds`` (the clean triple, and
-    the faulty chunk once it is asked for).
+    the faulty chunk once it is asked for).  On a rank-local plan every
+    rank builds the same programs on its shard.
     """
     from repro_torch.core.spmv import make_shard_body
 
-    if getattr(plan, "is_rank_local", False):
-        raise ValueError(
-            "the resilient driver runs on the virtual mesh only: its "
-            "guard, rollback and checkpoints are not offered on a process "
-            "mesh (queued, ROADMAP A7b follow-ups); use make_solver")
     sol = get_solver(solver)
     pre = get_precond(precond)
     pre.validate_options(precond_options)
@@ -205,7 +216,8 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
                                neighbor_offsets=neighbor_offsets,
                                wire_dtype=wire_dtype, backend=backend)
         ctx = SolverCtx(spmv=body, precond=lambda r: papply(pdata, r),
-                        maxiter_static=maxiter_static, options=opts)
+                        maxiter_static=maxiter_static, options=opts,
+                        mesh=plan.mesh)
 
         def restart(b, tol, maxiter, x, k):
             aux = sol.loop_aux(ctx, b, tol, maxiter)
@@ -220,7 +232,7 @@ def make_resilient(plan, *, solver="cg", precond="jacobi", transport=None,
             # detector for corruption the recurrences never see (a NaN in
             # x, a flipped halo, anything in Chebyshev)
             rt = b - ctx.spmv(state["x"])
-            true_rel = (torch.sqrt(pdot(rt, rt))
+            true_rel = (torch.sqrt(pdot(rt, rt, mesh=ctx.mesh))
                         / torch.clamp(aux["bnorm"], min=1e-30))
             return state, ~torch.any(active), true_rel, active
 
@@ -301,7 +313,7 @@ def resilient_solve(A_or_plan, b, *, solver="cg", precond="jacobi",
                     mismatch_factor: float = 1e3,
                     stall_chunks: int = 8,
                     programs: _Resilient | None = None,
-                    device=None) -> ResilientResult:
+                    device=None, mesh=None) -> ResilientResult:
     """Run a registered solver under the resilience protocol.
 
     ``A_or_plan``: a host matrix (``matvec`` / ``n_rows`` / ``diagonal``)
@@ -330,21 +342,29 @@ def resilient_solve(A_or_plan, b, *, solver="cg", precond="jacobi",
     residual by up to its relative bound, so the guard's mismatch and
     stagnation verdicts use ``max(tol, codec.rel_bound)``; the solver's
     ``tol`` itself is untouched.
+
+    On a rank-local plan (or with a host matrix and a process ``mesh``:
+    the plan is built whole on the host and cut to this rank) every rank
+    calls this alike, with the same global ``b``; see the module
+    docstring.  ``x`` is returned whole on every rank.
     """
     from repro_torch.checkpoint import latest_step
     from repro_torch.checkpoint import load as ckpt_load
     from repro_torch.checkpoint import save as ckpt_save
-    from repro_torch.core.spmv import build_spmv_plan
+    from repro_torch.core.spmv import build_spmv_plan, shard_plan
     from repro_torch.core.transport import get_codec
 
     if hasattr(A_or_plan, "matvec"):
         A = A_or_plan
+        on_ranks = mesh is not None and mesh.is_process
         plan, layout = build_spmv_plan(
             A, n_node, n_core, mode=mode, node_partition=node_partition,
             format=format,
             transport=transport if isinstance(transport, str) else "a2a",
             wire_dtype=wire_dtype if wire_dtype is not None else "f32",
-            device=device)
+            device="cpu" if on_ranks else device)
+        if on_ranks:
+            plan = shard_plan(plan, mesh, device=device)
         if neighbor_offsets is None:
             neighbor_offsets = layout["neighbor_offsets"]
     else:
@@ -353,6 +373,8 @@ def resilient_solve(A_or_plan, b, *, solver="cg", precond="jacobi",
             raise ValueError("resilient_solve(plan, ...) needs layout= "
                              "(the dict build_spmv_plan returned with it)")
     n_node, n_core = plan.n_node, plan.n_core
+    # the process mesh whose ranks must decide as one (None: virtual)
+    mesh = plan.mesh if plan.is_rank_local else None
 
     b = np.asarray(b, np.float64)
     unbatched = b.ndim == 1
@@ -392,13 +414,18 @@ def resilient_solve(A_or_plan, b, *, solver="cg", precond="jacobi",
     mxd = torch.tensor(maxiter, dtype=torch.int32, device=dev)
     bnorms = np.maximum(np.linalg.norm(B, axis=1), 1e-30)
 
-    def host_true_rel(x_loop) -> np.ndarray | None:
-        if A is None:
-            return None
-        X = from_dist_batch(_to_batch(x_loop), layout, plan)
+    def true_rel_of(X) -> np.ndarray:
         R = B - np.stack([A.matvec(X[j].astype(np.float64))
                           for j in range(nrhs)])
         return np.linalg.norm(R, axis=1) / bnorms
+
+    def host_true_rel(x_loop) -> np.ndarray | None:
+        """The host f64 true residual (rank 0's, over the gathered ``x``,
+        on a process mesh: ``None`` on the other ranks)."""
+        if A is None:
+            return None
+        X = gather_dist_batch(_to_batch(x_loop), layout, plan)
+        return None if X is None else true_rel_of(X)
 
     # ---- entry: cold start, or elastic resume from a checkpoint -------- #
     resumed_from = None
@@ -435,15 +462,20 @@ def resilient_solve(A_or_plan, b, *, solver="cg", precond="jacobi",
     def persist(x_loop, k_host, step_tag=None):
         if checkpoint_dir is None:
             return
+        # on a process mesh: gathered to rank 0, written there, then a
+        # barrier, so no rank runs on (or is preempted) before it is down
         g = sol.state_to_global({"x": _to_batch(x_loop)}, layout, plan)
-        g = {k: np.asarray(v, np.float32) for k, v in g.items()}
-        step = int(np.max(k_host)) if step_tag is None else step_tag
-        ckpt_save(checkpoint_dir, step, g,
-                  extra={"iteration": np.asarray(k_host).tolist(),
-                         "solver": sol.name, "precond": rs.pre.name,
-                         "tol": float(tol), "n": int(plan.n),
-                         "nrhs": int(nrhs),
-                         "trajectory": [list(t) for t in trajectory]})
+        if g is not None:
+            g = {k: np.asarray(v, np.float32) for k, v in g.items()}
+            step = int(np.max(k_host)) if step_tag is None else step_tag
+            ckpt_save(checkpoint_dir, step, g,
+                      extra={"iteration": np.asarray(k_host).tolist(),
+                             "solver": sol.name, "precond": rs.pre.name,
+                             "tol": float(tol), "n": int(plan.n),
+                             "nrhs": int(nrhs),
+                             "trajectory": [list(t) for t in trajectory]})
+        if mesh is not None:
+            mesh.barrier()
 
     persist(*last_good)             # survive a preemption before chunk 1
 
@@ -464,23 +496,32 @@ def resilient_solve(A_or_plan, b, *, solver="cg", precond="jacobi",
             elif injector.kind == "nan":
                 nd, cd = injector.shard
                 nd, cd = nd % n_node, cd % n_core
-                # only a slot the mask marks real can propagate: the
-                # matvec and the reductions never read padding
-                valid = np.flatnonzero(_host(plan.mask[nd, cd]) > 0)
-                slot = (int(valid[injector.poison_slot(len(valid))])
-                        if len(valid) else 0)
-                key = injector.state_key
-                arr = state[key].clone()     # last_good may share it
-                arr[:, nd, cd, slot] = float("nan")
-                state = {**state, key: arr}
-                _log.warning("injected NaN into %s shard (%d,%d) slot %d "
-                             "at iteration %d", key, nd, cd, slot, k_cur)
+                # on a process mesh only the rank holding the shard
+                at = (nd, cd) if mesh is None else (
+                    (0, 0) if (mesh.node, mesh.core) == (nd, cd) else None)
+                if at is not None:
+                    # only a slot the mask marks real can propagate: the
+                    # matvec and the reductions never read padding
+                    valid = np.flatnonzero(_host(plan.mask[at]) > 0)
+                    slot = (int(valid[injector.poison_slot(len(valid))])
+                            if len(valid) else 0)
+                    key = injector.state_key
+                    arr = state[key].clone()     # last_good may share it
+                    arr[(slice(None),) + at + (slot,)] = float("nan")
+                    state = {**state, key: arr}
+                    _log.warning("injected NaN into %s shard (%d,%d) slot "
+                                 "%d at iteration %d", key, nd, cd, slot,
+                                 k_cur)
             elif injector.kind == "bitflip":
                 program = rs.faulty_chunk()
                 _log.warning("running chunk at iteration %d through the "
                              "faulty transport", k_cur)
 
-        guard = StepGuard(wd, on_emergency=lambda: persist(*last_good))
+        # an emergency save is a collective on a process mesh, which a rank
+        # failing alone would enter alone: there the last good chunk's
+        # checkpoint (already on disk) is what survives
+        guard = StepGuard(wd, on_emergency=None if mesh is not None
+                          else lambda: persist(*last_good))
         with guard:
             new_state, done_d, true_rel_d, _ = program(
                 bb, told, mxd, check_every, state)
@@ -497,6 +538,13 @@ def resilient_solve(A_or_plan, b, *, solver="cg", precond="jacobi",
             best_rel=best_rel, tol=guard_tol, since_improve=since_improve,
             stall_chunks=stall_chunks, divergence_factor=divergence_factor,
             mismatch_factor=mismatch_factor, done=done)
+        slow = guard.slow
+        if mesh is not None:            # one verdict for every rank: 0's
+            ok, reason, true_rel_vec, slow = mesh.agree(
+                (ok, reason, true_rel_vec, slow))
+        if slow:
+            _log.warning("chunk ending at iteration %d was a straggler "
+                         "(%.3g s)", k_cur, guard.last_dt)
         if not ok:
             retries += 1
             rollbacks += 1
@@ -528,9 +576,10 @@ def resilient_solve(A_or_plan, b, *, solver="cg", precond="jacobi",
         persist(*last_good)
 
     x, iters, rel = rs.finish(bb, told, mxd, state)
-    X = from_dist_batch(_to_batch(x), layout, plan)
-    tr = host_true_rel(x)
-    true_rel_vec = tr if tr is not None else true_rel_vec
+    # whole on every rank; the same bits everywhere, so the same residual
+    X = gather_dist_batch(_to_batch(x), layout, plan, to=None)
+    if A is not None:
+        true_rel_vec = true_rel_of(X)
     iters = _host(iters)
     rel = _host(rel)
     return ResilientResult(

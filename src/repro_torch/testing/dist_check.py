@@ -22,9 +22,12 @@ spawns one gloo rank per shard, each on ``--device`` with its own shard;
 the lines are printed from the ranks' shards, and a line is ``BAD`` unless
 every rank reports the same iterations.  A ``MESH`` line adds each
 rank's SpMV ``y`` against its row of the virtual mesh's (bit for bit) and
-a jacobi-cg solve's iterations against the virtual mesh's (±1).  The
-resilient driver (``--check-every``) and ``--transport auto`` run on the
-virtual mesh only.
+a jacobi-cg solve's iterations against the virtual mesh's (±1).
+``--transport auto`` autotunes on the ranks (one winner for all, or the
+``TRANSPORT`` line is ``BAD``); ``--check-every`` runs the resilient
+driver on the ranks, each ``RESILIENT`` line from rank 0's whole ``x``.
+``--inject-fault preempt@N`` kills every rank: the run prints a ``KILLED``
+line with the ranks' exit codes and exits 137.
 """
 from __future__ import annotations
 
@@ -226,6 +229,23 @@ def solver_line(name: str, precond: str, A, b, xs, its: int, rel: float,
     return ok
 
 
+def resilient_line(name: str, precond: str, res, xh, armed: bool,
+                   agree: bool = True) -> bool:
+    """A resilient solve against the oracle; an ``armed`` fault must trip
+    the guard (zero rollbacks means the injection was a no-op)."""
+    tr_max, dx_max = BOUNDS.get(name, (2e-3, 5e-2))
+    dxh = float(np.linalg.norm(res.x - xh)) / max(float(np.linalg.norm(xh)),
+                                                  1e-30)
+    ok = (agree and res.converged and res.true_rel < tr_max
+          and dxh < dx_max and (res.rollbacks > 0 or not armed))
+    print(f"RESILIENT {name} PRECOND {precond} "
+          f"ITERS {int(np.max(res.iters))} "
+          f"CHUNKS {res.chunks} ROLLBACKS {res.rollbacks} "
+          f"TRUE_REL {res.true_rel:.3e} DX_HOST {dxh:.3e} "
+          f"{'ok' if ok else 'BAD'}")
+    return ok
+
+
 def batched_line(name: str, Xs, Xh, itb: list, agree: bool = True) -> bool:
     worst = max(float(np.linalg.norm(Xs[j] - Xh[j]))
                 / max(float(np.linalg.norm(Xh[j])), 1e-30)
@@ -263,10 +283,8 @@ def solvers(args, A, plan, layout, rng, b) -> bool:
 
     names, b, xh, B, Xh = _solver_rhs(args, A, rng, b)
     bd = to_dist(b, layout, plan)
-    xh_norm = max(float(np.linalg.norm(xh)), 1e-30)
     ok = True
     for name in names:
-        tr_max, dx_max = BOUNDS.get(name, (2e-3, 5e-2))
         if args.check_every > 0:
             # chunking (and any injected fault + rollback) must not change
             # where the solve lands
@@ -280,19 +298,9 @@ def solvers(args, A, plan, layout, rng, b) -> bool:
                 tol=SOLVER_TOL, maxiter=5000, check_every=args.check_every,
                 checkpoint_dir=args.checkpoint_dir,
                 resume_from=args.resume_from, injector=inj)
-            dxh = float(np.linalg.norm(res.x - xh)) / xh_norm
-            line_ok = (res.converged and res.true_rel < tr_max
-                       and dxh < dx_max)
-            if inj is not None and inj.kind != "preempt":
-                # an armed fault must trip the guard: zero rollbacks means
-                # the injection was a no-op
-                line_ok = line_ok and res.rollbacks > 0
-            print(f"RESILIENT {name} PRECOND {args.precond} "
-                  f"ITERS {int(np.max(res.iters))} "
-                  f"CHUNKS {res.chunks} ROLLBACKS {res.rollbacks} "
-                  f"TRUE_REL {res.true_rel:.3e} DX_HOST {dxh:.3e} "
-                  f"{'ok' if line_ok else 'BAD'}")
-            ok = ok and line_ok
+            ok = resilient_line(name, args.precond, res, xh,
+                                inj is not None and inj.kind != "preempt"
+                                ) and ok
             continue
         kw = dict(solver=name, precond=args.precond,
                   transport=args.transport,
@@ -337,9 +345,16 @@ def _rank(mesh, plan_dir: str, job: dict) -> dict:
     plan = read_plan(plan_dir, mesh)
     route = dict(transport=a["transport"],
                  neighbor_offsets=job["layout"]["neighbor_offsets"])
-    spmv = (make_shard_body(plan, backend="plain", **route)
-            if a["backend"] == "plain" else make_spmv(plan, **route))
-    out = {"y": _np(spmv(_row(job["x"], mesh))), "solvers": {}}
+    spmv = make_spmv(plan, **route)
+    transport = spmv.transport
+    if a["transport"] == "auto":
+        # the autotuner stamped its winner into the plan; later builds
+        # follow the stamp instead of re-running the timing sweep
+        route["transport"] = None
+    if a["backend"] == "plain":
+        spmv = make_shard_body(plan, backend="plain", **route)
+    out = {"y": _np(spmv(_row(job["x"], mesh))), "solvers": {},
+           "transport": transport}
     if a["cg"] or a["fused"]:
         xd, it, rel = make_cg(plan)(_row(job["b"], mesh), tol=CG_TOL,
                                     maxiter=2000)
@@ -349,6 +364,9 @@ def _rank(mesh, plan_dir: str, job: dict) -> dict:
             _row(job["b"], mesh), tol=CG_TOL, maxiter=2000)
         out["fused"] = (_np(xd), int(it), float(rel))
     for name in job["solvers"]:
+        if a["check_every"] > 0:
+            out["solvers"][name] = _rank_resilient(plan, name, job, route)
+            continue
         kw = dict(solver=name, precond=a["precond"], A=job["A"],
                   layout=job["layout"], options=job["options"].get(name),
                   **route)
@@ -364,6 +382,25 @@ def _rank(mesh, plan_dir: str, job: dict) -> dict:
                                            tol=CG_TOL, maxiter=2000)
     out["mesh_cg"] = int(it)
     return out
+
+
+def _rank_resilient(plan, name: str, job: dict, route: dict) -> dict:
+    """A ``--check-every`` solve on a rank: the resilient driver, with
+    any injected fault; ``x`` comes back whole."""
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.solvers import resilient_solve
+
+    a = job["args"]
+    inj = (FaultInjector.parse(a["inject_fault"]) if a["inject_fault"]
+           else None)
+    res = resilient_solve(
+        plan, job["b_solver_global"], layout=job["layout"], A=job["A"],
+        solver=name, precond=a["precond"], tol=SOLVER_TOL, maxiter=5000,
+        check_every=a["check_every"], checkpoint_dir=a["checkpoint_dir"],
+        resume_from=a["resume_from"], injector=inj,
+        options=job["options"].get(name), **route)
+    return {"res": res, "iters": int(np.max(res.iters)),
+            "armed": inj is not None and inj.kind != "preempt"}
 
 
 def _whole(rows, plan):
@@ -386,14 +423,10 @@ def process_main(args) -> int:
     import torch
 
     from repro_torch.core import build_spmv_plan, from_dist, make_spmv, to_dist
-    from repro_torch.launch.mesh import spawn_cg_mesh, write_plan
+    from repro_torch.launch.mesh import RanksKilled, spawn_cg_mesh, write_plan
     from repro_torch.solvers import (from_dist_batch, make_solver,
                                      to_dist_batch)
 
-    if args.check_every > 0 or args.transport == "auto":
-        print("dist_check: --check-every and --transport auto run on the "
-              "virtual mesh only", file=sys.stderr)
-        return 2
     A = _matrix(args)
     # the launcher's copy of the plan, on the host: each rank places its
     # own shard on --device
@@ -402,7 +435,6 @@ def process_main(args) -> int:
                                    node_partition=args.node_partition,
                                    format=args.format, device="cpu")
     _format_line(layout)
-    print(f"TRANSPORT {args.transport}")
 
     # the same draws, in the same order, as the virtual mesh's lines
     rng = np.random.default_rng(1)
@@ -423,17 +455,27 @@ def process_main(args) -> int:
     job = {"args": vars(args), "A": A, "layout": layout, "solvers": names,
            "options": options, "x": dist(x), "b": dist(b),
            "b_solver": dist(b_solver), "b_mesh": dist(b_mesh),
+           "b_solver_global": b_solver,
            "B": None if B is None else _np(to_dist_batch(B, layout, plan))}
     with tempfile.TemporaryDirectory(prefix="dist_check_") as d:
         write_plan(plan, d)
-        ranks = spawn_cg_mesh(_rank, args.n_node, args.n_core, args.device,
-                              args=(d, job), timeout=600)
+        try:
+            ranks = spawn_cg_mesh(_rank, args.n_node, args.n_core,
+                                  args.device, args=(d, job), timeout=600)
+        except RanksKilled as e:      # preempt@N: every rank killed
+            print(f"KILLED exit codes {e.exitcodes}")
+            return 137
+    won = [r["transport"] for r in ranks]
+    print(f"TRANSPORT {won[0]}" + (" (auto)" if args.transport == "auto"
+                                   else "")
+          + ("" if _agree(won) else f" RANKS BAD {won}"))
 
     def whole(rows):
         return from_dist(_whole(rows, plan), layout, plan)
 
     y_rows = _whole([r["y"] for r in ranks], plan)
     ok = spmv_line(from_dist(y_rows, layout, plan), A.matvec(x))
+    ok = ok and _agree(won)
     for key in ("cg", "fused"):
         if key not in ranks[0]:
             continue
@@ -450,6 +492,10 @@ def process_main(args) -> int:
     for name in names:
         res = [r["solvers"][name] for r in ranks]
         its = [r["iters"] for r in res]
+        if args.check_every > 0:
+            ok = resilient_line(name, args.precond, res[0]["res"], xh,
+                                res[0]["armed"], agree=_agree(its)) and ok
+            continue
         ok = solver_line(name, args.precond, A, b_solver,
                          whole([r["x"] for r in res]), its[0],
                          res[0]["rel"], xh, agree=_agree(its)) and ok
@@ -463,8 +509,8 @@ def process_main(args) -> int:
     vp, vl = build_spmv_plan(A, args.n_node, args.n_core, mode=args.mode,
                              node_partition=args.node_partition,
                              format=args.format, device=args.device)
-    route = dict(transport=args.transport,
-                 neighbor_offsets=vl["neighbor_offsets"])
+    # every transport's y is a2a's, bit for bit: the ranks' winner
+    route = dict(transport=won[0], neighbor_offsets=vl["neighbor_offsets"])
     yv = make_spmv(vp, **route)(to_dist(x, vl, vp))
     y_bits = torch.equal(yv.cpu().view(torch.int32),
                          y_rows.view(torch.int32))

@@ -42,6 +42,14 @@ two-level node bounds + halo), ``single`` (banded extrusion ordering),
 ``halofree`` (one node owns everything — no exchange).  Prints ``OK`` or
 ``FAIL``.  The virtual mesh holds the whole grid on ``--device`` (default
 ``cuda``).
+
+``--mesh process`` applies every preconditioner on a process mesh
+(``repro_torch.launch.mesh``): one spawned gloo rank per shard, each
+binding it on its own shard (two_level cuts its R and P plans to the
+rank).  The device applies the checks hold to the host are the ranks',
+gathered; ``static`` traces the virtual mesh's apply as before; each line
+adds ``mesh=``, every rank's ``z`` bit for bit its row of the virtual
+mesh's.  With ``--scaling`` the regression's solves run on the ranks.
 """
 from __future__ import annotations
 
@@ -94,9 +102,61 @@ def static_check(pre, apply_d, plan, A, layout
     return rep.ok() and local is not False, rep.summary(), local
 
 
-def conformance(case: str, n_node: int, n_core: int, formats, device,
-                preconds=None) -> bool:
+def _rank_apply(mesh, jobs: list) -> list:
+    """One rank of ``--mesh process``: each job's preconditioners bound on
+    this rank's shard and applied to each of its vectors."""
     import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import read_plan
+    from repro_torch.solvers import available_preconds, make_precond_apply
+    from repro_torch.solvers.precond import FaultyPrecond, register_precond
+
+    out = []
+    for job in jobs:
+        if job["faulty"] and "faulty" not in available_preconds():
+            register_precond(FaultyPrecond())
+        plan = read_plan(job["dir"], mesh)
+        res = {}
+        for pname in job["preconds"]:
+            apply = make_precond_apply(plan, precond=pname, A=job["A"],
+                                       layout=job["layout"])
+            res[pname] = [apply(torch.from_numpy(np.array(
+                u[mesh.node:mesh.node + 1, mesh.core:mesh.core + 1])).to(
+                    mesh.device)).cpu().numpy() for u in job["vectors"]]
+        out.append(res)
+    return out
+
+
+def _process_applies(cases, names, device, faulty: bool) -> list:
+    """Every ``(A, plan, layout)`` of ``cases`` (one mesh shape) with each
+    of ``names`` applied on a process mesh to each of its vectors: per
+    case ``{name: [z whole (n_node, n_core, rc_pad), ...]}``."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn_cg_mesh, write_plan
+
+    with tempfile.TemporaryDirectory(prefix="precond_check_") as d:
+        jobs = []
+        for i, (A, plan, layout, vectors) in enumerate(cases):
+            jobs.append({"dir": str(write_plan(plan, f"{d}/{i}")), "A": A,
+                         "layout": layout, "preconds": names,
+                         "vectors": vectors, "faulty": faulty})
+        plan = cases[0][1]
+        ranks = spawn_cg_mesh(_rank_apply, plan.n_node, plan.n_core, device,
+                              args=(jobs,), timeout=600)
+    return [{name: [np.concatenate([r[i][name][v] for r in ranks]).reshape(
+        cases[i][1].cg_shape) for v in range(len(cases[i][3]))]
+        for name in names} for i in range(len(cases))]
+
+
+def conformance(case: str, n_node: int, n_core: int, formats, device,
+                preconds=None, mesh: str = "virtual",
+                faulty: bool = False) -> bool:
+    import numpy as np
+    import torch
 
     from repro_torch.core import from_dist, to_dist
     from repro_torch.solvers import (available_preconds, get_precond,
@@ -105,14 +165,29 @@ def conformance(case: str, n_node: int, n_core: int, formats, device,
     from repro_torch.testing.transport_check import build_case
 
     preconds = tuple(preconds) if preconds else available_preconds()
-    ok = True
+    built = []
     for fmt in formats:
         A, plan, layout = build_case(case, n_node, n_core, fmt, device)
         rng = np.random.default_rng(11)
         r = rng.normal(size=A.n_rows)
         v = rng.normal(size=A.n_rows)
+        built.append((fmt, A, plan, layout, r, v))
+    ranks = None
+    if mesh == "process":
+        # two_level's cross check needs its smoother's apply too
+        names = tuple(dict.fromkeys(preconds + tuple(
+            get_precond(p).validate_options(None)["smoother"]
+            for p in preconds if p == "two_level")))
+        ranks = _process_applies(
+            [(A, plan, layout, [to_dist(u, layout, plan).cpu().numpy()
+                                for u in (r, v)])
+             for _, A, plan, layout, r, v in built], names, device, faulty)
+    ok = True
+    for i, (fmt, A, plan, layout, r, v) in enumerate(built):
         print(f"CASE {case} FORMAT {fmt} n={A.n_rows} "
-              f"n_node={plan.n_node} n_core={plan.n_core} hs={plan.hs}")
+              f"n_node={plan.n_node} n_core={plan.n_core} hs={plan.hs}"
+              + ("" if ranks is None else
+                 f" MESH process RANKS {plan.n_node * plan.n_core}"))
 
         for pname in preconds:
             pre = get_precond(pname)
@@ -121,10 +196,24 @@ def conformance(case: str, n_node: int, n_core: int, formats, device,
                                          layout=layout)
             host = pre.host_apply(plan, layout, A)
 
-            def dev(u, apply_d=apply_d):
+            def dev(u, apply_d=apply_d, name=pname):
+                """The device apply of ``u`` in global order: the virtual
+                mesh's, or the ranks' (``u`` is ``r`` or ``v``)."""
+                if ranks is not None:
+                    z = ranks[i][name][0 if u is r else 1]
+                    return from_dist(torch.from_numpy(z), layout,
+                                     plan).astype(np.float64)
                 return from_dist(apply_d(to_dist(u, layout, plan,
                                                  space="row")),
                                  layout, plan).astype(np.float64)
+
+            if ranks is not None:
+                # mesh: every rank's z is its row of the virtual mesh's
+                want = apply_d(to_dist(r, layout, plan)).cpu().numpy()
+                m_ok = bool(np.array_equal(ranks[i][pname][0].view(np.int32),
+                                           want.view(np.int32)))
+                line.append(f"mesh={'ok' if m_ok else 'BAD'}")
+                ok &= m_ok
 
             # host: device program == numpy oracle (global ordering)
             zr_d, zr_h = dev(r), np.asarray(host(r), np.float64)
@@ -162,7 +251,7 @@ def conformance(case: str, n_node: int, n_core: int, formats, device,
                 opts = pre.validate_options(None)
                 sm_d = make_precond_apply(plan, precond=opts["smoother"],
                                           A=A, layout=layout)
-                zs = dev(r, sm_d)
+                zs = dev(r, sm_d, opts["smoother"])
                 agg_of, nc = TwoLevelPrecond._aggregates(A.n_rows,
                                                          opts["agg_size"])
                 ainv = TwoLevelPrecond._galerkin_inverse(A, agg_of, nc)
@@ -175,24 +264,29 @@ def conformance(case: str, n_node: int, n_core: int, formats, device,
     return ok
 
 
-def scaling(n_node: int, n_core: int, device, flat_bound: float) -> bool:
+def scaling_solves(mesh, n_node: int, n_core: int, device=None) -> list:
+    """The regression's solves, one row per mesh: ``(n, {precond: (iters,
+    rel, seconds)})``.  On a process ``mesh`` (a rank of it) each plan is
+    cut to the rank and every rank returns the same counts."""
     import numpy as np
 
     from repro_torch.core import build_spmv_plan, to_dist
+    from repro_torch.core.spmv import shard_plan
     from repro_torch.solvers import make_solver
     from repro_torch.sparse import graded_extruded_mesh_matrix
 
-    out = {"meshes": [], "block_jacobi": {"iters": [], "time_s": []},
-           "two_level": {"iters": [], "time_s": []}}
+    on_ranks = mesh is not None
+    rows = []
     for n_surface, layers in SCALING_MESHES:
         A = graded_extruded_mesh_matrix(n_surface, layers, seed=0)
         plan, layout = build_spmv_plan(A, n_node, n_core, mode="balanced",
                                        node_partition="rows", format="ell",
-                                       device=device)
+                                       device="cpu" if on_ranks else device)
+        if on_ranks:
+            plan = shard_plan(plan, mesh)
         rng = np.random.default_rng(7)
         bd = to_dist(rng.normal(size=A.n_rows), layout, plan)
-        out["meshes"].append([n_surface, layers, A.n_rows])
-        row = [f"n={A.n_rows}"]
+        got = {}
         for pname in ("block_jacobi", "two_level"):
             po = {"agg_size": SCALING_AGG} if pname == "two_level" else None
             solve = make_solver(plan, solver="cg", precond=pname, A=A,
@@ -200,10 +294,34 @@ def scaling(n_node: int, n_core: int, device, flat_bound: float) -> bool:
             solve(bd, tol=1e-6, maxiter=400)               # warm
             t0 = time.perf_counter()
             _, it, rel = solve(bd, tol=1e-6, maxiter=400)
-            dt = time.perf_counter() - t0
-            out[pname]["iters"].append(int(it))
+            got[pname] = (int(it), float(rel), time.perf_counter() - t0)
+        rows.append((A.n_rows, got))
+    return rows
+
+
+def scaling(n_node: int, n_core: int, device, flat_bound: float,
+            mesh: str = "virtual") -> bool:
+    if mesh == "process":
+        from repro_torch.launch.mesh import spawn_cg_mesh
+        ranks = spawn_cg_mesh(scaling_solves, n_node, n_core, device,
+                              args=(n_node, n_core), timeout=600)
+        agree = all([[g[p][0] for p in g] for _, g in r]
+                    == [[g[p][0] for p in g] for _, g in ranks[0]]
+                    for r in ranks)
+        print(f"MESH process RANKS {len(ranks)} ITERS_AGREE "
+              f"{'ok' if agree else 'BAD'}")
+        rows = ranks[0]
+    else:
+        agree, rows = True, scaling_solves(None, n_node, n_core, device)
+    out = {"meshes": [], "block_jacobi": {"iters": [], "time_s": []},
+           "two_level": {"iters": [], "time_s": []}}
+    for (n_surface, layers), (n, got) in zip(SCALING_MESHES, rows):
+        out["meshes"].append([n_surface, layers, n])
+        row = [f"n={n}"]
+        for pname, (it, rel, dt) in got.items():
+            out[pname]["iters"].append(it)
             out[pname]["time_s"].append(round(dt, 4))
-            row.append(f"{pname}: iters={int(it)} rel={float(rel):.1e} "
+            row.append(f"{pname}: iters={it} rel={rel:.1e} "
                        f"t={dt * 1e3:.0f}ms")
         print("  ".join(row))
 
@@ -212,7 +330,7 @@ def scaling(n_node: int, n_core: int, device, flat_bound: float) -> bool:
     mono = all(b >= a for a, b in zip(bj, bj[1:]))
     flat = max(tl) / min(tl)
     grow = bj[-1] > bj[0]
-    ok = mono and grow and flat <= flat_bound
+    ok = agree and mono and grow and flat <= flat_bound
     out.update(bj_monotone=mono, bj_grows=grow,
                tl_flat_ratio=round(flat, 3), flat_bound=flat_bound, ok=ok)
     print(f"SCALING {json.dumps(out)}")
@@ -242,6 +360,10 @@ def main(argv=None) -> int:
                     help="two_level max/min iteration ratio bound across "
                          "the scaling meshes")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="virtual",
+                    choices=["virtual", "process"],
+                    help="virtual: the grid on one device; process: one "
+                         "spawned gloo rank per shard")
     args = ap.parse_args(argv)
 
     import torch
@@ -251,7 +373,8 @@ def main(argv=None) -> int:
 
     device = torch.device(args.device)
     if args.scaling:
-        ok = scaling(args.n_node, args.n_core, device, args.flat_bound)
+        ok = scaling(args.n_node, args.n_core, device, args.flat_bound,
+                     args.mesh)
         print("OK" if ok else "FAIL")
         return 0 if ok else 1
 
@@ -260,7 +383,8 @@ def main(argv=None) -> int:
     try:
         ok = conformance(args.case, args.n_node, args.n_core,
                          args.formats.split(","), device,
-                         args.preconds.split(",") if args.preconds else None)
+                         args.preconds.split(",") if args.preconds else None,
+                         mesh=args.mesh, faulty=args.include_faulty)
     finally:
         if args.include_faulty:
             unregister_precond("faulty")

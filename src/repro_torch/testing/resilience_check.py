@@ -20,6 +20,14 @@ touches the device):
 
 Every child runs on ``--device`` (default ``cuda``).  Each prints one
 ``CHILD ...`` line; the parent prints its verdicts and ``OK``/``FAIL``.
+
+``--mesh process`` runs each child's solve on a process mesh
+(``repro_torch.launch.mesh``): the child spawns one gloo rank per shard
+and every rank runs the resilient driver on its shard.  The victim's
+``preempt@K`` kills every rank at one chunk boundary, after rank 0 wrote
+the checkpoint; the child reports the ranks' exit codes (``CHILD KILLED
+[...]``) and the parent checks each is SIGKILL's.  The ``CHILD`` line of a
+solve adds ``RANKS ok`` when every rank reports the same iterations.
 """
 import argparse
 import os
@@ -33,36 +41,68 @@ BOUNDS = {"cg": (2e-4, 1e-2), "pipelined_cg": (1e-3, 3e-2),
           "chebyshev": (2e-3, 5e-2)}
 
 
-def child_main(args) -> int:
+def _system(args):
+    """The system every child solves: grid-independent ``(A, b)``."""
     import numpy as np
 
+    from repro_torch.sparse import graded_extruded_mesh_matrix
+
+    A = graded_extruded_mesh_matrix(args.n_surface, args.layers, seed=0)
+    return A, np.random.default_rng(1).normal(size=A.n_rows)
+
+
+def solve(args, mesh=None):
+    """The child's resilient solve (on a process ``mesh``: this rank's)."""
     from repro_torch.runtime.fault import FaultInjector
     from repro_torch.solvers import resilient_solve
-    from repro_torch.sparse import graded_extruded_mesh_matrix
-    from repro_torch.testing.refine_check import host_cg
 
-    # the system is grid-independent: every child solves the same (A, b)
-    A = graded_extruded_mesh_matrix(args.n_surface, args.layers, seed=0)
-    b = np.random.default_rng(1).normal(size=A.n_rows)
+    A, b = _system(args)
     inj = (FaultInjector.parse(args.inject_fault)
            if args.inject_fault else None)
-
-    res = resilient_solve(
+    return resilient_solve(
         A, b, solver=args.solver, precond=args.precond,
         n_node=args.n_node, n_core=args.n_core, format=args.format,
         transport=args.transport, tol=args.tol, maxiter=5000,
         check_every=args.check_every, checkpoint_dir=args.checkpoint_dir,
-        resume_from=args.resume_from, injector=inj, device=args.device)
+        resume_from=args.resume_from, injector=inj,
+        device=args.device if mesh is None else mesh.device, mesh=mesh)
+
+
+def _rank_solve(mesh, args):
+    return solve(args, mesh)
+
+
+def child_main(args) -> int:
+    import numpy as np
+
+    from repro_torch.testing.refine_check import host_cg
+
+    A, b = _system(args)
+    tail = ""
+    if args.mesh == "process":
+        from repro_torch.launch.mesh import RanksKilled, spawn_cg_mesh
+        try:
+            ranks = spawn_cg_mesh(_rank_solve, args.n_node, args.n_core,
+                                  args.device, args=(args,), timeout=600)
+        except RanksKilled as e:
+            print(f"CHILD KILLED {e.exitcodes}")
+            return 3
+        res = ranks[0]
+        same = all(np.array_equal(r.iters, res.iters) for r in ranks)
+        tail = f" RANKS {'ok' if same else 'BAD'}"
+    else:
+        same, res = True, solve(args)
 
     xh = host_cg(A, b, tol=1e-10, maxiter=20_000)
     dxh = float(np.linalg.norm(res.x - xh)
                 / max(float(np.linalg.norm(xh)), 1e-30))
     tr_max, dx_max = BOUNDS.get(args.solver, (2e-3, 5e-2))
-    ok = (res.converged and res.true_rel < tr_max and dxh < dx_max)
+    ok = (same and res.converged and res.true_rel < tr_max
+          and dxh < dx_max)
     print(f"CHILD SOLVER {args.solver} ITERS {int(np.max(res.iters))} "
           f"CHUNKS {res.chunks} ROLLBACKS {res.rollbacks} "
           f"RESUMED_FROM {-1 if res.resumed_from is None else res.resumed_from} "
-          f"TRUE_REL {res.true_rel:.3e} DX_HOST {dxh:.3e} "
+          f"TRUE_REL {res.true_rel:.3e} DX_HOST {dxh:.3e}{tail} "
           f"{'ok' if ok else 'BAD'}")
     return 0 if ok else 1
 
@@ -87,17 +127,27 @@ def parent_main(args) -> int:
     common = ["--solver", args.solver, "--precond", args.precond,
               "--tol", str(args.tol), "--check-every",
               str(args.check_every), "--n-surface", str(args.n_surface),
-              "--layers", str(args.layers), "--device", args.device]
+              "--layers", str(args.layers), "--device", args.device,
+              "--mesh", args.mesh]
     ok = True
 
     # 1) victim: 4x2 grid, ell/a2a, SIGKILLed mid-solve by the injector
+    #    (on a process mesh: every rank, each by its own SIGKILL)
     r = _spawn(common + ["--n-node", "4", "--n-core", "2",
                          "--format", "ell", "--transport", "a2a",
                          "--checkpoint-dir", ckpt,
                          "--inject-fault", f"preempt@{args.preempt_at}"])
-    killed = r.returncode == -signal.SIGKILL
-    print(f"VICTIM rc={r.returncode} "
-          f"{'killed-by-SIGKILL ok' if killed else 'BAD (survived?)'}")
+    if args.mesh == "process":
+        codes = [ln.split("CHILD KILLED", 1)[1].strip()
+                 for ln in r.stdout.splitlines() if "CHILD KILLED" in ln]
+        codes = codes[0] if codes else None
+        killed = codes == str([-signal.SIGKILL] * 8)
+        print(f"VICTIM rc={r.returncode} ranks {codes} "
+              f"{'killed-by-SIGKILL ok' if killed else 'BAD (survived?)'}")
+    else:
+        killed = r.returncode == -signal.SIGKILL
+        print(f"VICTIM rc={r.returncode} "
+              f"{'killed-by-SIGKILL ok' if killed else 'BAD (survived?)'}")
     if not killed:
         sys.stderr.write(r.stdout + r.stderr)
     ok &= killed
@@ -169,6 +219,10 @@ def main(argv=None) -> int:
     ap.add_argument("--inject-fault", default=None)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume-from", default=None)
+    ap.add_argument("--mesh", default="virtual",
+                    choices=["virtual", "process"],
+                    help="virtual: each child's grid on one device; "
+                         "process: one spawned gloo rank per shard")
     args = ap.parse_args(argv)
     return child_main(args) if args.child else parent_main(args)
 

@@ -20,6 +20,13 @@ checks the service's three gates:
      plan, program or kernel-library build after warm-up
      (``recompiles == 0``).
 
+``--mesh process`` serves on a process mesh (``repro_torch.launch.mesh``):
+one spawned gloo rank per shard, every rank running the same engine on
+its shard and the requests submitted on rank 0.  The gates read rank 0's
+whole results; a ``RANKS`` line adds that every rank retired the same
+requests at the same iterations, and ``recompiles`` and the cache gate
+hold on every rank.
+
 Prints verdict lines and a final ``OK``/``FAIL`` (exit 0 / 1).
 """
 from __future__ import annotations
@@ -32,6 +39,92 @@ import time
 #: JAX package's serve_check and resilience_check hold them
 BOUNDS = {"cg": (2e-4, 1e-2), "pipelined_cg": (1e-3, 3e-2),
           "chebyshev": (2e-3, 5e-2)}
+
+
+def serve(args, mesh=None) -> dict:
+    """The service's work on one device (on a process ``mesh``: this
+    rank's share): the one-at-a-time baseline, the continuous drain and a
+    second service from the same cache.  Returns what the gates read."""
+    import torch
+
+    from repro_torch.core.spmv import to_dist
+    from repro_torch.serve import PlanCache, SolveService
+    from repro_torch.solvers import make_solver
+
+    device = torch.device(args.device if mesh is None else mesh.device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    A, B, tols = _requests(args)
+    N, K = args.requests, args.nrhs
+    cache = PlanCache()
+    cfg = _config(args)
+    svc = SolveService(A, cfg, cache=cache, device=device, mesh=mesh)
+    engine = svc.engine
+    plan, layout = engine.plan, engine.layout
+
+    # one-at-a-time baseline: a warm make_solver on the same plan
+    seq_solve = make_solver(
+        plan, nrhs=None, solver=args.solver, precond=args.precond,
+        transport=args.transport,
+        neighbor_offsets=layout["neighbor_offsets"], A=A, layout=layout)
+    seq_solve(to_dist(B[0], layout, plan), tol=args.tol, maxiter=50)
+    sync()
+
+    t0 = time.perf_counter()
+    for i in range(N):
+        seq_solve(to_dist(B[i], layout, plan), tol=tols[i],
+                  maxiter=cfg.maxiter)
+    sync()
+    t_seq = time.perf_counter() - t0
+
+    decides = mesh is None or mesh.rank == 0
+    futs = [svc.submit(B[i], tol=tols[i]) for i in range(N)] if decides \
+        else []
+    t0 = time.perf_counter()
+    results = svc.drain()
+    sync()
+    t_cont = time.perf_counter() - t0
+    resolved = [f.result() for f in futs]
+
+    # a second service over the same operator: pure cache hit
+    before = dict(cache.stats.as_dict())
+    SolveService(A, cfg, cache=cache, device=device, mesh=mesh)
+    return {"served": len(results), "resolved": resolved,
+            "iterations": [r.iterations for r in results],
+            "stats": engine.stats(), "t_seq": t_seq, "t_cont": t_cont,
+            "cache_before": before, "cache_after": cache.stats.as_dict()}
+
+
+def _rank_serve(mesh, args) -> dict:
+    out = serve(args, mesh)
+    if mesh.rank != 0:
+        out["resolved"] = []            # the results are whole on rank 0
+    return out
+
+
+def _requests(args):
+    """``(A, B, tols)``: the operator and the ``--requests`` RHS, per-request
+    tols cycling {tol, 3 tol, 10 tol}."""
+    import numpy as np
+
+    from repro_torch.sparse import graded_extruded_mesh_matrix
+
+    A = graded_extruded_mesh_matrix(args.n_surface, args.layers, seed=0)
+    B = np.random.default_rng(0).normal(size=(args.requests, A.n_rows))
+    return A, B, [args.tol * (1, 3, 10)[i % 3] for i in range(args.requests)]
+
+
+def _config(args):
+    from repro_torch.serve import EngineConfig
+
+    return EngineConfig(
+        nrhs=args.nrhs, n_node=args.n_node, n_core=args.n_core,
+        solver=args.solver, precond=args.precond, format=args.format,
+        transport=args.transport, check_every=args.check_every,
+        default_tol=args.tol)
 
 
 def main(argv=None) -> int:
@@ -53,63 +146,34 @@ def main(argv=None) -> int:
                          "at least this factor")
     ap.add_argument("--device", default="cuda",
                     help="where the service runs: cuda (default) or cpu")
+    ap.add_argument("--mesh", default="virtual",
+                    choices=["virtual", "process"],
+                    help="virtual: the grid on one device; process: one "
+                         "spawned gloo rank per shard")
     args = ap.parse_args(argv)
 
     import numpy as np
-    import torch
 
-    from repro_torch.core.spmv import to_dist
-    from repro_torch.serve import EngineConfig, PlanCache, SolveService
-    from repro_torch.solvers import make_solver
-    from repro_torch.sparse import graded_extruded_mesh_matrix
     from repro_torch.testing.refine_check import host_cg
 
-    def sync():
-        if torch.device(args.device).type == "cuda":
-            torch.cuda.synchronize()
-
-    A = graded_extruded_mesh_matrix(args.n_surface, args.layers, seed=0)
-    n = A.n_rows
-    N, K = args.requests, args.nrhs
-    rng = np.random.default_rng(0)
-    B = rng.normal(size=(N, n))
-    tols = [args.tol * (1, 3, 10)[i % 3] for i in range(N)]
-
-    cache = PlanCache()
-    cfg = EngineConfig(
-        nrhs=K, n_node=args.n_node, n_core=args.n_core,
-        solver=args.solver, precond=args.precond, format=args.format,
-        transport=args.transport, check_every=args.check_every,
-        default_tol=args.tol)
-    svc = SolveService(A, cfg, cache=cache, device=args.device)
-    engine = svc.engine
-    plan, layout = engine.plan, engine.layout
-
-    # one-at-a-time baseline: a warm make_solver on the same plan
-    seq_solve = make_solver(
-        plan, nrhs=None, solver=args.solver, precond=args.precond,
-        transport=args.transport,
-        neighbor_offsets=layout["neighbor_offsets"], A=A, layout=layout)
-    seq_solve(to_dist(B[0], layout, plan), tol=args.tol, maxiter=50)
-    sync()
-
-    t0 = time.perf_counter()
-    for i in range(N):
-        seq_solve(to_dist(B[i], layout, plan), tol=tols[i],
-                  maxiter=cfg.maxiter)
-    sync()
-    t_seq = time.perf_counter() - t0
-
-    futs = [svc.submit(B[i], tol=tols[i]) for i in range(N)]
-    t0 = time.perf_counter()
-    results = svc.drain()
-    sync()
-    t_cont = time.perf_counter() - t0
-    resolved = [f.result() for f in futs]
-
+    A, B, _ = _requests(args)
+    N = args.requests
     ok = True
-    served = (len(results) == len(resolved) == N)
-    print(f"SERVED {len(results)}/{N} {'ok' if served else 'BAD'}")
+    if args.mesh == "process":
+        from repro_torch.launch.mesh import spawn_cg_mesh
+        ranks = spawn_cg_mesh(_rank_serve, args.n_node, args.n_core,
+                              args.device, args=(args,), timeout=600)
+        out = ranks[0]
+        same = all(r["iterations"] == out["iterations"] for r in ranks)
+        print(f"RANKS {len(ranks)} ITERATIONS "
+              f"{'ok' if same else 'BAD'}")
+        ok &= same
+    else:
+        ranks = [out := serve(args)]
+    resolved = out["resolved"]
+
+    served = (out["served"] == len(resolved) == N)
+    print(f"SERVED {out['served']}/{N} {'ok' if served else 'BAD'}")
     ok &= served
 
     tr_max, dx_max = BOUNDS.get(args.solver, (2e-3, 5e-2))
@@ -125,12 +189,13 @@ def main(argv=None) -> int:
           f"{'ok' if conv else 'BAD'}")
     ok &= conv
 
-    st = engine.stats()
+    st = out["stats"]
     spliced = st["splices"] >= N        # every request entered via splice
     print(f"SPLICES {st['splices']} (>= {N}) CHUNKS {st['chunks']} "
           f"{'ok' if spliced else 'BAD'}")
     ok &= spliced
 
+    t_seq, t_cont = out["t_seq"], out["t_cont"]
     speedup = t_seq / max(t_cont, 1e-9)
     fast = speedup >= args.min_speedup
     print(f"MAKESPAN sequential {t_seq:.3f}s continuous {t_cont:.3f}s "
@@ -138,21 +203,21 @@ def main(argv=None) -> int:
           f"{'ok' if fast else 'BAD'}")
     ok &= fast
 
-    warm = st["recompiles"] == 0
-    print(f"RECOMPILES {st['recompiles']} EXECUTABLES {st['executables']} "
-          f"{'ok' if warm else 'BAD'}")
+    recompiles = [r["stats"]["recompiles"] for r in ranks]
+    warm = all(n == 0 for n in recompiles)
+    print(f"RECOMPILES {recompiles[0] if len(ranks) == 1 else recompiles} "
+          f"EXECUTABLES {st['executables']} {'ok' if warm else 'BAD'}")
     ok &= warm
 
-    # a second service over the same operator: pure cache hit
-    before = dict(cache.stats.as_dict())
-    SolveService(A, cfg, cache=cache, device=args.device)
-    after = cache.stats.as_dict()
-    hit = (after["plan_hits"] == before["plan_hits"] + 1
-           and after["program_hits"] == before["program_hits"] + 1
-           and after["plan_misses"] == before["plan_misses"]
-           and after["program_misses"] == before["program_misses"]
-           and after["compile_s"] == before["compile_s"])
-    print(f"CACHE {after} {'ok' if hit else 'BAD'}")
+    hit = True
+    for r in ranks:
+        before, after = r["cache_before"], r["cache_after"]
+        hit &= (after["plan_hits"] == before["plan_hits"] + 1
+                and after["program_hits"] == before["program_hits"] + 1
+                and after["plan_misses"] == before["plan_misses"]
+                and after["program_misses"] == before["program_misses"]
+                and after["compile_s"] == before["compile_s"])
+    print(f"CACHE {out['cache_after']} {'ok' if hit else 'BAD'}")
     ok &= hit
 
     print("OK" if ok else "FAIL")

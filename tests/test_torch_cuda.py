@@ -18,7 +18,9 @@ preconditioner's apply on the card within 2e-5 relative of the CPU's, and
 cg counts with block_jacobi / two_level within ±1 of the CPU's.  A plan
 whose column indices exceed its ``x`` is refused before any launch; a
 process mesh of 8 ranks on the card gives the virtual mesh's ghosts and
-``y`` bit for bit.
+``y`` bit for bit; on 4 ranks, two_level's iterations are the virtual
+mesh's ±1 and the resilient driver's chunked ``x`` is each rank's
+monolithic shard bit for bit.
 """
 import dataclasses
 import json
@@ -819,3 +821,67 @@ def test_process_mesh_on_the_card_is_the_virtual_mesh(golden):
 
     assert transport_check.main(["--mesh", "process", "--device", "cuda",
                                  "--case", "graded"]) == 0
+
+
+def _rank_layers(mesh, job):
+    """One rank of a 2x2 mesh on the card: two_level cg, then the
+    resilient driver (clean, against a monolithic solve; and ``nan@20``),
+    with the launches of the two_level solve."""
+    import torch
+
+    from repro_torch.launch.mesh import read_plan
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.solvers import resilient_solve
+
+    A = graded_extruded_mesh_matrix(48, 6, seed=0)
+    plan = read_plan(job["dir"], mesh)
+    bd = torch.from_numpy(np.array(job["bd"][mesh.node:mesh.node + 1,
+                                             mesh.core:mesh.core + 1])).to(
+        mesh.device)
+    solve = make_solver(plan, precond="two_level", A=A,
+                        layout=job["layout"])
+    reset_launches()
+    _, iters, _ = solve(bd, tol=3e-6, maxiter=400)
+    torch.cuda.synchronize()
+    out = {"two_level": int(iters), "launches": dict(LAUNCHES)}
+    xs, iters, _ = make_solver(plan, A=A, layout=job["layout"])(
+        bd, tol=1e-5, maxiter=2000)
+    kw = dict(layout=job["layout"], A=A, tol=1e-5, check_every=10)
+    out["mono"] = (int(iters), xs.cpu().numpy())
+    out["chunked"] = resilient_solve(plan, job["b"], **kw)
+    out["nan"] = resilient_solve(plan, job["b"], injector=FaultInjector.parse(
+        "nan@20", shard=(1, 1)), **kw)
+    return out
+
+
+def test_two_level_and_the_resilient_driver_on_a_process_mesh(golden):
+    """4 gloo ranks (2x2, sell) on this card: two_level's iterations equal
+    on every rank and within ±1 of the virtual mesh's on the card, its R
+    and P (ELL plans) launching B1 on every rank; the resilient driver's
+    chunked ``x`` bit for bit each rank's monolithic shard, and ``nan@20``
+    rolled back once with one trajectory on every rank."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_cg_mesh, write_plan
+
+    A, _, b = golden
+    plan, layout = build_spmv_plan(A, 2, 2, format="sell", device="cuda")
+    bd = to_dist(b, layout, plan)
+    want = int(make_solver(plan, precond="two_level", A=A, layout=layout)(
+        bd, tol=3e-6, maxiter=400)[1])
+    with tempfile.TemporaryDirectory() as d:
+        write_plan(plan, d)
+        ranks = spawn_cg_mesh(_rank_layers, 2, 2, "cuda", args=(
+            {"dir": d, "layout": layout, "bd": bd.cpu().numpy(), "b": b},),
+                              timeout=300)
+    its = [r["two_level"] for r in ranks]
+    assert all(i == its[0] for i in its) and abs(its[0] - want) <= 1
+    assert all(r["launches"]["fused_ell_spmv"] > 0 for r in ranks)
+    for r, res in enumerate(ranks):
+        iters, xs = res["mono"]
+        g = layout["global_row_of"][divmod(r, 2)]
+        assert int(res["chunked"].iters) == iters
+        assert np.array_equal(res["chunked"].x[g[g >= 0]].view(np.int32),
+                              xs[0, 0][g >= 0].view(np.int32))
+        assert res["nan"].rollbacks == 1 and res["nan"].converged
+        assert res["nan"].trajectory == ranks[0]["nan"].trajectory

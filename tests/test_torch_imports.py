@@ -40,8 +40,8 @@ def _imports(tree):
 
 def test_scan_covers_every_module_of_the_port():
     """The scans below walk the whole package: the verifier, the
-    collectives, the preconditioners, the test CLIs and the process mesh
-    among them."""
+    collectives, the preconditioners, the test CLIs, the process mesh and
+    the layers above the solvers that run on it among them."""
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"analysis/__init__.py", "analysis/report.py",
             "analysis/plan_check.py", "analysis/kernel_check.py",
@@ -50,7 +50,12 @@ def test_scan_covers_every_module_of_the_port():
             "testing/precond_check.py", "testing/analyze.py",
             "testing/dist_check.py", "testing/square_golden.py",
             "testing/bench_spmv.py", "launch/mesh.py",
-            "testing/transport_check.py"} <= names
+            "testing/transport_check.py", "core/transport.py",
+            "solvers/base.py", "solvers/__init__.py",
+            "solvers/resilient.py", "serve/engine.py", "serve/plans.py",
+            "serve/service.py", "launch/serve.py",
+            "testing/resilience_check.py", "testing/serve_check.py"} \
+        <= names
 
 
 def _root(name: str) -> str:

@@ -29,6 +29,7 @@ failure path.  The children get no jax compatibility shim (nothing they
 import needs jax).
 """
 import os
+import signal
 import time
 
 import numpy as np
@@ -120,21 +121,22 @@ def _rank_case(mesh, case):
                                    xs.numpy())
     out["reductions"] = reduction_census(make_solver(plan),
                                          _row(case["b"], mesh))
-    refused = {}
-    for what, build in (
-            ("two_level", lambda: make_solver(plan, precond="two_level",
-                                              A=case["A"],
-                                              layout=case["layout"])),
-            ("auto", lambda: make_spmv(plan, transport="auto")),
+    ran = {}
+    for what, run in (
+            ("two_level", lambda: int(make_solver(
+                plan, precond="two_level", A=case["A"],
+                layout=case["layout"])(_row(case["b"], mesh), tol=TOL,
+                                       maxiter=400)[1])),
+            ("auto", lambda: make_spmv(plan, transport="auto").transport),
             ("resilient", lambda: __import__(
                 "repro_torch.solvers.resilient",
-                fromlist=["make_resilient"]).make_resilient(plan))):
+                fromlist=["make_resilient"]).make_resilient(
+                    plan).transport)):
         try:
-            build()
-            refused[what] = None
+            ran[what] = (None, run())
         except ValueError as e:
-            refused[what] = str(e)
-    out["refused"] = refused
+            ran[what] = (str(e), None)
+    out["ran"] = ran
     return out
 
 
@@ -153,6 +155,15 @@ def _rank_fails(mesh):
     if mesh.rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
     time.sleep(60)          # the launcher must kill this rank
+
+
+def _rank_preempted(mesh):
+    """Rank 1 raises as a peer of a preempted rank might; rank 0 is
+    SIGKILLed a moment later (a preemption)."""
+    if mesh.rank == 1:
+        raise RuntimeError("a peer went away")
+    time.sleep(0.5)
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 # ---------------------------------------------------------------------- #
@@ -228,6 +239,11 @@ def ranks(cases, monkeypatch_module):
         for key in res[0]:
             out[key] = [r[key] for r in res]
     out["seconds"] = seconds
+    out["two_level_virtual"] = {
+        key: int(make_solver(c["plan"], precond="two_level", A=c["A"],
+                             layout=c["layout"])(
+            torch.from_numpy(c["b"]), tol=TOL, maxiter=400)[1])
+        for key, c in cases.items()}
     return out
 
 
@@ -348,10 +364,17 @@ def test_cg_loop_body_issues_two_reductions(key, ranks):
     ("resilient", "resilient driver runs on the virtual mesh only")])
 def test_virtual_only_entry_points_refuse_a_rank_local_plan(what, words,
                                                             ranks):
+    """These entry points once refused a rank-local plan with ``words``;
+    each now runs on every rank of every case, and every rank gets the
+    same result: two_level cg's iterations (equal to the virtual mesh's),
+    ``auto``'s winner, the resilient driver's transport."""
     for key in CASES:
-        for res in ranks[key]:
-            assert res["refused"][what] is not None, (key, what)
-            assert words in res["refused"][what]
+        got = [res["ran"][what] for res in ranks[key]]
+        errors = [err for err, _ in got if err is not None]
+        assert not errors, (key, what, errors[0])
+        assert all(v == got[0][1] for _, v in got), (key, what, got)
+        if what == "two_level":
+            assert got[0][1] == ranks["two_level_virtual"][key], key
 
 
 def test_spawns_finish_well_inside_their_timeout(ranks):
@@ -416,6 +439,17 @@ def test_a_failing_rank_ends_the_spawn_and_names_its_error(
     with pytest.raises(Exception, match="rank 1 fails on purpose"):
         spawn_cg_mesh(_rank_fails, 1, 2, "cpu", timeout=SPAWN_TIMEOUT)
     assert time.perf_counter() - t0 < 45.0
+
+
+def test_a_sigkilled_rank_is_reported_as_killed_over_a_peers_error(
+        monkeypatch_module):
+    """Whichever the launcher sees first, a SIGKILL among the ranks makes
+    the spawn end in ``RanksKilled`` with every exit code."""
+    from repro_torch.launch.mesh import RanksKilled
+
+    with pytest.raises(RanksKilled) as e:
+        spawn_cg_mesh(_rank_preempted, 1, 2, "cpu", timeout=SPAWN_TIMEOUT)
+    assert e.value.exitcodes == [-signal.SIGKILL, 1]
 
 
 # ---------------------------------------------------------------------- #

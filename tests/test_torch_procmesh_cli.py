@@ -1,5 +1,4 @@
-"""``dist_check`` and ``transport_check`` with ``--mesh process``, on gloo
-on the CPU.
+"""The test CLIs with ``--mesh process``, on gloo on the CPU.
 
 Each run spawns one rank per shard (``repro_torch.launch.mesh``) and holds
 the ranks to the virtual mesh: ``transport_check`` every rank's ghosts,
@@ -7,15 +6,24 @@ the ranks to the virtual mesh: ``transport_check`` every rank's ghosts,
 with the corrupting ``faulty`` registered); ``dist_check`` its lines,
 ``RANKS ok`` (every rank the same iterations) and its ``MESH`` line (each
 rank's ``y`` bit for bit its row of the virtual mesh's, cg iterations
-within ±1), with iteration counts within ±1 of ``--mesh virtual``'s.
-Four spawns, about 5 s each; the children get no jax compatibility shim.
+within ±1), with iteration counts within ±1 of ``--mesh virtual``'s,
+``--transport auto`` and the resilient driver (``--check-every``, an
+injected ``nan`` and a ``preempt`` that kills every rank) on the ranks.
+``precond_check``, ``resilience_check``, ``serve_check`` and
+``launch/serve`` with ``--mesh process``: their gates, each line's
+``mesh=`` / ``RANKS`` agreement, and ``launch/serve``'s iterations equal
+to the virtual mesh's.  Each run spawns its ranks (``resilience_check``
+three times, through its children); the children get no jax
+compatibility shim.
 """
 import os
 import re
 
 import pytest
 
-from repro_torch.testing import dist_check, transport_check
+from repro_torch.testing import (dist_check, precond_check,
+                                 resilience_check, serve_check,
+                                 transport_check)
 
 
 @pytest.fixture(autouse=True)
@@ -88,9 +96,97 @@ def test_dist_check_process_mesh_iterations_match_the_virtual_mesh(capsys):
 @pytest.mark.parametrize("argv", [["--check-every", "25", "--solver", "cg"],
                                   ["--transport", "auto"]])
 def test_dist_check_process_mesh_refuses_virtual_only_runs(argv, capsys):
-    assert dist_check.main(["--mesh", "process", "--device", "cpu",
-                            *argv]) == 2
-    assert "virtual mesh only" in capsys.readouterr().err
+    """These runs were once refused on a process mesh (exit 2, "virtual
+    mesh only"); both now run on the ranks and print the virtual mesh's
+    lines: the resilient driver's, and one ``auto`` winner for all."""
+    flags = ["--device", "cpu", *argv]
+    assert dist_check.main(flags) == 0
+    virtual = _lines(capsys)
+    assert dist_check.main(["--mesh", "process", *flags]) == 0
+    out = capsys.readouterr()
+    process = out.out.strip().splitlines()
+    assert "virtual mesh only" not in out.err and process[-1] == "OK"
+    if "--transport" in argv:
+        line = [ln for ln in process if ln.startswith("TRANSPORT")][0]
+        assert line.endswith("(auto)"), line
+    else:
+        res = [ln for ln in process if ln.startswith("RESILIENT")]
+        assert len(res) == 1 and res[0].endswith("ok")
+        assert res == [ln for ln in virtual if ln.startswith("RESILIENT")]
+
+
+def test_dist_check_process_mesh_rolls_back_an_injected_nan(capsys):
+    flags = ["--device", "cpu", "--solver", "cg,pipelined_cg",
+             "--check-every", "25", "--inject-fault", "nan@30"]
+    assert dist_check.main(flags) == 0
+    virtual = [ln for ln in _lines(capsys) if ln.startswith("RESILIENT")]
+    assert dist_check.main(["--mesh", "process", *flags]) == 0
+    process = [ln for ln in _lines(capsys) if ln.startswith("RESILIENT")]
+    assert process == virtual and len(process) == 2
+    assert all("ROLLBACKS 1" in ln for ln in process)
+
+
+def test_dist_check_process_mesh_preempt_kills_every_rank(tmp_path,
+                                                          capsys):
+    argv = ["--mesh", "process", "--device", "cpu", "--n-node", "2",
+            "--solver", "cg", "--check-every", "10", "--inject-fault",
+            "preempt@25", "--checkpoint-dir", str(tmp_path)]
+    assert dist_check.main(argv) == 137
+    assert "KILLED exit codes [-9, -9, -9, -9]" in _lines(capsys)
+    assert sorted(p.name for p in tmp_path.iterdir())[-1] == \
+        "step_000000020"
+
+
+def test_precond_check_process_mesh_holds_every_precond(capsys):
+    assert precond_check.main(["--mesh", "process", "--device", "cpu"]) \
+        == 0
+    lines = _lines(capsys)
+    pre = [ln for ln in lines if ln.startswith("PRECOND")]
+    assert lines[-1] == "OK" and len(pre) == 8      # 2 formats x 4
+    assert all("mesh=ok" in ln for ln in pre)
+
+
+def test_precond_check_process_mesh_fails_the_faulty_precond(capsys):
+    assert precond_check.main(["--mesh", "process", "--device", "cpu",
+                               "--formats", "ell", "--preconds",
+                               "jacobi,faulty", "--include-faulty"]) == 1
+    faulty = [ln for ln in _lines(capsys) if ln.startswith(
+        "PRECOND faulty")]
+    assert len(faulty) == 1 and "host=" in faulty[0] and "BAD" in faulty[0]
+
+
+def test_resilience_check_process_mesh_kill_and_resume(capsys):
+    assert resilience_check.main(["--mesh", "process", "--device",
+                                  "cpu"]) == 0
+    lines = _lines(capsys)
+    assert lines[-1] == "OK"
+    assert any(ln.startswith("VICTIM") and "[-9, -9, -9, -9, -9, -9, -9, "
+               "-9] killed-by-SIGKILL ok" in ln for ln in lines)
+    assert all("RANKS ok" in ln for ln in lines if ln.startswith("CHILD"))
+
+
+def test_serve_check_process_mesh(capsys):
+    assert serve_check.main(["--mesh", "process", "--device", "cpu",
+                             "--n-node", "2", "--n-core", "2",
+                             "--min-speedup", "0"]) == 0
+    lines = _lines(capsys)
+    assert lines[-1] == "OK" and "RANKS 4 ITERATIONS ok" in lines
+    assert any(ln.startswith("RECOMPILES [0, 0, 0, 0]") for ln in lines)
+
+
+def test_launch_serve_process_mesh_matches_the_virtual_mesh(capsys):
+    import json
+    from repro_torch.launch import serve
+
+    argv = ["--device", "cpu", "--n-node", "2", "--n-core", "2",
+            "--tol-spread"]
+    assert serve.main(argv) == 0
+    virtual = json.loads(_lines(capsys)[-1])
+    assert serve.main(["--mesh", "process", *argv]) == 0
+    process = json.loads(_lines(capsys)[-1])
+    assert process["ranks"] == 4 and process["ranks_agree"]
+    assert process["iterations"] == virtual["iterations"]
+    assert process["recompiles"] == 0
 
 
 def test_transport_check_process_mesh_refuses_autotune(capsys):
