@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only nccl]
 
-Run from the root of a checkout; needs one CUDA card and ``nvcc``, and
+Run from the root of a checkout; needs a CUDA card and ``nvcc``, and
 exits non-zero otherwise.  Every phase prints one JSON line; any failed
-check raises, so the exit code is not 0.
+check raises, so the exit code is not 0.  With no arguments every phase
+runs and one card suffices; ``--only nccl`` runs phases 1, 2, the matrix
+and 6m, then the kernels of 6m's path (at its shapes, against their plain
+versions) and the last lines, for a run on several cards.
 
 1. device   the card's name and power limit (``nvidia-smi``) and the
             rates the bounds use (3.35 TB/s and 67 TFLOP/s f32 for H100
@@ -202,18 +205,20 @@ check raises, so the exit code is not 0.
 6l. procmesh the process mesh (``repro_torch.launch.mesh``): 8 gloo
             ranks on this one card, each holding one shard of the full 4x2
             ell and sell plans of phase 5 (written once here, each rank
-            reading its own rows through ``plan_from_arrays``).  Per plan
-            and rank: one a2a f32 SpMV, bit for bit its row of the virtual
-            mesh's, then fused cg + jacobi to tol 1e-6 (iterations equal
-            on every rank and within ±1 of phase 5's, true relative
-            residual < 1e-4, iterates held to the virtual mesh's bit for
-            bit and reported), with the rank's launch counts zeroed just
-            before and read just after (B1 on ell, B2 on sell, every
-            rank); then ms per SpMV (median of 20 synchronised calls) and
-            per CG iteration against phase 5's virtual-mesh numbers, and
-            the share of the wall spent in the host-staged collectives.
-            The halo-free 1x8 ell and sell plans (B3, B4 on every rank) at
-            one SpMV, and
+            reading its own rows through ``plan_from_arrays``; the rank
+            loop and its report are phase 6m's, ``mesh_rank`` and
+            ``mesh_report``).  Per plan and rank: one a2a f32 SpMV, ``y``
+            and ghosts bit for bit its row of the virtual mesh's at 4x2,
+            then fused cg + jacobi to tol 1e-6 after a warm block
+            (iterations equal on every rank and within ±1 of the virtual
+            mesh's, true relative residual < 1e-4, iterates held to the
+            virtual mesh's bit for bit and reported), with the rank's
+            launch counts zeroed just before and read just after (B1 on
+            ell, B2 on sell, every rank); ms per SpMV (median of 20
+            CUDA-event runs, the ranks released together by a barrier)
+            and per CG iteration beside the virtual mesh's, and the
+            wire's ms by kind and share.  The halo-free 1x8 ell and sell
+            plans (B3, B4 on every rank) at one SpMV, and
             the golden 48x6 4x2 plans over every transport x wire dtype
             (``transport_check``'s process sweep: ghosts and ``y`` bit for
             bit, each rank's census equal to ``predicted_cost`` + 1
@@ -236,11 +241,52 @@ check raises, so the exit code is not 0.
             under 1e-4, 2e-4 at tol 1e-4; makespan reported, not gated);
             and ``resilience_check --mesh process --device cuda``.  Eight processes share one card and
             their wire is host memory: no inter-node wire is measured;
+6m. nccl     the process mesh on NCCL, one rank per card (rank ``r`` on
+            ``cuda:r``, every card of this host; the first line names
+            NCCL's version and the cards, and which grids ran and which
+            need more cards).  A mesh of one rank more than the cards
+            must be refused before any process starts.  On the full
+            matrix of phase 5, ell and sell, a2a: 1x1 on one card; 2x1
+            and 1x2 on two; 4x1 ("MPI"), 2x2 (hybrid) and 1x4
+            (halo-free, B3/B4) on four, a further mesh of each grid over
+            one spawned group.  Per grid and plan against the virtual
+            mesh at that grid (on card 0): every rank's ``y`` and a2a
+            ghosts bit for bit its row; ms per SpMV (median of 20
+            CUDA-event runs, the ranks released together by a barrier);
+            cg + jacobi to 1e-6 with iterations equal on every rank
+            (and to the virtual mesh's at 1x1, ±1 elsewhere), a true
+            relative residual < 1e-4, wall ms per iteration, device ms
+            and NCCL-kernel ms per iteration and device launches per
+            iteration (``torch.profiler``, 32 iterations a rank), the
+            wire's ms by kind (CUDA events) and share; every rank
+            launched its kernel.  At world 1 no collective moves data.
+            Per grid the wire probe of 6l on the cards, and
+            ``host_split``: the host's CPUs, each rank's affinity and
+            threads, a bare c10d ``all_gather_into_tensor`` loop (no port
+            code), and both again with each rank's threads pinned to its
+            own share of the CPUs.  Then ``nccl_scaling``: speedup and
+            efficiency per card of ms per SpMV and per CG iteration
+            against the 1x1 NCCL mesh.
+            On four cards, on the 2x2 plans of the same ranks:
+            ``transport_check``'s sweep on the full sell plan (every
+            transport x wire dtype bit for bit the virtual mesh's
+            ``a2a``, census = ``predicted_cost`` + 1), ``auto`` (one
+            winner), two_level agg 256 (±1 of the virtual 2x2's, equal
+            on every rank), the resilient driver (chunks of 50 bit for
+            bit monolithic, ``nan@60`` rolled back once on every rank)
+            and the service (phase ``procmesh``'s 5 requests: iterations
+            ±1 of the virtual 2x2 service's, ``recompiles`` 0).  Nothing
+            falls back to gloo: a failed NCCL start fails the phase;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
    time), the ``nvidia-smi`` line, and the last line ``{"ok": true,
-   "device": {...}}``.
+   "device": {...}}``.  Under ``--only nccl`` the kernels line holds the
+   kernels of 6m's path, each held to its plain version and timed at the
+   shapes 6m gave it, with its launches over every rank: on one card B3
+   and B4 (1x1); on four B1-B4 (2x2, 1x4), B1 at the 2x2 two_level's R
+   and P (with that run's launches) and the batched B2 at the 2x2
+   service's k (with the service's launches).
 
 ``library_ms`` is one ``torch.sparse`` CSR matvec of the same global
 matrix (cuSPARSE) — the yardstick only; the port never calls it.
@@ -275,6 +321,14 @@ FLAT_ELL = ("ell_spmv/flat", "src/repro/kernels/spmv_bcsr.py:58",
 SOURCE = "src/repro_torch/kernels/csrc/spmv.cu"
 #: plan -> the kernel its single-column SpMV launches
 KERNELS_OF = {key: name for name, (key, _) in KERNELS.items()}
+
+
+def kernel_of(fmt: str, halo: bool) -> str:
+    """The single-column kernel a plan of format ``fmt`` launches, with
+    a halo or without."""
+    return {("ell", True): "fused_ell_spmv", ("ell", False): "ell_spmv",
+            ("sell", True): "fused_sell_spmv",
+            ("sell", False): "sell_spmv"}[(fmt, halo)]
 
 
 def emit(phase: str, **kw) -> None:
@@ -473,15 +527,18 @@ def measure(phase: str, row: dict, kern, plain, in_bytes: int, flops: int,
     return row
 
 
-def phase_kernels(plans, x, bw, f32_peak) -> dict:
-    """Each kernel vs its plain version on its plan's main-path inputs."""
+def phase_kernels(plans, x, bw, f32_peak, keys: dict | None = None) -> dict:
+    """Each kernel vs its plain version on its plan's main-path inputs
+    (``keys``: kernel -> plan key, by default ``KERNELS``'s)."""
     import torch
 
     from repro_torch.core import make_shard_body, to_dist
     from repro_torch.sparse import get_format
 
+    if keys is None:
+        keys = {name: key for name, (key, _) in KERNELS.items()}
     results = {}
-    for name, (key, _) in KERNELS.items():
+    for name, key in keys.items():
         plan, layout = plans[key]
         fmt = get_format(plan.format)
         body = make_shard_body(plan)
@@ -717,10 +774,12 @@ def phase_full(A, plans, x, b) -> tuple[dict, dict]:
     return launches, rows
 
 
-def device_profile(fn) -> tuple[dict, int]:
+def device_profile(fn, host: dict | None = None) -> tuple[dict, int]:
     """``torch.profiler`` over one call of ``fn`` (then a synchronise):
     device ms by kernel name and the number of device launches (kernels,
-    copies and fills on the card)."""
+    copies and fills on the card); ``host``, where given, gathers the
+    host ms of the process-group calls by name (the ``c10d::``
+    operators)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -735,18 +794,22 @@ def device_profile(fn) -> tuple[dict, int]:
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.device_time_total / 1e3)
             launches += 1
+        elif host is not None and ev.name.startswith("c10d::"):
+            host[ev.name] = host.get(ev.name, 0.0) + ev.cpu_time_total / 1e3
     return by_name, launches
 
 
-def profile_solve(solve, bd, iters: int = 64) -> tuple[dict, int]:
+def profile_solve(solve, bd, iters: int = 64,
+                  host: dict | None = None) -> tuple[dict, int]:
     """Device time by kernel and launches over exactly ``iters``
-    iterations of ``solve`` (tol 0, after a warm block)."""
+    iterations of ``solve`` (tol 0, after a warm block); ``host`` as in
+    ``device_profile``."""
     solve(bd, tol=0.0, maxiter=CHECK_EVERY)             # warm
     box = {}
 
     def run():
         box["k"] = int(solve(bd, tol=0.0, maxiter=iters)[1])
-    by_name, launches = device_profile(run)
+    by_name, launches = device_profile(run, host)
     check(box["k"] == iters, f"profile: {box['k']} != {iters} iterations")
     return by_name, launches
 
@@ -1205,10 +1268,8 @@ def phase_rect(A, plans, bw, f32_peak) -> tuple[dict, dict]:
 
     from repro_torch.analysis import check_kernel_streams, check_plan
     from repro_torch.core import (available_transports, build_spmv_plan,
-                                  from_dist, make_shard_body, make_spmv,
-                                  to_dist)
+                                  from_dist, make_spmv, to_dist)
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.sparse import get_format
     from repro_torch.testing import rect_check
     from repro_torch.testing.transport_check import bits_equal
 
@@ -1281,30 +1342,41 @@ def phase_rect(A, plans, bw, f32_peak) -> tuple[dict, dict]:
     for name in KERNELS:
         check(launches[name] > 0, f"{name} never launched in rect")
 
+    rows = rect_kernels({f"{fmt}/{key}": (f"{fmt}/4x2/{key}", *pl,
+                                          mats[key], xs[key])
+                         for (fmt, key), pl in built.items()}, bw, f32_peak)
+    del built
+    return launches, rows
+
+
+def rect_kernels(built: dict, bw, f32_peak) -> dict:
+    """The kernel at each rectangular plan's shapes against its plain
+    version, timed as in phase 3, with the library's time for the same
+    matrix (``built``: label -> (plan name, plan, layout, host matrix,
+    x)); the rows by label."""
+    from repro_torch.core import make_shard_body, to_dist
+    from repro_torch.sparse import get_format
+
     rows = {}
-    for (fmt, key), (plan, layout) in built.items():
-        fobj = get_format(fmt)
+    for label, (name, plan, layout, M, x) in built.items():
+        fobj = get_format(plan.format)
         xl, xg = make_shard_body(plan).inputs(
-            to_dist(xs[key], layout, plan, space="col"))
+            to_dist(x, layout, plan, space="col"))
         F = plan.fmt_data
         byts, flops, stored = kernel_cost(fobj, F, xl, xg)
-        kname = {("ell", True): "fused_ell_spmv", ("ell", False): "ell_spmv",
-                 ("sell", True): "fused_sell_spmv",
-                 ("sell", False): "sell_spmv"}[(fmt, xg is not None)]
         row = measure(
-            "rect_kernel", {"kernel": kname, "plan": f"{fmt}/4x2/{key}",
-                            "dtype": "float32",
+            "rect_kernel", {"kernel": kernel_of(plan.format, xg is not None),
+                            "plan": name, "dtype": "float32",
                             "x_local": list(xl.shape),
                             "x_ghost": None if xg is None else list(xg.shape)},
             lambda: fobj.matvec_kernel(F, xl, xg, plan.rc_pad),
             lambda: fobj.matvec_plain(F, xl, xg, plan.rc_pad),
             byts, flops, bw, f32_peak,
             None if stored is None else {"stored": stored})
-        row["library_ms"] = library_ms(mats[key], xs[key])
-        emit("rect_library", plan=row["plan"], ms=row["library_ms"])
-        rows[f"{fmt}/{key}"] = row
-    del built
-    return launches, rows
+        row["library_ms"] = library_ms(M, x)
+        emit("rect_library", plan=name, ms=row["library_ms"])
+        rows[label] = row
+    return rows
 
 
 #: the reference's scaling counts under jax 0.9.0 (ROADMAP A0): CG tol
@@ -1495,12 +1567,14 @@ def spmm_ms(A, k: int) -> float:
     return time_ms(lambda: csr @ X)
 
 
-def serve_kernels(A, plans, bw, f32_peak) -> dict:
-    """Each batched kernel at k = SERVE_KS on its full-size plan, f32 and
+def serve_kernels(A, plans, bw, f32_peak, keys: dict | None = None,
+                  ks=SERVE_KS) -> dict:
+    """Each batched kernel at each k of ``ks`` on its full-size plan
+    (``keys``: kernel -> plan key, by default ``BATCHED``'s), f32 and
     bf16: every column bit for bit the single-column kernel, the whole
-    within 2e-5·max|y| of the plain version; f32 timed, with the interleave
-    copy alone beside it.  Returns the k = SERVE_NRHS rows by kernel
-    name."""
+    within 2e-5·max|y| of the plain version; f32 timed, with the
+    interleave copy alone beside it.  Returns the k = SERVE_NRHS rows by
+    kernel name."""
     import numpy as np
     import torch
 
@@ -1508,14 +1582,16 @@ def serve_kernels(A, plans, bw, f32_peak) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.sparse import get_format
 
+    if keys is None:
+        keys = {name: key for name, (key, _) in BATCHED.items()}
     rng = np.random.default_rng(SEED + 5)
-    lib = {k: spmm_ms(A, k) for k in SERVE_KS}
+    lib = {k: spmm_ms(A, k) for k in ks}
     rows = {}
-    for name, (key, _) in BATCHED.items():
+    for name, key in keys.items():
         plan, layout = plans[key]
         fmt = get_format(plan.format)
         body = make_shard_body(plan)
-        for k in SERVE_KS:
+        for k in ks:
             X = torch.stack([to_dist(rng.standard_normal(A.n_rows), layout,
                                      plan) for _ in range(k)])
             xl, xg = body.inputs(X)
@@ -1961,93 +2037,145 @@ PROCMESH_REQUESTS = 5
 PROCMESH_TWO_LEVEL = {"agg_size": 256, "smoother": "jacobi"}
 
 
-def procmesh_rank(mesh, job: dict) -> dict:
-    """One rank of phase ``procmesh``: its shard of each plan, one SpMV,
-    a fused CG solve and their timings, the halo-free SpMV on a 1x8 mesh
-    over the same ranks, and the golden transport sweep."""
+def mesh_rank(mesh, job: dict) -> dict:
+    """One rank of a process-mesh phase (``procmesh`` on gloo, ``nccl``
+    one rank per card).  For each of ``job["keys"]`` (its grid a further
+    mesh over the spawned group where it differs): one SpMV (``y``, the
+    a2a ghosts, launches) and ms per SpMV (median of ``REPS`` CUDA-event
+    runs, each started with every card idle and the ranks released
+    together by a barrier, host control, not timed), with the wire's ms
+    by kind; for those in ``job["solve"]`` cg + jacobi to 1e-6 after a
+    warm block (wall ms, the wire, launches, ``x``) and, with
+    ``job["profile"]``, its device profile.  Then the wire probe on each
+    mesh that solved (``job["wheres"]``; ``job["host_split"]`` adds
+    ``host_split``), ``job["sweep"]`` (``transport_check``'s process
+    sweep) and ``job["layers"]``, the layers above the solvers
+    (``procmesh_layers``)."""
     import numpy as np
     import torch
 
-    from repro_torch.core import make_spmv
-    from repro_torch.core.collectives import WIRE, reset_wire
+    from repro_torch.core import make_exchange, make_spmv
+    from repro_torch.core.collectives import CONTROL, WIRE, reset_wire
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.mesh import make_cg_mesh, read_plan
     from repro_torch.solvers import make_solver
     from repro_torch.testing.transport_check import rank_sweep
 
     def sync():
-        if mesh.device.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize(mesh.device)
 
-    def row(a, m):
+    def vec(key, name, m):
+        a = np.load(f"{job['vecs'][key]}/{name}.npy", mmap_mode="r")
         return torch.from_numpy(np.array(
             a[m.node:m.node + 1, m.core:m.core + 1])).to(m.device)
 
-    def spmv_ms(spmv, x):
-        """Median wall ms of ``REPS`` synchronised calls, and the wire's
-        share of them."""
-        spmv(x)
-        times, wire = [], 0.0
+    def wire_ms(by_kind) -> dict:
+        return {k: v * 1e3 for k, v in by_kind.items() if k != CONTROL}
+
+    meshes = {(mesh.n_node, mesh.n_core): mesh}
+    solved = []
+    out = {"device": str(mesh.device)}
+    for key in job["keys"]:
+        shape = tuple(int(v) for v in key.split("/")[1].split("x"))
+        if shape not in meshes:
+            meshes[shape] = make_cg_mesh(*shape, device=mesh.device,
+                                         backend=mesh.backend,
+                                         rank=mesh.rank,
+                                         world_size=mesh.world_size)
+        m = meshes[shape]
+        plan = read_plan(job["dirs"][key], m)
+        x = vec(key, "x", m)
+        spmv = make_spmv(plan)
+        reset_launches()
+        y = spmv(x)
+        ghost = make_exchange(plan, "a2a")(x) if plan.hs else None
+        sync()
+        launches = dict(LAUNCHES)
+        for _ in range(3):
+            spmv(x)
+        times, by_kind = [], {}
         for _ in range(REPS):
             sync()
+            m.barrier()
             reset_wire()
-            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             spmv(x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            for k, v in WIRE["by_kind"].items():
+                by_kind[k] = by_kind.get(k, 0.0) + v
+        row = {"y": y.cpu().numpy(),
+               "ghost": None if ghost is None else ghost.cpu().numpy(),
+               "launches": launches, "spmv_ms": statistics.median(times),
+               "spmv_wire_ms_by_kind": {
+                   k: v / REPS for k, v in wire_ms(by_kind).items()}}
+        if key in job["solve"]:
+            b = vec(key, "b", m)
+            solve = make_solver(plan, solver="cg", precond="jacobi",
+                                check_every=CHECK_EVERY)
+            solve(b, tol=0.0, maxiter=CHECK_EVERY)          # warm
             sync()
-            times.append((time.perf_counter() - t0) * 1e3)
-            wire += WIRE["seconds"] * 1e3
-        return statistics.median(times), wire / sum(times)
-
-    out = {}
-    for key in PROCMESH_PLANS:
-        plan = read_plan(job["dirs"][key], mesh)
-        x, b = row(job["x"][key], mesh), row(job["b"][key], mesh)
-        spmv = make_spmv(plan)
-        solve = make_solver(plan, solver="cg", precond="jacobi",
-                            check_every=CHECK_EVERY)
-        reset_launches()
-        y = spmv(x)
-        sync()
-        reset_wire()
-        t0 = time.perf_counter()
-        xs, iters, rel = solve(b, tol=1e-6, maxiter=10_000)
-        sync()
-        ms = (time.perf_counter() - t0) * 1e3
-        wire = dict(WIRE)
-        launches = dict(LAUNCHES)
-        s_ms, s_wire = spmv_ms(spmv, x)
-        out[key] = {"y": y.cpu().numpy(), "x": xs.cpu().numpy(),
-                    "iters": int(iters), "rel": float(rel), "ms": ms,
-                    "wire": wire, "launches": launches, "spmv_ms": s_ms,
-                    "spmv_wire_share": s_wire}
-        del plan, spmv, solve
-    mesh18 = make_cg_mesh(1, 8, device=mesh.device, backend="gloo",
-                          rank=mesh.rank, world_size=8)
-    for key in PROCMESH_HALOFREE:
-        plan = read_plan(job["dirs"][key], mesh18)
-        x = row(job["x"][key], mesh18)
-        spmv = make_spmv(plan)
-        reset_launches()
-        y = spmv(x)
-        sync()
-        launches = dict(LAUNCHES)
-        s_ms, s_wire = spmv_ms(spmv, x)
-        out[key] = {"y": y.cpu().numpy(), "launches": launches,
-                    "spmv_ms": s_ms, "spmv_wire_share": s_wire}
+            m.barrier()
+            reset_wire()
+            reset_launches()
+            t0 = time.perf_counter()
+            xs, iters, rel = solve(b, tol=1e-6, maxiter=10_000)
+            sync()
+            row.update(ms=(time.perf_counter() - t0) * 1e3,
+                       wire={"calls": WIRE["calls"], "bytes": WIRE["bytes"],
+                             "ms_by_kind": wire_ms(WIRE["by_kind"])},
+                       iters=int(iters), rel=float(rel), x=xs.cpu().numpy())
+            for k, v in LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v
+            if job.get("profile"):
+                host = {}
+                prof, dev = profile_solve(solve, b, NCCL_PROFILE_ITERS,
+                                          host=host)
+                row.update(
+                    device_ms_per_iter=sum(prof.values())
+                    / NCCL_PROFILE_ITERS,
+                    nccl_ms_per_iter=sum(t for n, t in prof.items()
+                                         if "nccl" in n.lower())
+                    / NCCL_PROFILE_ITERS,
+                    device_launches_per_iter=dev / NCCL_PROFILE_ITERS,
+                    host_c10d_ms_per_iter={k: v / NCCL_PROFILE_ITERS
+                                           for k, v in host.items()})
+            if shape not in solved:
+                solved.append(shape)
+            del solve
+        out[key] = row
         del plan, spmv
-    out["golden"] = rank_sweep(mesh, job["golden"])
-    out["wire_probe"] = wire_probe(mesh, sync)
-    out["layers"] = procmesh_layers(mesh, job, sync, out["sell/4x2"])
+    out["wire_probe"] = {}
+    for n, c in solved:
+        probe = wire_probe(meshes[(n, c)], sync, wheres=job["wheres"])
+        if job.get("host_split"):
+            probe.update(host_split(meshes[(n, c)], sync))
+        out["wire_probe"][f"{n}x{c}"] = probe
+    if job.get("sweep"):
+        shape = tuple(job["sweep"][0]["shape"])
+        out["sweep"] = rank_sweep(meshes.get(shape, mesh), job["sweep"])
+    if job.get("layers"):
+        lj = job["layers"]
+        layers = dict(lj, dirs=job["dirs"], b={
+            k: np.load(f"{job['vecs'][k]}/b.npy", mmap_mode="r")
+            for k in lj["keys"]})
+        shape = tuple(int(v) for v in lj["sell"].split("/")[1].split("x"))
+        out["layers"] = procmesh_layers(meshes[shape], layers, sync,
+                                        out[lj["sell"]])
     return out
 
 
 def procmesh_layers(mesh, job, sync, mono: dict) -> dict:
-    """The layers above the solvers on one rank of phase ``procmesh``:
-    the autotuner on both 4x2 plans, then on the sell plan two_level and
-    the resilient driver (chunks of 50: clean, against ``mono``, this
-    rank's monolithic solve, and with ``nan@60``), then the service.
-    Launch counts and the wire are zeroed just before each run and read
-    just after."""
+    """The layers above the solvers on one rank of a process mesh (phase
+    ``procmesh``, or ``nccl``'s 2x2): the autotuner on ``job["keys"]``'s
+    plans, then on the sell plan ``job["sell"]`` two_level and the
+    resilient driver (chunks of 50: clean, against ``mono``, this rank's
+    monolithic solve, and with ``nan@60`` at ``job["nan_shard"]``), then
+    the service on the mesh's grid.  Launch counts and the wire are zeroed
+    just before each run and read just after."""
     import numpy as np
     import torch
 
@@ -2072,7 +2200,7 @@ def procmesh_layers(mesh, job, sync, mono: dict) -> dict:
 
     out = {"auto": {}}
     A, layout, b = job["A"], job["layout"], job["b_global"]
-    for key in PROCMESH_PLANS:
+    for key in job["keys"]:
         plan = read_plan(job["dirs"][key], mesh)
         t0 = time.perf_counter()
         res = autotune_transport(plan, iters=5, reps=3)
@@ -2081,8 +2209,8 @@ def procmesh_layers(mesh, job, sync, mono: dict) -> dict:
                             "seconds": time.perf_counter() - t0}
         del plan
 
-    plan = read_plan(job["dirs"]["sell/4x2"], mesh)
-    bd = torch.from_numpy(np.array(job["b"]["sell/4x2"][
+    plan = read_plan(job["dirs"][job["sell"]], mesh)
+    bd = torch.from_numpy(np.array(job["b"][job["sell"]][
         mesh.node:mesh.node + 1, mesh.core:mesh.core + 1])).to(mesh.device)
     t0 = time.perf_counter()
     solve = make_solver(plan, solver="cg", precond="two_level", A=A,
@@ -2113,14 +2241,15 @@ def procmesh_layers(mesh, job, sync, mono: dict) -> dict:
                                       mono["x"][0, 0][g >= 0].view(
                                           np.int32))))
     nan = resilient_solve(plan, b, injector=FaultInjector.parse(
-        "nan@60", shard=(2, 1)), **kw)
+        "nan@60", shard=job["nan_shard"]), **kw)
     row.update(nan_rollbacks=nan.rollbacks, nan_iters=int(nan.iters),
                nan_converged=nan.converged, nan_rel=float(nan.rel),
                nan_trajectory=nan.trajectory)
     out["resilient"] = row
     del plan
 
-    cfg = EngineConfig(nrhs=SERVE_NRHS, n_node=4, n_core=2, format="sell",
+    cfg = EngineConfig(nrhs=SERVE_NRHS, n_node=mesh.n_node,
+                       n_core=mesh.n_core, format="sell",
                        transport="a2a", wire_dtype="f32", solver="cg",
                        precond="jacobi", check_every=SERVE_CHECK_EVERY)
     t0 = time.perf_counter()
@@ -2143,12 +2272,18 @@ def procmesh_layers(mesh, job, sync, mono: dict) -> dict:
     return out
 
 
-def wire_probe(mesh, sync, calls: int = 50) -> dict:
+def wire_probe(mesh, sync, calls: int = 50,
+               wheres=("host", "card")) -> dict:
     """ms per call of the process mesh's collectives on host tensors and
     on the card's, same payloads: what gloo's loopback costs alone, and
-    what staging through the host adds on the card.  A ``psum`` of one
-    float over the world; a core-axis ``all_gather`` of one ``x`` shard
-    of the full 4x2 plans (353,760 floats)."""
+    what staging through the host adds on the card (an NCCL mesh takes
+    card tensors only).  A ``psum`` of one float over the world; a
+    core-axis ``all_gather`` of one ``x`` shard of the full 4x2 plans
+    (353,760 floats).  ``<op>_<where>_ms``: ``calls`` calls back to back
+    between two syncs; on the card also ``<op>_card_issue_us``, the
+    host's time to issue one call (before the closing sync), and
+    ``<op>_card_sync_ms``, one call followed by a sync, each started from
+    a barrier."""
     import torch
 
     from repro_torch.core.collectives import all_gather, psum
@@ -2159,143 +2294,307 @@ def wire_probe(mesh, sync, calls: int = 50) -> dict:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
+        issued = time.perf_counter()
         sync()
-        return (time.perf_counter() - t0) * 1e3 / calls
+        return ((time.perf_counter() - t0) * 1e3 / calls,
+                (issued - t0) * 1e6 / calls)
+
+    def round_trip(fn):
+        times = []
+        for _ in range(REPS):
+            sync()
+            mesh.barrier()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
 
     out = {}
-    for where in ("host", "card"):
+    for where in wheres:
         dev = "cpu" if where == "host" else mesh.device
         one = torch.ones((1, 1), device=dev)
         x = torch.ones((1, 1, 353_760), device=dev)
-        out[f"psum_{where}_ms"] = per_call(lambda: psum(one, mesh=mesh))
-        out[f"gather_{where}_ms"] = per_call(
-            lambda: all_gather(x, "core", mesh=mesh))
+        for op, fn in (("psum", lambda: psum(one, mesh=mesh)),
+                       ("gather", lambda: all_gather(x, "core",
+                                                     mesh=mesh))):
+            out[f"{op}_{where}_ms"], issue = per_call(fn)
+            if where == "card":
+                out[f"{op}_card_issue_us"] = issue
+                out[f"{op}_card_sync_ms"] = round_trip(fn)
     return out
 
 
-def phase_procmesh(A, plans, x, b, full_rows, smi, two_level: dict,
-                   service: dict) -> dict:
+def host_split(mesh, sync, calls: int = 50) -> dict:
+    """What a collective costs the issuing host apart from the port, each
+    ``calls`` times back to back, issued (µs a call, before the closing
+    sync) and done (ms a call): ``launch_*`` one elementwise kernel (the
+    host's launch cost), ``direct_*`` NCCL without c10d (an
+    ``all_gather`` of one float on a one-card communicator of this
+    rank's card, ``torch.cuda.nccl``), ``bare_*`` c10d alone (an
+    ``all_gather_into_tensor`` of one float a rank over the world group;
+    no events, no port code).  Also the host's CPUs and this rank's
+    affinity and threads; then ``bare_*`` and ``wire_probe``'s card
+    probe again with every thread of each rank pinned to its own share
+    of the CPUs (``pinned_*``), and the affinity put back."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    inp = torch.ones(1, device=mesh.device)
+    got = torch.empty(mesh.world_size, device=mesh.device)
+    one = torch.empty(1, device=mesh.device)
+
+    def per_call(fn):
+        fn()
+        sync()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        issued = time.perf_counter()
+        sync()
+        return ((issued - t0) * 1e6 / calls,
+                (time.perf_counter() - t0) * 1e3 / calls)
+
+    def bare():
+        return per_call(lambda: dist.all_gather_into_tensor(
+            got, inp, group=mesh.world))
+
+    def pin(cpus):
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                os.sched_setaffinity(int(tid), cpus)
+            except ProcessLookupError:      # a thread that has ended
+                pass
+
+    cpus = sorted(os.sched_getaffinity(0))
+    out = {"cpus": os.cpu_count(), "affinity": len(cpus),
+           "threads": len(os.listdir("/proc/self/task")),
+           "torch_threads": torch.get_num_threads()}
+    out["launch_issue_us"], out["launch_ms"] = per_call(lambda: inp.mul_(1))
+    if mesh.device.type == "cuda":
+        out["direct_issue_us"], out["direct_ms"] = per_call(
+            lambda: torch.cuda.nccl.all_gather([inp], [one]))
+    out["bare_gather_issue_us"], out["bare_gather_ms"] = bare()
+    share = len(cpus) // mesh.world_size
+    mine = cpus[mesh.rank * share:(mesh.rank + 1) * share] or cpus
+    pin(mine)
+    try:
+        out["pinned_cpus"] = len(mine)
+        (out["pinned_bare_gather_issue_us"],
+         out["pinned_bare_gather_ms"]) = bare()
+        out.update({f"pinned_{k}": v for k, v in wire_probe(
+            mesh, sync, calls, wheres=("card",)).items()})
+    finally:
+        pin(cpus)
+    return out
+
+
+def write_job(plans: dict, x, b, d: str) -> dict:
+    """Write each of ``plans`` (key -> (plan, layout)) and its
+    distributed ``x`` and ``b`` under ``d``, for the ranks of a spawned
+    mesh to read their rows of: the job's ``keys``, ``dirs`` and
+    ``vecs``."""
+    import numpy as np
+
+    from repro_torch.core import to_dist
+    from repro_torch.launch.mesh import write_plan
+
+    job = {"keys": list(plans), "dirs": {}, "vecs": {}}
+    for key, (plan, layout) in plans.items():
+        tag = key.replace("/", "_")
+        job["dirs"][key] = str(write_plan(plan, f"{d}/{tag}"))
+        job["vecs"][key] = f"{d}/{tag}_vec"
+        Path(job["vecs"][key]).mkdir(parents=True)
+        for name, v in (("x", x), ("b", b)):
+            np.save(f"{job['vecs'][key]}/{name}.npy",
+                    to_dist(v, layout, plan).cpu().numpy())
+    return job
+
+
+def virtual_row(plan, layout, x, b, solve: bool = True) -> dict:
+    """The virtual mesh at a process mesh's grid, on this process's card:
+    one SpMV (``y``, the a2a ghosts) and its ms, and with ``solve`` cg +
+    jacobi to 1e-6 (``x``, iterations, ms/iteration)."""
+    import torch
+
+    from repro_torch.core import make_exchange, make_spmv, to_dist
+    from repro_torch.solvers import make_solver
+    from repro_torch.testing.transport_check import plan_on
+
+    vplan = plan_on(plan, DEVICE)
+    xv = to_dist(x, layout, vplan)
+    spmv = make_spmv(vplan)
+    y = spmv(xv)
+    ghost = make_exchange(vplan, "a2a")(xv) if vplan.hs else None
+    row = {"y": y.cpu().numpy(),
+           "ghost": None if ghost is None else ghost.cpu().numpy(),
+           "spmv_ms": time_ms(lambda: spmv(xv))}
+    if solve:
+        xs, iters, rel, ms, iters_run = solve_timed(
+            make_solver(vplan, solver="cg", precond="jacobi",
+                        check_every=CHECK_EVERY),
+            to_dist(b, layout, vplan))
+        row.update(x=xs.cpu().numpy(), iters=iters, rel=rel,
+                   ms_per_iter=ms / iters_run)
+    torch.cuda.synchronize()
+    return row
+
+
+def mesh_report(phase: str, A, b64, smi, key, plan, layout, res: list,
+                want: dict) -> dict:
+    """One plan of a process-mesh phase on every rank (``res``, rank
+    order) against the virtual mesh at that grid (``want``,
+    ``virtual_row``'s): ``y`` and ghosts bit for bit, every rank launched
+    its kernel; where the ranks solved, cg's iterations equal on every
+    rank (and to the virtual mesh's on one rank, within ±1 elsewhere),
+    the true residual, the iterates against the virtual mesh's
+    (reported); one ``phase`` line, returned."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import from_dist
+
+    grid, world = plan.n_core, len(res)
+    y_ok = all(np.array_equal(r["y"][0, 0].view(np.int32),
+                              want["y"][divmod(i, grid)].view(np.int32))
+               for i, r in enumerate(res))
+    g = plan.g_pad
+    ghost_ok = None if want["ghost"] is None else all(
+        np.array_equal(r["ghost"][0, 0, :g].view(np.int32),
+                       want["ghost"][divmod(i, grid)][:g].view(np.int32))
+        for i, r in enumerate(res))
+    kernel = kernel_of(plan.format, bool(plan.hs))
+    row = {"plan": key, "ranks": world, "spmv_bitwise": y_ok,
+           "ghosts_bitwise": ghost_ok,
+           "spmv_ms": max(r["spmv_ms"] for r in res),
+           "spmv_ms_by_rank": [r["spmv_ms"] for r in res],
+           "spmv_wire_ms_by_kind_rank0": res[0]["spmv_wire_ms_by_kind"],
+           "virtual_spmv_ms": want["spmv_ms"], "kernel": kernel,
+           "kernel_launches_per_rank": [r["launches"][kernel]
+                                        for r in res]}
+    if "iters" in res[0]:
+        its = [r["iters"] for r in res]
+        xg = from_dist(torch.from_numpy(np.concatenate(
+            [r["x"] for r in res]).reshape(plan.cg_shape)), layout,
+            plan).astype(np.float64)
+        true_rel = float(np.linalg.norm(A.matvec(xg) - b64)
+                         / np.linalg.norm(b64))
+        iters_run = -(-its[0] // CHECK_EVERY) * CHECK_EVERY
+        ms = max(r["ms"] for r in res)
+        wire_ms = {k: max(r["wire"]["ms_by_kind"].get(k, 0.0) for r in res)
+                   for k in res[0]["wire"]["ms_by_kind"]}
+        row.update(
+            iters=its[0], virtual_iters=want["iters"], rel=res[0]["rel"],
+            true_rel=true_rel, ms=ms, ms_per_iter=ms / iters_run,
+            virtual_ms_per_iter=want["ms_per_iter"],
+            wire_ms_per_iter_by_kind={k: v / iters_run
+                                      for k, v in wire_ms.items()},
+            wire_share=sum(wire_ms.values()) / ms,
+            wire_calls_per_iter_rank0=res[0]["wire"]["calls"] / iters_run,
+            wire_bytes_per_iter_rank0=res[0]["wire"]["bytes"] / iters_run,
+            iterates_bitwise=all(np.array_equal(
+                r["x"][0, 0].view(np.int32),
+                want["x"][divmod(i, grid)].view(np.int32))
+                for i, r in enumerate(res)))
+        if "device_ms_per_iter" in res[0]:
+            row.update(
+                device_ms_per_iter=max(r["device_ms_per_iter"]
+                                       for r in res),
+                nccl_kernel_ms_per_iter=max(r["nccl_ms_per_iter"]
+                                            for r in res),
+                device_launches_per_iter=[r["device_launches_per_iter"]
+                                          for r in res],
+                host_c10d_ms_per_iter_rank0=res[0]["host_c10d_ms_per_iter"])
+    emit(phase, nvidia_smi=smi, **row)
+    check(y_ok, f"{phase} {key}: a rank's y differs from its row of the "
+          "virtual mesh's")
+    check(ghost_ok is not False, f"{phase} {key}: a rank's ghosts differ "
+          "from its row of the virtual mesh's")
+    check(all(n > 0 for n in row["kernel_launches_per_rank"]),
+          f"{phase} {key}: {kernel} did not launch on every rank "
+          f"({row['kernel_launches_per_rank']})")
+    if "iters" in row:
+        its = [r["iters"] for r in res]
+        slack = 0 if world == 1 else 1
+        check(all(i == its[0] for i in its),
+              f"{phase} {key}: iterations differ across ranks {its}")
+        check(abs(its[0] - want["iters"]) <= slack,
+              f"{phase} {key}: {its[0]} iterations, the virtual mesh "
+              f"{want['iters']} (±{slack})")
+        check(row["rel"] <= 1e-6 and np.isfinite(xg).all(),
+              f"{phase} {key}: CG stopped at rel {row['rel']}")
+        check(row["true_rel"] < 1e-4,
+              f"{phase} {key}: true rel {row['true_rel']}")
+    return row
+
+
+def emit_wire(phase: str, smi, ranks: list) -> None:
+    """Each probed grid's ``wire_probe`` (and ``host_split``) over the
+    ranks, the largest of each number: one ``<phase>_wire`` line each."""
+    for grid in ranks[0]["wire_probe"]:
+        probe = [r["wire_probe"][grid] for r in ranks]
+        emit(f"{phase}_wire", nvidia_smi=smi, grid=grid, calls=50,
+             **{k: max(p[k] for p in probe) for k in probe[0]})
+
+
+def phase_procmesh(A, plans, x, b, smi, two_level: dict,
+                   service: dict) -> None:
     """The full 4x2 plans on a process mesh of 8 ranks of this card (see
-    the module docstring, 6l), held to the virtual mesh's rows of phase
-    ``full``, ``precond`` (``two_level``) and ``serve`` (``service``);
-    returns each plan's row."""
+    the module docstring, 6l), held to the virtual mesh's rows at the
+    same grids and to phases ``precond`` (``two_level``) and ``serve``
+    (``service``)."""
     import contextlib
     import io
     import os
     import tempfile
 
     import numpy as np
-    import torch
 
-    from repro_torch.core import from_dist, make_spmv, to_dist
     from repro_torch.core.transport import available_wire_dtypes
-    from repro_torch.launch.mesh import spawn_cg_mesh, write_plan
-    from repro_torch.solvers import make_solver
+    from repro_torch.launch.mesh import spawn_cg_mesh
     from repro_torch.testing import transport_check
 
     t_phase = time.perf_counter()
     keys = (*PROCMESH_PLANS, *PROCMESH_HALOFREE)
-    # the host matrix, the sell plan's whole layout and b: two_level,
-    # the resilient driver and the service build from them on each rank
-    job = {"dirs": {}, "x": {}, "b": {}, "A": A, "b_global": b,
-           "layout": plans["sell/4x2"][1]}
-    want = {}
     with tempfile.TemporaryDirectory(prefix="procmesh_") as d:
         t0 = time.perf_counter()
-        for key in keys:
-            plan, layout = plans[key]
-            job["dirs"][key] = write_plan(plan, f"{d}/{key.replace('/', '_')}")
-            xd = to_dist(x, layout, plan)
-            job["x"][key] = xd.cpu().numpy()
-            want[key] = {"y": make_spmv(plan)(xd).cpu().numpy()}
-            if key in PROCMESH_PLANS:
-                bd = to_dist(b, layout, plan)
-                job["b"][key] = bd.cpu().numpy()
-                xs, _, _ = make_solver(plan, solver="cg", precond="jacobi",
-                                       check_every=CHECK_EVERY)(
-                    bd, tol=1e-6, maxiter=10_000)
-                want[key]["x"] = xs.cpu().numpy()
-        golden, job["golden"] = transport_check.prepare_process(
+        job = write_job({k: plans[k] for k in keys}, x, b, d)
+        want = {k: virtual_row(*plans[k], x, b, solve=k in PROCMESH_PLANS)
+                for k in keys}
+        golden, job["sweep"] = transport_check.prepare_process(
             ("graded",), ("ell", "sell"), 4, 2, DEVICE, f"{d}/golden",
             wire_dtypes=available_wire_dtypes())
+        # the host matrix, the sell plan's whole layout and b: two_level,
+        # the resilient driver and the service build from them on each
+        # rank
+        job.update(solve=PROCMESH_PLANS, wheres=("host", "card"), layers={
+            "keys": PROCMESH_PLANS, "sell": "sell/4x2", "nan_shard": (2, 1),
+            "A": A, "layout": plans["sell/4x2"][1], "b_global": b})
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ranks = spawn_cg_mesh(procmesh_rank, 4, 2, DEVICE, args=(job,),
+        ranks = spawn_cg_mesh(mesh_rank, 4, 2, DEVICE, args=(job,),
                               timeout=900)
         spawn_s = time.perf_counter() - t0
 
-    rows = {}
     b64 = b.astype(np.float64)
     for key in keys:
-        plan, layout = plans[key]
-        res = [r[key] for r in ranks]
-        grid = plan.n_core
-        y_ok = all(np.array_equal(
-            r["y"][0, 0].view(np.int32),
-            want[key]["y"][divmod(i, grid)].view(np.int32))
-            for i, r in enumerate(res))
-        kernel = KERNELS_OF[key]
-        launches = [r["launches"][kernel] for r in res]
-        row = {"plan": key, "ranks": len(res), "spmv_bitwise": y_ok,
-               "kernel": kernel, "launches_per_rank": launches,
-               "spmv_ms": max(r["spmv_ms"] for r in res),
-               "spmv_wire_share": max(r["spmv_wire_share"] for r in res),
-               "virtual_spmv_ms": full_rows[key]["spmv_ms"]}
-        check(y_ok, f"procmesh {key}: a rank's y differs from its row of "
-              "the virtual mesh's")
-        check(all(n > 0 for n in launches),
-              f"procmesh {key}: {kernel} did not launch on every rank "
-              f"({launches})")
-        if key in PROCMESH_PLANS:
-            its = [r["iters"] for r in res]
-            full_its = full_rows[key]["fused"]["iters"]
-            xg = from_dist(torch.from_numpy(np.concatenate(
-                [r["x"] for r in res]).reshape(plan.cg_shape)), layout,
-                plan).astype(np.float64)
-            true_rel = float(np.linalg.norm(A.matvec(xg) - b64)
-                             / np.linalg.norm(b64))
-            iters_run = -(-its[0] // CHECK_EVERY) * CHECK_EVERY
-            ms = max(r["ms"] for r in res)
-            wire_s = max(r["wire"]["seconds"] for r in res)
-            row.update(
-                iters=its[0], full_iters=full_its, rel=res[0]["rel"],
-                true_rel=true_rel, ms=ms, ms_per_iter=ms / iters_run,
-                virtual_ms_per_iter=full_rows[key]["fused"]["ms_per_iter"],
-                wire_share=wire_s * 1e3 / ms,
-                wire_calls_per_iter=res[0]["wire"]["calls"] / iters_run,
-                wire_bytes_per_iter_rank0=res[0]["wire"]["bytes"]
-                / iters_run,
-                wire_ms_per_iter_by_kind_rank0={
-                    k: v * 1e3 / iters_run
-                    for k, v in res[0]["wire"]["by_kind"].items()},
-                iterates_bitwise=all(np.array_equal(
-                    r["x"][0, 0].view(np.int32),
-                    want[key]["x"][divmod(i, grid)].view(np.int32))
-                    for i, r in enumerate(res)))
-            check(all(i == its[0] for i in its),
-                  f"procmesh {key}: iterations differ across ranks {its}")
-            check(abs(its[0] - full_its) <= 1,
-                  f"procmesh {key}: {its[0]} iterations, phase full "
-                  f"{full_its}")
-            check(float(res[0]["rel"]) <= 1e-6 and np.isfinite(xg).all(),
-                  f"procmesh {key}: CG stopped at rel {res[0]['rel']}")
-            check(true_rel < 1e-4, f"procmesh {key}: true rel {true_rel}")
-        emit("procmesh", nvidia_smi=smi, **row)
-        rows[key] = row
-
+        mesh_report("procmesh", A, b64, smi, key, *plans[key],
+                    [r[key] for r in ranks], want[key])
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         g_ok = transport_check.report_process(
-            golden, [r["golden"] for r in ranks])
+            golden, [r["sweep"] for r in ranks])
     lines = out.getvalue().strip().splitlines()
     emit("procmesh_golden", ok=g_ok, lines=lines)
     check(g_ok, "procmesh golden: a rank's ghosts, y or census differ "
           "from the virtual mesh's")
-    emit("procmesh_wire", nvidia_smi=smi, **{
-        k: max(r["wire_probe"][k] for r in ranks)
-        for k in ranks[0]["wire_probe"]})
+    emit_wire("procmesh", smi, ranks)
     procmesh_layers_report(A, plans, b, smi, [r["layers"] for r in ranks],
-                           two_level, service)
+                           two_level, service, "procmesh", PROCMESH_PLANS,
+                           "sell/4x2")
 
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
@@ -2311,29 +2610,30 @@ def phase_procmesh(A, plans, x, b, full_rows, smi, two_level: dict,
           "resilience_check --mesh process --device cuda did not print OK")
     emit("procmesh_seconds", write_s=write_s, spawn_s=spawn_s,
          seconds=time.perf_counter() - t_phase)
-    return rows
 
 
 def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
-                           service: dict) -> None:
-    """Phase ``procmesh``'s layers (``procmesh_layers`` on every rank)
-    against each other and against the virtual mesh's rows: one line and
-    its gates per layer."""
+                           service: dict, phase: str, keys, sell: str
+                           ) -> None:
+    """A process mesh's layers (``procmesh_layers`` on every rank: phase
+    ``procmesh``'s, or ``nccl``'s on ``keys`` with ``sell``) against each
+    other and against the virtual mesh's rows: one line and its gates per
+    layer, each line named ``<phase>_<layer>``."""
     import numpy as np
     import torch
 
     from repro_torch.core import from_dist
 
-    for key in PROCMESH_PLANS:
+    for key in keys:
         got = [r["auto"][key] for r in ranks]
         winners = [g["winner"] for g in got]
-        emit("procmesh_auto", nvidia_smi=smi, plan=key, winners=winners,
+        emit(f"{phase}_auto", nvidia_smi=smi, plan=key, winners=winners,
              us=got[0]["us"], min_us=got[0]["min_us"],
              seconds=max(g["seconds"] for g in got))
         check(all(w == winners[0] for w in winners),
-              f"procmesh auto {key}: ranks picked {winners}")
+              f"{phase} auto {key}: ranks picked {winners}")
 
-    plan, layout = plans["sell/4x2"]
+    plan, layout = plans[sell]
     tl = [r["two_level"] for r in ranks]
     its = [t["iters"] for t in tl]
     iters_run = -(-its[0] // CHECK_EVERY) * CHECK_EVERY
@@ -2345,7 +2645,7 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
                      / np.linalg.norm(b64))
     b1 = [t["launches"]["fused_ell_spmv"] for t in tl]
     ms = max(t["ms"] for t in tl)
-    emit("procmesh_two_level", nvidia_smi=smi, plan="sell/4x2",
+    emit(f"{phase}_two_level", nvidia_smi=smi, plan=sell,
          options=PROCMESH_TWO_LEVEL, iters=its[0],
          virtual_iters=two_level["iters"], rel=tl[0]["rel"],
          true_rel=true_rel, ms=ms, ms_per_iter=ms / iters_run,
@@ -2359,18 +2659,18 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
          fused_sell_spmv_per_rank=[t["launches"]["fused_sell_spmv"]
                                    for t in tl])
     check(all(i == its[0] for i in its),
-          f"procmesh two_level: iterations differ across ranks {its}")
+          f"{phase} two_level: iterations differ across ranks {its}")
     check(abs(its[0] - two_level["iters"]) <= 1,
-          f"procmesh two_level: {its[0]} iterations, phase precond "
+          f"{phase} two_level: {its[0]} iterations, phase precond "
           f"{two_level['iters']}")
     check(tl[0]["rel"] <= 1e-6 and true_rel < 1e-4,
-          f"procmesh two_level: rel {tl[0]['rel']}, true rel {true_rel}")
-    check(all(n > 0 for n in b1), "procmesh two_level: fused_ell_spmv "
+          f"{phase} two_level: rel {tl[0]['rel']}, true rel {true_rel}")
+    check(all(n > 0 for n in b1), f"{phase} two_level: fused_ell_spmv "
           f"(R and P) did not launch on every rank ({b1})")
 
     rs = [r["resilient"] for r in ranks]
     ms = max(r["ms"] for r in rs)
-    emit("procmesh_resilient", nvidia_smi=smi, plan="sell/4x2",
+    emit(f"{phase}_resilient", nvidia_smi=smi, plan=sell,
          check_every=50, iters=rs[0]["iters"], chunks=rs[0]["chunks"],
          rel=rs[0]["rel"], true_rel=rs[0]["true_rel"], ms=ms,
          ms_per_iter=ms / max(rs[0]["iters"], 1),
@@ -2383,21 +2683,21 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
          fused_sell_spmv_per_rank=[r["launches"]["fused_sell_spmv"]
                                    for r in rs])
     check(all(r["x_bitwise_monolithic"] for r in rs),
-          "procmesh resilient: a rank's chunked x differs from its "
+          f"{phase} resilient: a rank's chunked x differs from its "
           "monolithic solve's")
     check(all(r["nan_rollbacks"] == 1 and r["nan_converged"]
               and r["nan_trajectory"] == rs[0]["nan_trajectory"]
-              for r in rs), "procmesh resilient: nan@60 not rolled back "
+              for r in rs), f"{phase} resilient: nan@60 not rolled back "
           "once with one trajectory on every rank")
     check(all(r["launches"]["fused_sell_spmv"] > 0 for r in rs),
-          "procmesh resilient: fused_sell_spmv did not launch on every rank")
+          f"{phase} resilient: fused_sell_spmv did not launch on every rank")
 
     sv = [r["serve"] for r in ranks]
     its = [s["iters"] for s in sv]
     want = service["iters"][:PROCMESH_REQUESTS]
     b2 = [s["launches"]["fused_sell_spmv_batched"] for s in sv]
     ms = max(s["ms"] for s in sv)
-    emit("procmesh_serve", nvidia_smi=smi, plan="sell/4x2",
+    emit(f"{phase}_serve", nvidia_smi=smi, plan=sell,
          requests=PROCMESH_REQUESTS, nrhs=SERVE_NRHS, tols=SERVE_TOLS,
          iters=its[0], virtual_iters=want, true_rel=sv[0]["true_rel"],
          makespan_s=ms / 1e3, chunks=sv[0]["chunks"],
@@ -2407,19 +2707,227 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
                                 sv[0]["wire"]["by_kind"].items()},
          fused_sell_spmv_batched_per_rank=b2)
     check(all(i == its[0] for i in its) and len(its[0]) == len(want),
-          f"procmesh serve: iterations differ across ranks {its}")
+          f"{phase} serve: iterations differ across ranks {its}")
     check(all(abs(a - w) <= 1 for a, w in zip(its[0], want)),
-          f"procmesh serve: iterations {its[0]}, phase serve {want}")
+          f"{phase} serve: iterations {its[0]}, phase serve {want}")
     check(all(s["recompiles"] == 0 for s in sv),
-          "procmesh serve: a rank recompiled while serving")
-    check(all(n > 0 for n in b2), "procmesh serve: fused_sell_spmv_batched "
+          f"{phase} serve: a rank recompiled while serving")
+    check(all(n > 0 for n in b2), f"{phase} serve: fused_sell_spmv_batched "
           f"did not launch on every rank ({b2})")
     # a request at tol 1e-4 stops just under it: its true residual is
     # held to twice its tol (phase serve's 2e-4), the others to 1e-4
     tols = [SERVE_TOLS[i % 3] for i in range(PROCMESH_REQUESTS)]
     check(all(r < max(1e-4, 2 * t) for r, t in zip(sv[0]["true_rel"],
                                                     tols)),
-          f"procmesh serve: true rel {sv[0]['true_rel']}")
+          f"{phase} serve: true rel {sv[0]['true_rel']}")
+
+
+# ---------------------------------------------------------------------- #
+# phase nccl: one rank per card
+# ---------------------------------------------------------------------- #
+#: phase nccl's grids by ranks, one rank per card: pure "MPI" (n x 1),
+#: hybrid (2 x 2) and halo-free (1 x n)
+NCCL_GRIDS = {1: ((1, 1),), 2: ((2, 1), (1, 2)),
+              4: ((4, 1), (2, 2), (1, 4))}
+NCCL_FORMATS = ("ell", "sell")
+#: the plans phase nccl runs the layers above the solvers on (4 cards)
+NCCL_LAYERS = ("ell/2x2", "sell/2x2")
+#: the plans whose shapes the kernels line times under ``--only nccl``:
+#: 4 cards (B1, B2 with a halo; B3, B4 halo-free), else 1 (B3, B4)
+NCCL_KERNELS = {4: {"fused_ell_spmv": "ell/2x2",
+                    "fused_sell_spmv": "sell/2x2",
+                    "ell_spmv": "ell/1x4", "sell_spmv": "sell/1x4"},
+                1: {"ell_spmv": "ell/1x1", "sell_spmv": "sell/1x1"}}
+#: fused-CG iterations ``torch.profiler`` traces on each rank
+NCCL_PROFILE_ITERS = 32
+
+
+def nccl_layers_virtual(A, plan, layout, b) -> tuple[dict, dict, dict]:
+    """The virtual mesh's yardsticks for phase ``nccl``'s layers on the
+    2x2 sell plan: two_level's iterations and ms/iteration, and the
+    service's iterations on the same requests as the ranks'; and
+    two_level's R and P (``(plan, layout)`` by name, on the card), whose
+    shapes the kernels line times."""
+    import numpy as np
+
+    from repro_torch.core import to_dist
+    from repro_torch.serve import EngineConfig, PlanCache, SolveService
+    from repro_torch.solvers import make_solver
+    from repro_torch.testing.transport_check import plan_on
+
+    vplan = plan_on(plan, DEVICE)
+    solve = make_solver(vplan, solver="cg", precond="two_level", A=A,
+                        layout=layout, precond_options=PROCMESH_TWO_LEVEL,
+                        check_every=CHECK_EVERY)
+    _, iters, _, ms, iters_run = solve_timed(solve,
+                                             to_dist(b, layout, vplan))
+    two_level = {"iters": iters, "ms_per_iter": ms / iters_run}
+    rp = solve.papply.plans
+    del solve, vplan
+    cfg = EngineConfig(nrhs=SERVE_NRHS, n_node=plan.n_node,
+                       n_core=plan.n_core, format="sell", transport="a2a",
+                       wire_dtype="f32", solver="cg", precond="jacobi",
+                       check_every=SERVE_CHECK_EVERY)
+    svc = SolveService(A, cfg, cache=PlanCache(), device=DEVICE)
+    B = np.random.default_rng(SEED + 7).standard_normal(
+        (4 * SERVE_NRHS, A.n_rows))
+    for i in range(PROCMESH_REQUESTS):
+        svc.submit(B[i], tol=SERVE_TOLS[i % 3])
+    service = {"iters": [r.iterations for r in svc.drain()]}
+    return two_level, service, rp
+
+
+def phase_nccl(A, x, b, smi) -> dict:
+    """The process mesh on NCCL, one rank per card (see the module
+    docstring, 6m).  Returns what the kernels line of ``--only nccl``
+    needs: the virtual plans whose shapes it times (``plans``, by
+    ``keys``: kernel -> plan key) and every kernel's launches over the
+    ranks' grids (``launches``); on four cards also two_level's R and P
+    (``rp``) and the launches of the 2x2 two_level and service runs
+    (``layer_launches``)."""
+    import contextlib
+    import io
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_spmv_plan, to_dist
+    from repro_torch.core.transport import available_wire_dtypes
+    from repro_torch.launch.mesh import spawn_cg_mesh
+    from repro_torch.testing import transport_check
+    from repro_torch.testing.transport_check import plan_on
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    worlds = [w for w in NCCL_GRIDS if w <= cards]
+    version = torch.cuda.nccl.version()
+    emit("nccl", nccl_version=list(version) if isinstance(version, tuple)
+         else version, cards=cards, nvidia_smi=smi,
+         grids_run=[f"{n}x{c}" for w in worlds for n, c in NCCL_GRIDS[w]],
+         grids_needing_more_cards={
+             f"{n}x{c}": w for w in NCCL_GRIDS if w > cards
+             for n, c in NCCL_GRIDS[w]},
+         wire="none: one rank moves no data in a collective" if cards == 1
+         else f"card to card over this host's links, {max(worlds)} cards")
+
+    # one rank more than cards: refused before any process starts
+    before = len(multiprocessing.active_children())
+    try:
+        spawn_cg_mesh(mesh_rank, cards + 1, 1, DEVICE, backend="nccl",
+                      args=({"keys": []},))
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    started = len(multiprocessing.active_children()) - before
+    emit("nccl_refusal", ranks=cards + 1, cards=cards, error=refusal,
+         processes_started=started)
+    check(refusal is not None and f"{cards + 1} card(s)" in refusal
+          and f"{cards} present" in refusal and started == 0,
+          f"nccl: {cards + 1} ranks on {cards} card(s) not refused before "
+          f"a spawn ({refusal!r}, {started} started)")
+
+    b64 = b.astype(np.float64)
+    kernel_keys = NCCL_KERNELS[4 if cards >= 4 else 1]
+    got = {"plans": {}, "keys": kernel_keys, "launches": {}, "rp": None,
+           "layer_launches": {}}
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="nccl_") as d:
+        for w in worlds:
+            t0 = time.perf_counter()
+            plans = {}
+            for n_node, n_core in NCCL_GRIDS[w]:
+                for fmt in NCCL_FORMATS:
+                    plans[f"{fmt}/{n_node}x{n_core}"] = build_spmv_plan(
+                        A, n_node, n_core, mode="balanced", format=fmt,
+                        transport="a2a", device="cpu")
+            job = write_job(plans, x, b, f"{d}/{w}")
+            job.update(solve=job["keys"], profile=True, wheres=("card",),
+                       host_split=True)
+            want = {k: virtual_row(*plans[k], x, b) for k in plans}
+            for key in set(kernel_keys.values()) & set(plans):
+                got["plans"][key] = (plan_on(plans[key][0], DEVICE),
+                                     plans[key][1])
+            virtual = None
+            if w == 4:
+                plan, layout = plans["sell/2x2"]
+                two_level, service, got["rp"] = nccl_layers_virtual(
+                    A, plan, layout, b)
+                # the sweep reads the plan the ranks read (written again)
+                vw, sweep = transport_check.prepare_plan(
+                    plan, to_dist(x, layout, plan), DEVICE,
+                    job["dirs"]["sell/2x2"],
+                    wire_dtypes=available_wire_dtypes())
+                virtual = [("full", "sell", plan, vw)]
+                job.update(sweep=[sweep], layers={
+                    "keys": NCCL_LAYERS, "sell": "sell/2x2",
+                    "nan_shard": (1, 1), "A": A, "layout": layout,
+                    "b_global": b})
+            prep_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ranks = spawn_cg_mesh(mesh_rank, *NCCL_GRIDS[w][0], DEVICE,
+                                  backend="nccl", args=(job,), timeout=900)
+            spawn_s = time.perf_counter() - t0
+            check([r["device"] for r in ranks]
+                  == [f"cuda:{r}" for r in range(w)],
+                  f"nccl: ranks ran on {[r['device'] for r in ranks]}")
+            for key in job["keys"]:
+                rows[key] = mesh_report("nccl_grid", A, b64, smi, key,
+                                        *plans[key],
+                                        [r[key] for r in ranks], want[key])
+                for r in ranks:
+                    for k, n in r[key]["launches"].items():
+                        got["launches"][k] = got["launches"].get(k, 0) + n
+            if virtual is not None:
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    g_ok = transport_check.report_process(
+                        virtual, [r["sweep"] for r in ranks])
+                emit("nccl_sweep", plan="sell/2x2", ok=g_ok,
+                     lines=out.getvalue().strip().splitlines())
+                check(g_ok, "nccl sweep: a rank's ghosts, y or census "
+                      "differ from the virtual mesh's")
+                procmesh_layers_report(
+                    A, plans, b, smi, [r["layers"] for r in ranks],
+                    two_level, service, "nccl", NCCL_LAYERS, "sell/2x2")
+                for layer in ("two_level", "serve"):
+                    total = got["layer_launches"].setdefault(layer, {})
+                    for r in ranks:
+                        for k, n in r["layers"][layer]["launches"].items():
+                            total[k] = total.get(k, 0) + n
+            emit_wire("nccl", smi, ranks)
+            emit("nccl_seconds", ranks=w, prep_s=prep_s, spawn_s=spawn_s)
+            del plans, want, ranks
+            shutil.rmtree(f"{d}/{w}")       # a world's plans, off the disk
+    nccl_scaling(rows, smi)
+    emit("nccl_seconds", seconds=time.perf_counter() - t_phase)
+    return got
+
+
+def nccl_scaling(rows: dict, smi) -> None:
+    """Strong scaling of phase ``nccl``'s grids against its 1x1 mesh: ms
+    per SpMV and per CG iteration, speedup and efficiency per card."""
+    for fmt in NCCL_FORMATS:
+        base = rows.get(f"{fmt}/1x1")
+        if base is None:
+            continue
+        grids = {}
+        for key, row in rows.items():
+            if not key.startswith(f"{fmt}/"):
+                continue
+            cards = row["ranks"]
+            grids[key.split("/")[1]] = {
+                "cards": cards, "spmv_ms": row["spmv_ms"],
+                "ms_per_iter": row["ms_per_iter"],
+                "spmv_speedup": base["spmv_ms"] / row["spmv_ms"],
+                "spmv_efficiency": base["spmv_ms"] / row["spmv_ms"] / cards,
+                "iter_speedup": base["ms_per_iter"] / row["ms_per_iter"],
+                "iter_efficiency": base["ms_per_iter"] / row["ms_per_iter"]
+                / cards}
+        emit("nccl_scaling", nvidia_smi=smi, format=fmt, against="1x1",
+             grids=grids)
 
 
 def library_ms(A, x) -> float:
@@ -2434,9 +2942,16 @@ def library_ms(A, x) -> float:
     return time_ms(lambda: csr @ xv)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=["nccl"], default=None,
+                    help="nccl: the device, build and matrix phases, phase "
+                         "nccl, then the kernels and ok lines")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -2456,10 +2971,12 @@ def main() -> int:
     A = graded_extruded_mesh_matrix(N_SURFACE, LAYERS, seed=SEED)
     emit("matrix", rows=A.n_rows, nnz=A.nnz,
          seconds=round(time.perf_counter() - t0, 3))
-    plans = build_plans(A)
+    plans = build_plans(A) if args.only is None else None
     rng = np.random.default_rng(SEED + 1)
     x = rng.standard_normal(A.n_rows).astype(np.float32)
     b = rng.standard_normal(A.n_rows).astype(np.float32)
+    if args.only == "nccl":
+        return only_nccl(A, x, b, smi, bw, f32_peak)
     kern = phase_kernels(plans, x, bw, f32_peak)
     bal_launches, bal = phase_balanced(A, x, bw, f32_peak)
     lib = library_ms(A, x)
@@ -2479,7 +2996,8 @@ def main() -> int:
                                                       f32_peak)
     phase_analyze(plans)
     phase_cli(rows)
-    phase_procmesh(A, plans, x, b, rows, smi, two_level, service)
+    phase_procmesh(A, plans, x, b, smi, two_level, service)
+    phase_nccl(A, x, b, smi)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
     # the batched kernels at the service's k, with their serving launches
@@ -2494,6 +3012,16 @@ def main() -> int:
                     bal[BALANCED[2]]))
     entries.append((FLAT_ELL[0], FLAT_ELL[1], bal_launches["ell_spmv"],
                     bal[FLAT_ELL[2]]))
+    finish(entries, lib, smi)
+    return 0
+
+
+def finish(entries: list, lib: float, smi: str) -> None:
+    """The ``kernels`` line (``entries``: name, the TPU kernel it replaces,
+    launches on the main path, its measured row), the ``nvidia-smi`` line
+    and the last line."""
+    import torch
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": replaces, "launches": n,
@@ -2506,6 +3034,46 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def only_nccl(A, x, b, smi, bw, f32_peak) -> int:
+    """``--only nccl``: phase nccl, then each kernel of its path held to
+    its plain version and timed at the shapes phase nccl gave it (its
+    virtual plans), with its launches over every rank: B1-B4 on the
+    grids; on four cards also B1 at two_level's R and P and the batched
+    B2 at the service's k, with the 2x2 two_level and service runs'
+    launches."""
+    import numpy as np
+
+    got = phase_nccl(A, x, b, smi)
+    kern = phase_kernels(got["plans"], x, bw, f32_peak, keys=got["keys"])
+    lib = library_ms(A, x)
+    emit("library", what="torch.sparse CSR matvec, global matrix, f32",
+         ms=lib)
+    entries = [(name, KERNELS[name][1], got["launches"].get(name, 0),
+                kern[name]) for name in got["keys"]]
+    if got["rp"] is not None:
+        R = restriction(A.n_rows, PROCMESH_TWO_LEVEL["agg_size"])
+        mats = {"R": R, "P": R.transpose()}
+        rng = np.random.default_rng(SEED + 2)
+        rows = rect_kernels({
+            f"sell/2x2/{k}": (f"sell/2x2/two_level/{k}", *got["rp"][k],
+                              M, rng.standard_normal(M.n_cols).astype(
+                                  np.float32))
+            for k, M in mats.items()}, bw, f32_peak)
+        launches = got["layer_launches"]["two_level"]
+        for label, row in rows.items():
+            name = row["kernel"]
+            check(launches[name] > 0, f"nccl two_level: {name} never "
+                  "launched")
+            entries.append((f"{name}/{label}", KERNELS[name][1],
+                            launches[name], row))
+        name = "fused_sell_spmv_batched"
+        row = serve_kernels(A, got["plans"], bw, f32_peak,
+                            keys={name: "sell/2x2"}, ks=(SERVE_NRHS,))[name]
+        entries.append((name, BATCHED[name][1],
+                        got["layer_launches"]["serve"][name], row))
+    finish(entries, lib, smi)
     return 0
 
 

@@ -41,9 +41,12 @@ meaning: ``all_to_all`` an ``all_to_all_single`` over the node group,
 (the stacked shards, concatenated along that axis), and ``psum`` an
 all-gather of the per-shard partials over the world, summed as the
 virtual mesh sums them (in shard order), so the two meshes agree bit for
-bit wherever the partials do.  gloo moves host tensors: every payload is
-staged through host memory as raw bytes (any dtype, bit for bit), which
-:data:`WIRE` times.  The records are the same on both meshes.
+bit wherever the partials do.  Every payload moves as raw bytes (any
+dtype, bit for bit).  gloo moves host tensors, so on a card each payload is
+staged through host memory after a stream sync (``_Staged``); NCCL moves
+them card to card (``_OnCard``): no host copy and no sync, the calls
+queued on the card's stream like its kernels.  :data:`WIRE` times both.
+The records are the same on every mesh.
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ import contextlib
 import dataclasses
 import math
 import time
+from collections import deque
+from collections.abc import Mapping
 
 import torch
 
@@ -148,25 +153,68 @@ def _check_axis(axis: str) -> None:
 
 
 # ---------------------------------------------------------------------- #
-# the process mesh's wire: host-staged torch.distributed calls
+# the process mesh's wire: torch.distributed calls, host-staged on gloo
 # ---------------------------------------------------------------------- #
-#: the process mesh's collectives since the last :func:`reset_wire`: calls,
-#: seconds spent in them (staging to the host and back included, after the
-#: card has finished the work before them) and payload bytes sent by this
-#: rank; ``by_kind`` splits the seconds by :data:`COLLECTIVE_OPS` kind,
-#: and files the mesh's host control under :data:`CONTROL`
-WIRE = {"calls": 0, "seconds": 0.0, "bytes": 0, "by_kind": {}}
+class _Wire(Mapping):
+    """The process mesh's collectives since the last :func:`reset_wire`:
+    ``calls``, ``seconds`` spent in them, payload ``bytes`` sent by this
+    rank, and ``by_kind``, the seconds by :data:`COLLECTIVE_OPS` kind
+    (host control under :data:`CONTROL`).  gloo's seconds are the host
+    clock around each call (staging to the host and back included, after
+    the card has finished the work before it).  NCCL's are CUDA-event
+    times on the card's stream, from the work before the call to the
+    result's arrival: the events are read when this is read (which waits
+    for them), so timing never serialises the loop."""
+
+    def __init__(self):
+        self.reset()
+
+    def _add(self, kind: str, seconds: float) -> None:
+        self._d["seconds"] += seconds
+        by = self._d["by_kind"]
+        by[kind] = by.get(kind, 0.0) + seconds
+
+    def _settle(self, done_only: bool = False) -> None:
+        while self._events:
+            kind, start, end = self._events[0]
+            if done_only and not end.query():
+                return
+            end.synchronize()
+            self._add(kind, start.elapsed_time(end) / 1e3)
+            self._events.popleft()
+
+    def __getitem__(self, key):
+        self._settle()
+        return self._d[key]
+
+    def __iter__(self):
+        return iter(self._d)
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def reset(self) -> None:
+        self._d = {"calls": 0, "seconds": 0.0, "bytes": 0, "by_kind": {}}
+        self._events = deque()          # (kind, start, end) not yet read
+
+
+#: the process mesh's wire since the last :func:`reset_wire` (a read-only
+#: mapping; ``dict(WIRE)`` is a snapshot)
+WIRE = _Wire()
+
+#: events held before the ones the card has passed are read (a long run
+#: whose WIRE is never read keeps no more than about this many)
+_MAX_EVENTS = 4096
 
 
 def reset_wire() -> None:
-    WIRE.update(calls=0, seconds=0.0, bytes=0, by_kind={})
+    WIRE.reset()
 
 
 def _account(kind: str, seconds: float, nbytes: int = 0) -> None:
-    WIRE["calls"] += 1
-    WIRE["seconds"] += seconds
-    WIRE["bytes"] += nbytes
-    WIRE["by_kind"][kind] = WIRE["by_kind"].get(kind, 0.0) + seconds
+    WIRE._d["calls"] += 1
+    WIRE._d["bytes"] += nbytes
+    WIRE._add(kind, seconds)
 
 
 #: the :data:`WIRE` kind of a process mesh's host control (an agreed
@@ -192,8 +240,8 @@ def _on_ranks(mesh) -> bool:
 
 
 class _Staged:
-    """One process-mesh collective: payloads go to the host as raw bytes
-    and come back to ``device`` bit for bit; the block's time goes to
+    """One gloo collective: payloads go to the host as raw bytes and come
+    back to ``device`` bit for bit; the block's host time goes to
     :data:`WIRE`."""
 
     def __init__(self, device: torch.device, kind: str):
@@ -216,8 +264,20 @@ class _Staged:
         h = t.detach().contiguous()
         if self.on_card:
             h = h.to("cpu")
-        WIRE["bytes"] += h.numel() * h.element_size()
+        WIRE._d["bytes"] += h.numel() * h.element_size()
         return h.reshape(-1).view(torch.uint8)
+
+    def empty(self, nbytes: int) -> torch.Tensor:
+        """A receive buffer of ``nbytes`` where the wire delivers."""
+        return torch.empty(nbytes, dtype=torch.uint8)
+
+    def gather(self, mine: torch.Tensor, size: int, group) -> list:
+        """Every group member's ``mine``, in group-rank order."""
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(mine) for _ in range(size)]
+        dist.all_gather(parts, mine, group=group)
+        return parts
 
     def back(self, b: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
         """Bytes received on the host -> a tensor of ``like``'s dtype,
@@ -226,18 +286,62 @@ class _Staged:
         return t.to(self.device, non_blocking=True) if self.on_card else t
 
 
-def _gather_over(x: torch.Tensor, group, size: int, dim: int,
+def _mark(device: torch.device):
+    """A timing event recorded now on ``device``'s current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class _OnCard(_Staged):
+    """One NCCL collective: payloads stay on the card as raw bytes, and
+    the call is queued on its stream with no host sync; its time is two
+    CUDA events on that stream, read when :data:`WIRE` is."""
+
+    def __enter__(self):
+        self.start = _mark(self.device)
+        return self
+
+    def __exit__(self, *exc):
+        WIRE._d["calls"] += 1
+        WIRE._events.append((self.kind, self.start, _mark(self.device)))
+        if len(WIRE._events) > _MAX_EVENTS:
+            WIRE._settle(done_only=True)
+        return False
+
+    def out(self, t: torch.Tensor) -> torch.Tensor:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        WIRE._d["bytes"] += b.numel()
+        return b
+
+    def empty(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+
+    def gather(self, mine: torch.Tensor, size: int, group) -> list:
+        import torch.distributed as dist
+
+        out = mine.new_empty(size * mine.numel())
+        dist.all_gather_into_tensor(out, mine, group=group)
+        return list(out.chunk(size))
+
+    def back(self, b: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
+        return b.view(like.dtype).reshape(shape)
+
+
+def _wire(mesh, device: torch.device, kind: str) -> _Staged:
+    """The wire of one collective on a process mesh: NCCL's on the card,
+    gloo's through the host."""
+    return (_OnCard if mesh.backend == "nccl" else _Staged)(device, kind)
+
+
+def _gather_over(x: torch.Tensor, mesh, group, size: int, dim: int,
                  kind: str = "all-gather") -> torch.Tensor:
     """Every group member's ``x``, concatenated along ``dim`` in group-rank
     order (which is node or core order: groups list ranks ascending)."""
-    import torch.distributed as dist
-
     if size == 1:
         return x
-    with _Staged(x.device, kind) as st:
-        mine = st.out(x)
-        parts = [torch.empty_like(mine) for _ in range(size)]
-        dist.all_gather(parts, mine, group=group)
+    with _wire(mesh, x.device, kind) as st:
+        parts = st.gather(st.out(x), size, group)
         return torch.cat([st.back(p, x, x.shape) for p in parts], dim=dim)
 
 
@@ -261,7 +365,7 @@ def all_to_all(sent: torch.Tensor, axis: str = "node", *, lead: int = 1,
     if mesh.n_node == 1:
         return sent
     table = sent.movedim(lead + 2, 0)           # (dst, *batch, 1, c, chunk)
-    with _Staged(sent.device, "all-to-all") as st:
+    with _wire(mesh, sent.device, "all-to-all") as st:
         mine = st.out(table)
         got = torch.empty_like(mine)
         dist.all_to_all_single(got, mine, group=mesh.node_group)
@@ -299,14 +403,13 @@ def ppermute(chunks: torch.Tensor, axis: str = "node", *, pairs: int,
     shape[lead] = len(frm)
     if not to and not frm:
         return chunks.new_empty(shape)
-    with _Staged(chunks.device, "collective-permute") as st:
+    with _wire(mesh, chunks.device, "collective-permute") as st:
         ops = []
         if to:
             ops.append(dist.P2POp(dist.isend, st.out(chunks),
                                   mesh.rank_of(to[0], mesh.core),
                                   group=mesh.node_group))
-        got = torch.empty(math.prod(shape) * chunks.element_size(),
-                          dtype=torch.uint8)
+        got = st.empty(math.prod(shape) * chunks.element_size())
         if frm:
             ops.append(dist.P2POp(dist.irecv, got,
                                   mesh.rank_of(frm[0], mesh.core),
@@ -331,8 +434,8 @@ def all_gather(x: torch.Tensor, axis: str = "core", *, lead: int = 0,
     if not _on_ranks(mesh):
         return x
     if axis == "core":
-        return _gather_over(x, mesh.core_group, mesh.n_core, lead + 1)
-    return _gather_over(x, mesh.node_group, mesh.n_node, lead)
+        return _gather_over(x, mesh, mesh.core_group, mesh.n_core, lead + 1)
+    return _gather_over(x, mesh, mesh.node_group, mesh.n_node, lead)
 
 
 def psum(partials: torch.Tensor, axis=AXES, *, mesh=None) -> torch.Tensor:
@@ -345,7 +448,7 @@ def psum(partials: torch.Tensor, axis=AXES, *, mesh=None) -> torch.Tensor:
         raise ValueError(f"psum reduces over {AXES}, got {axis!r}")
     _note("all-reduce", AXES, partials, partials.dim() - 2)
     if _on_ranks(mesh):
-        flat = _gather_over(partials.flatten(-2), mesh.world,
+        flat = _gather_over(partials.flatten(-2), mesh, mesh.world,
                             mesh.world_size, -1, "all-reduce")
         partials = flat.unflatten(-1, (mesh.n_node, mesh.n_core))
     return partials.sum(dim=(-2, -1))

@@ -28,7 +28,8 @@ mesh=)`` on a process mesh of ``repro_torch.launch.mesh``) is one shard of
 a whole plan: the same fields and meta, every array cut to the rank's
 ``(node, core)`` with leading axes ``(1, 1)``, and ``plan.mesh`` naming
 the process mesh.  The shard body, the transports and the solvers run on
-it unchanged, and the collectives become ``torch.distributed`` calls.
+it unchanged, and the collectives become ``torch.distributed`` calls
+(gloo through the host, or NCCL with the plan on the rank's own card).
 
 Plans may be rectangular (``n_cols != n``): outputs and Krylov vectors
 live in the **row space** ``(n_node, n_core, rc_pad)``, SpMV inputs in the
@@ -532,12 +533,13 @@ def plan_meta(plan: SpMVPlan) -> dict:
 def shard_plan(plan: SpMVPlan, mesh, device=None) -> SpMVPlan:
     """Cut a whole plan to the shard of this rank of the process ``mesh``:
     every plan array, ``fmt_data``, ``x_gather`` (the node's row),
-    ``mask`` and ``diag_a``, leading axes ``(1, 1)``; ``n_node`` /
-    ``n_core`` stay the mesh's."""
+    ``mask`` and ``diag_a``, leading axes ``(1, 1)``, on ``device``
+    (default: the mesh's, which on NCCL is the rank's own card); ``n_node``
+    / ``n_core`` stay the mesh's."""
     if mesh is None or not mesh.is_process:
         raise ValueError("shard_plan needs a process mesh "
                          "(repro_torch.launch.mesh.make_cg_mesh(..., "
-                         "backend='gloo', ...))")
+                         "backend='gloo' or 'nccl', ...))")
     return plan_from_arrays(plan_arrays(plan), plan_meta(plan),
                             device=device, mesh=mesh)
 

@@ -224,12 +224,14 @@ def _ell(name, dvals, dcols, dlens, ovals, ocols, olens, x_local, x_ghost):
             x_local.shape[1], ptr(x_ghost) if wo else None,
             x_ghost.shape[1] if wo else 0, y.data_ptr(), n_node * n_core,
             n_core, rows)
-    if k is None:
-        err = library().repro_ell_spmv(*args, _stream(dvals.device))
-    else:
-        name = f"{name}_batched"
-        err = library().repro_ell_spmv_batched(*args, k,
-                                               _stream(dvals.device))
+    # the entry points launch on the calling thread's current card
+    with torch.cuda.device(dvals.device):
+        if k is None:
+            err = library().repro_ell_spmv(*args, _stream(dvals.device))
+        else:
+            name = f"{name}_batched"
+            err = library().repro_ell_spmv_batched(*args, k,
+                                                   _stream(dvals.device))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return y
@@ -362,12 +364,13 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
             x_local.data_ptr(), x_local.shape[1], ptr(x_ghost),
             x_ghost.shape[1] if has_offd else 0, y.data_ptr(),
             n_node * n_core, n_core, rc_pad)
-    if k is None:
-        err = library().repro_sell_spmv(*args, _stream(dvals.device))
-    else:
-        name = f"{name}_batched"
-        err = library().repro_sell_spmv_batched(*args, k,
-                                                _stream(dvals.device))
+    with torch.cuda.device(dvals.device):
+        if k is None:
+            err = library().repro_sell_spmv(*args, _stream(dvals.device))
+        else:
+            name = f"{name}_batched"
+            err = library().repro_sell_spmv_batched(*args, k,
+                                                    _stream(dvals.device))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return y
@@ -424,11 +427,12 @@ def balanced_spmv(bcoo, x: torch.Tensor) -> torch.Tensor:
                   [bcoo.cols, bcoo.row_lens, bcoo.warp_map], [xf])
     y = torch.empty(bcoo.n_rows, dtype=torch.float32,
                     device=bcoo.vals.device)
-    err = library().repro_balanced_spmv(
-        code, bcoo.vals.data_ptr(), bcoo.cols.data_ptr(),
-        bcoo.row_lens.data_ptr(), bcoo.warp_map.data_ptr(),
-        bcoo.warp_map.shape[0], xf.data_ptr(), y.data_ptr(),
-        _stream(bcoo.vals.device))
+    with torch.cuda.device(bcoo.vals.device):
+        err = library().repro_balanced_spmv(
+            code, bcoo.vals.data_ptr(), bcoo.cols.data_ptr(),
+            bcoo.row_lens.data_ptr(), bcoo.warp_map.data_ptr(),
+            bcoo.warp_map.shape[0], xf.data_ptr(), y.data_ptr(),
+            _stream(bcoo.vals.device))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return y

@@ -8,16 +8,18 @@ Two backends run it:
 * the **virtual mesh** (no process arguments): one device holds the whole
   grid as the leading ``(n_node, n_core)`` axes of every tensor, and the
   collectives of ``repro_torch.core.collectives`` are index operations;
-* the **process mesh** (``backend="gloo"``, ``rank``, ``world_size``,
-  ``init_method``): one process per shard, rank ``r`` at ``(node, core) =
-  divmod(r, n_core)`` (the JAX mesh's row-major device order).  Each rank
-  holds only its own shard of every plan array and vector (leading axes
-  ``(1, 1)``), and the four collectives are ``torch.distributed`` calls
-  over the **node group** (same core, all nodes: ``all_to_all``,
-  ``ppermute``, node-axis ``all_gather``), the **core group** (same node,
-  all cores: core-axis ``all_gather``) and the world (``psum``).  gloo
-  moves host tensors, so a rank on a card stages every collective through
-  host memory: that staging is the wire of a process mesh on one card.
+* the **process mesh** (``backend="gloo"`` or ``"nccl"``, ``rank``,
+  ``world_size``, ``init_method``): one process per shard, rank ``r`` at
+  ``(node, core) = divmod(r, n_core)`` (the JAX mesh's row-major device
+  order).  Each rank holds only its own shard of every plan array and
+  vector (leading axes ``(1, 1)``), and the four collectives are
+  ``torch.distributed`` calls over the **node group** (same core, all
+  nodes: ``all_to_all``, ``ppermute``, node-axis ``all_gather``), the
+  **core group** (same node, all cores: core-axis ``all_gather``) and the
+  world (``psum``).  gloo moves host tensors, so a rank on a card stages
+  every collective through host memory.  NCCL puts **one rank on each
+  card** of this host (rank ``r`` on ``cuda:r``) and moves the payloads
+  card to card, never through the host.
 
 Above the collectives, a process mesh carries **host control**: one
 decision taken on rank 0 and held by every rank (:meth:`CGMesh.agree`),
@@ -27,7 +29,10 @@ barrier.  The upper layers (the resilient driver's verdicts and
 checkpoints, the solve service's admission, the autotuner's timings) use
 them so that ranks never decide apart.  They are not collectives of the
 shard bodies: no census records them, and ``WIRE`` times them under
-``CONTROL``.  On the virtual mesh each is the identity.
+``CONTROL``.  They move pickled host objects, so they go through a gloo
+**control group** over every rank: the world itself on a gloo mesh, a gloo
+side group beside the NCCL world on an NCCL mesh.  On the virtual mesh
+each is the identity.
 
 ``spawn_cg_mesh(fn, n_node, n_core, device)`` starts the ``n_node ·
 n_core`` ranks on this host, runs ``fn(mesh, *args)`` on each and returns
@@ -37,8 +42,10 @@ end it with :class:`RanksKilled`, naming every rank's exit code.
 the ranks: each rank maps the arrays and reads only its own shard
 (``plan_from_arrays(..., mesh=)``).
 
-NCCL (one card per rank) is not offered: the machine this was built on
-has one card, and an untested path is not shipped.
+An NCCL mesh needs a card for every rank: ``make_cg_mesh`` and
+``spawn_cg_mesh`` refuse, before any process group or process exists,
+when the device is not a card or this host has fewer cards than ranks
+(NCCL rejects two ranks on one card).  Nothing falls back to gloo.
 """
 from __future__ import annotations
 
@@ -61,10 +68,12 @@ import torch
 from repro_torch.util import resolve_device
 
 __all__ = ["CGMesh", "make_cg_mesh", "spawn_cg_mesh", "write_plan",
-           "read_plan", "BACKENDS", "RanksKilled"]
+           "read_plan", "require_cards", "add_dist_backend",
+           "dist_backend", "BACKENDS", "RanksKilled"]
 
-#: the process mesh's backends: gloo on any device (host-staged on a card)
-BACKENDS = ("gloo",)
+#: the process mesh's backends: gloo on any device (host-staged on a
+#: card), NCCL one rank per card
+BACKENDS = ("gloo", "nccl")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -82,6 +91,7 @@ class CGMesh:
     node_group: Any = None      # same core, every node
     core_group: Any = None      # same node, every core
     world: Any = None           # every rank
+    control: Any = None         # every rank, gloo: host control
 
     @property
     def is_process(self) -> bool:
@@ -117,7 +127,7 @@ class CGMesh:
         from repro_torch.core.collectives import host_control
         box = [obj]
         with host_control():
-            dist.broadcast_object_list(box, src=0, group=self.world)
+            dist.broadcast_object_list(box, src=0, group=self.control)
         return box[0]
 
     def allgather(self, obj) -> list:
@@ -130,7 +140,7 @@ class CGMesh:
         from repro_torch.core.collectives import host_control
         out = [None] * self.world_size
         with host_control():
-            dist.all_gather_object(out, obj, group=self.world)
+            dist.all_gather_object(out, obj, group=self.control)
         return out
 
     def gather_rows(self, values: np.ndarray, rows: np.ndarray, n: int, *,
@@ -153,7 +163,7 @@ class CGMesh:
                     got = [None] * self.world_size if self.rank == to \
                         else None
                     dist.gather_object((values, rows), got, dst=to,
-                                       group=self.world)
+                                       group=self.control)
                     if got is None:
                         return None
                     parts = got
@@ -170,7 +180,7 @@ class CGMesh:
 
             from repro_torch.core.collectives import host_control
             with host_control():
-                dist.barrier(group=self.world)
+                dist.barrier(group=self.control)
 
     def destroy(self) -> None:
         """Tear down the process group (a no-op on the virtual mesh)."""
@@ -180,32 +190,67 @@ class CGMesh:
                 dist.destroy_process_group()
 
 
+def require_cards(world: int, device=None) -> None:
+    """Raise unless an NCCL mesh of ``world`` ranks can start here: one
+    card per rank, so ``device`` must be a card and this host must have
+    ``world`` of them.  The error names the cards needed and present."""
+    device = resolve_device(device)
+    present = torch.cuda.device_count()
+    if device.type == "cuda" and present >= world:
+        return
+    raise ValueError(
+        f"backend='nccl' runs one rank per card: {world} rank(s) need "
+        f"{world} card(s), and this host has {present} present"
+        + ("" if device.type == "cuda"
+           else f"; device {str(device)!r} is not a card")
+        + " (NCCL rejects two ranks on one card; gloo runs any number "
+        "of ranks on any device)")
+
+
+def add_dist_backend(ap) -> None:
+    """A CLI's ``--dist-backend``: the backend of its ``--mesh
+    process`` (default gloo)."""
+    ap.add_argument("--dist-backend", default="gloo", choices=BACKENDS,
+                    help="with --mesh process: gloo (any device, payloads "
+                         "through the host) or nccl (one rank per card)")
+
+
+def dist_backend(ap, args, world: int) -> str:
+    """A CLI's checked ``--dist-backend``: NCCL only with ``--mesh
+    process``, and refused (``require_cards``) before any work unless
+    ``--device`` is a card and this host has ``world`` of them."""
+    if args.dist_backend != "gloo" and args.mesh != "process":
+        ap.error(f"--dist-backend {args.dist_backend} runs a process mesh: "
+                 "add --mesh process")
+    if args.dist_backend == "nccl":
+        require_cards(world, args.device)
+    return args.dist_backend
+
+
 def make_cg_mesh(n_node: int, n_core: int, *, device=None,
                  backend: str | None = None, rank: int | None = None,
                  world_size: int | None = None,
                  init_method: str | None = None,
                  timeout: float = 60.0) -> CGMesh:
     """The hybrid (MPI × OpenMP) mesh.  With no process arguments, the
-    virtual mesh on ``device`` (default ``cuda``).  With ``backend="gloo"``
-    this process joins a process mesh as ``rank`` of ``world_size ==
-    n_node * n_core`` through ``init_method`` (``file://...`` or
-    ``tcp://host:port``), and builds the node and core groups (every rank
-    must call this, in the same order).  A process already in a group of
-    ``world_size`` ranks builds a further mesh over it without
-    ``init_method`` (a 2x2 and a 1x4 mesh of one four-rank group).
-    ``timeout`` (seconds) bounds every collective, so a rank that dies
-    does not leave the others blocked."""
+    virtual mesh on ``device`` (default ``cuda``).  With ``backend``
+    (``"gloo"`` or ``"nccl"``) this process joins a process mesh as
+    ``rank`` of ``world_size == n_node * n_core`` through ``init_method``
+    (``file://...`` or ``tcp://host:port``), and builds the node, core and
+    control groups (every rank must call this, in the same order).  On
+    NCCL, rank ``r`` binds itself to ``cuda:r`` (``device`` must be a card
+    with no other index) and the groups' communicators are started here.
+    A process already in a group of ``world_size`` ranks builds a further
+    mesh over it without ``init_method`` (a 2x2 and a 1x4 mesh of one
+    four-rank group), on the same backend.  ``timeout`` (seconds) bounds
+    every collective, so a rank that dies does not leave the others
+    blocked."""
     if n_node < 1 or n_core < 1:
         raise ValueError(f"mesh must be at least 1x1, got {n_node}x{n_core}")
     device = resolve_device(device)
     if backend is None and rank is None and world_size is None \
             and init_method is None:
         return CGMesh(n_node, n_core, device)
-    if backend == "nccl":
-        raise ValueError(
-            "backend='nccl' needs one card per rank; the process mesh runs "
-            "on gloo here (host-staged on a card).  NCCL is queued as "
-            "ROADMAP A7c, for a machine with more than one card")
     if backend not in BACKENDS:
         raise ValueError(f"process mesh backend must be one of {BACKENDS} "
                          f"(or no backend for the virtual mesh), got "
@@ -216,19 +261,31 @@ def make_cg_mesh(n_node: int, n_core: int, *, device=None,
                          f"{world}")
     if rank is None or not 0 <= rank < world:
         raise ValueError(f"rank must be in [0, {world}), got {rank!r}")
+    if backend == "nccl":
+        require_cards(world, device)
+        if device.index not in (None, rank):
+            raise ValueError(f"NCCL rank {rank} runs on cuda:{rank}, not "
+                             f"{device}")
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
     import torch.distributed as dist
 
     if not dist.is_initialized():
         if init_method is None:
             raise ValueError("a process mesh needs an init_method "
                              "('file://<path>' or 'tcp://<host>:<port>')")
-        dist.init_process_group(backend, init_method=init_method, rank=rank,
-                                world_size=world,
-                                timeout=datetime.timedelta(seconds=timeout))
+        # an NCCL world bound to its card starts its communicator now
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout),
+            **({"device_id": device} if backend == "nccl" else {}))
     elif (dist.get_rank(), dist.get_world_size()) != (rank, world):
         raise ValueError(
             f"the process group is rank {dist.get_rank()} of "
             f"{dist.get_world_size()}, not {rank} of {world}")
+    elif dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()}, "
+                         f"not {backend}")
     node, core = divmod(rank, n_core)
     node_group = core_group = None
     # new_group is collective over the world: every rank builds every group
@@ -240,23 +297,36 @@ def make_cg_mesh(n_node: int, n_core: int, *, device=None,
         g = dist.new_group([n * n_core + c for c in range(n_core)])
         if n == node:
             core_group = g
+    control = dist.group.WORLD
+    if backend == "nccl":
+        control = dist.new_group(backend="gloo")
+        # a group's first point-to-point batch must involve all of it: one
+        # collective on each group first, so that ppermute's pairs (and a
+        # rank with no pair) may issue their batches alone
+        one = torch.zeros(1, device=device)
+        for g in (node_group, core_group, dist.group.WORLD):
+            dist.all_reduce(one, group=g)
+        torch.cuda.synchronize(device)
     return CGMesh(n_node, n_core, device, backend, node, core, node_group,
-                  core_group, dist.group.WORLD)
+                  core_group, dist.group.WORLD, control)
 
 
 # ---------------------------------------------------------------------- #
 # the launcher
 # ---------------------------------------------------------------------- #
-def _rank_main(rank: int, n_node: int, n_core: int, device,
+def _rank_main(rank: int, n_node: int, n_core: int, device, backend: str,
                init_method: str, out_dir: str) -> None:
     """One spawned rank: join the mesh, run the call ``out_dir`` holds,
     write its result there."""
-    # every rank is on this host: gloo's sockets bind to the loopback
+    # every rank is on this host: gloo's sockets (the whole gloo mesh, or
+    # an NCCL mesh's control group) bind to the loopback
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    # an NCCL set-up or transport failure says why on stderr
+    os.environ.setdefault("NCCL_DEBUG", "WARN")
     torch.set_num_threads(1)
     with open(Path(out_dir) / "call.pkl", "rb") as f:
         fn, args = pickle.load(f)
-    mesh = make_cg_mesh(n_node, n_core, device=device, backend="gloo",
+    mesh = make_cg_mesh(n_node, n_core, device=device, backend=backend,
                         rank=rank, world_size=n_node * n_core,
                         init_method=init_method)
     result = fn(mesh, *args)
@@ -265,7 +335,7 @@ def _rank_main(rank: int, n_node: int, n_core: int, device,
         pickle.dump(result, f)
     os.replace(tmp, Path(out_dir) / f"result_{rank}.pkl")
     import torch.distributed as dist
-    dist.barrier()          # every rank is done with every other
+    dist.barrier(group=mesh.control)    # every rank is done with every other
     mesh.destroy()
     sys.stdout.flush()
     sys.stderr.flush()
@@ -296,10 +366,13 @@ _GRACE_S = 5.0
 
 
 def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
-                  *, args: tuple = (), timeout: float = 120.0) -> list:
+                  *, backend: str = "gloo", args: tuple = (),
+                  timeout: float = 120.0) -> list:
     """Run ``fn(mesh, *args)`` on ``n_node * n_core`` spawned ranks of a
-    gloo process mesh on this host; return the ranks' results in rank
-    order (each must pickle).
+    process mesh on this host (``backend`` gloo, every rank on ``device``;
+    or NCCL, rank ``r`` on ``cuda:r``); return the ranks' results in rank
+    order (each must pickle).  An NCCL launch with too few cards is
+    refused before any process starts.
 
     ``fn`` must be importable by name (a module-level function).  The
     rendezvous is a ``file://`` in a fresh temporary directory, so
@@ -315,10 +388,15 @@ def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
     import torch.multiprocessing as mp
 
     device = resolve_device(device)
+    world = n_node * n_core
+    if backend not in BACKENDS:
+        raise ValueError(f"process mesh backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    if backend == "nccl":
+        require_cards(world, device)
     if device.type == "cuda":
         from repro_torch.kernels import spmv_cuda
         spmv_cuda.build()
-    world = n_node * n_core
     tmp = tempfile.mkdtemp(prefix="cg_mesh_")
     # one BLAS thread per rank (unless the caller set a count): the ranks
     # share this host's cores, and pools that each size themselves to the
@@ -333,7 +411,10 @@ def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
             os.environ.setdefault(k, "1")
         try:
             ctx = mp.start_processes(
-                _rank_main, args=(n_node, n_core, str(device),
+                _rank_main, args=(n_node, n_core,
+                                  # NCCL: each rank binds its own card
+                                  str(device) if backend == "gloo"
+                                  else device.type, backend,
                                   f"file://{tmp}/rendezvous", tmp),
                 nprocs=world, join=False, start_method="spawn")
         finally:                # the ranks have read their environment

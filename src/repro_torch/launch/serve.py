@@ -10,9 +10,10 @@ Prints one JSON dict: per-request convergence/latency aggregates, engine
 counters, and the plan-cache stats (hits / misses / build seconds).
 
 ``--mesh process`` serves on a process mesh (``repro_torch.launch.mesh``):
-one spawned gloo rank per shard, requests submitted on rank 0; the dict
-is rank 0's, plus ``ranks`` and ``ranks_agree`` (every rank retired the
-same requests at the same iterations).
+one spawned rank per shard (``--dist-backend`` gloo or nccl), requests
+submitted on rank 0; the dict is rank 0's, plus ``ranks`` and
+``ranks_agree`` (every rank retired the same requests at the same
+iterations).
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import argparse
 import json
 import sys
 import time
+
+from repro_torch.launch.mesh import add_dist_backend, dist_backend
 
 
 def main(argv=None) -> int:
@@ -54,13 +57,16 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="virtual",
                     choices=["virtual", "process"],
                     help="virtual: the grid on one device; process: one "
-                         "spawned gloo rank per shard")
+                         "spawned rank per shard")
+    add_dist_backend(ap)
     args = ap.parse_args(argv)
+    dist_backend(ap, args, args.n_node * args.n_core)
 
     if args.mesh == "process":
         from repro_torch.launch.mesh import spawn_cg_mesh
         ranks = spawn_cg_mesh(_rank_run, args.n_node, args.n_core,
-                              args.device, args=(args,), timeout=3600)
+                              args.device, backend=args.dist_backend,
+                              args=(args,), timeout=3600)
         out = ranks[0]
         out.update(ranks=len(ranks), ranks_agree=all(
             r["iterations"] == out["iterations"] for r in ranks))

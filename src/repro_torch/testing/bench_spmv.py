@@ -3,7 +3,8 @@
 Usage:  python -m repro_torch.testing.bench_spmv [--device cpu] \
             --n-node 4 --n-core 2 [--format sell] \
             [--transport a2a,ring,pairwise,hier] [--wire-dtype f32,int8] \
-            [--cg [--fused] | --solver cg --nrhs 4] [--iters 50]
+            [--cg [--fused] | --solver cg --nrhs 4] [--iters 50] \
+            [--mesh process [--dist-backend nccl]]
 
 The port of ``repro.testing.bench_spmv``: the same flags and the same keys
 where a counterpart exists (``us_per_spmv``, ``us_per_spmv_min``,
@@ -12,7 +13,10 @@ where a counterpart exists (``us_per_spmv``, ``us_per_spmv_min``,
 ``census_split``).
 
 What the numbers are: one device holds the whole ``n_node x n_core`` grid
-as a virtual mesh, so there is no wire.  The times are of the card's
+as a virtual mesh, so there is no wire.  ``--mesh process`` times the same
+calls on every rank of a process mesh instead (``--dist-backend`` gloo,
+or nccl with one rank per card: the wire between cards), each on its own
+shard; the dict is rank 0's plus each timing by rank (``..._by_rank``).  The times are of the card's
 gathers, scatters and kernels (CUDA events on the card, after
 ``--warmup`` calls, median and min over ``--reps`` repetitions of
 ``--iters`` calls); on the CPU they are host-clock times of the plain
@@ -39,6 +43,8 @@ import sys
 import time
 
 import numpy as np
+
+from repro_torch.launch.mesh import add_dist_backend, dist_backend
 
 
 def timed(fn, device, calls: int = 1):
@@ -123,12 +129,17 @@ def main(argv=None) -> int:
     ap.add_argument("--no-collectives", action="store_true",
                     help="skip the recorded collective census")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="virtual",
+                    choices=["virtual", "process"],
+                    help="virtual: the grid on one device; process: one "
+                         "spawned rank per shard, each timing its shard")
+    add_dist_backend(ap)
     args = ap.parse_args(argv)
+    backend = dist_backend(ap, args, args.n_node * args.n_core)
 
     import torch
 
-    from repro_torch.core import build_spmv_plan, make_cg, to_dist
-    from repro_torch.core.collectives import census, record_collectives
+    from repro_torch.core import build_spmv_plan
     from repro_torch.sparse import (extruded_mesh_matrix,
                                     graded_extruded_mesh_matrix)
     from repro_torch.util import device_name
@@ -149,15 +160,15 @@ def main(argv=None) -> int:
            else extruded_mesh_matrix)
     A = gen(args.n_surface, args.layers, seed=0)
     t_gen = time.perf_counter() - t0
+    on_ranks = args.mesh == "process"
     t0 = time.perf_counter()
+    # a process mesh's ranks each place their own shard on the device
     plan, layout = build_spmv_plan(A, args.n_node, args.n_core,
                                    mode=args.mode,
                                    node_partition=args.node_partition,
-                                   format=args.format, device=device)
+                                   format=args.format,
+                                   device="cpu" if on_ranks else device)
     t_plan = time.perf_counter() - t0
-
-    rng = np.random.default_rng(0)
-    x = to_dist(rng.normal(size=A.n_rows), layout, plan)
 
     stats = layout["stats"]
     out = {"n_node": args.n_node, "n_core": args.n_core, "mode": args.mode,
@@ -174,7 +185,44 @@ def main(argv=None) -> int:
            "device": device_name(device),
            "timer": "cuda_events" if device.type == "cuda" else "host_clock",
            }
+    if not on_ranks:
+        out.update(bench(args, A, plan, layout, device))
+        print(json.dumps(out))
+        return 0
 
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_cg_mesh, write_plan
+
+    with tempfile.TemporaryDirectory(prefix="bench_spmv_") as d:
+        write_plan(plan, d)
+        ranks = spawn_cg_mesh(_rank_bench, args.n_node, args.n_core, device,
+                              backend=backend, args=(d, args, A, layout),
+                              timeout=1800)
+    out.update(ranks[0])
+    out.update(mesh="process", dist_backend=backend, ranks=len(ranks),
+               **{f"{k}_by_rank": [r[k] for r in ranks]
+                  for k in ("us_per_spmv", "us_per_iter") if k in ranks[0]})
+    print(json.dumps(out))
+    return 0
+
+
+def _rank_bench(mesh, plan_dir: str, args, A, layout) -> dict:
+    """One rank of ``--mesh process``: :func:`bench` on its shard."""
+    from repro_torch.launch.mesh import read_plan
+
+    return bench(args, A, read_plan(plan_dir, mesh), layout, mesh.device)
+
+
+def bench(args, A, plan, layout, device) -> dict:
+    """The timed run the flags ask for, on ``plan`` (whole, or a rank's
+    shard): the SpMV sweep, ``--cg`` or ``--solver``."""
+    from repro_torch.core import make_cg, to_dist
+    from repro_torch.core.collectives import census, record_collectives
+
+    rng = np.random.default_rng(0)
+    x = to_dist(rng.normal(size=A.n_rows), layout, plan)
+    out = {}
     if args.solver or (args.cg and args.fused):
         out.update(solver_run(args, A, plan, layout, rng, device))
     elif args.cg:
@@ -194,9 +242,7 @@ def main(argv=None) -> int:
             out["collectives"] = census(log)
     else:
         out.update(spmv_sweep(args, A, plan, x, device))
-
-    print(json.dumps(out))
-    return 0
+    return out
 
 
 def solver_run(args, A, plan, layout, rng, device) -> dict:

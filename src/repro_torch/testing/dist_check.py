@@ -18,7 +18,9 @@ preempt@N`` SIGKILLs this process mid-solve.
 
 ``--mesh process`` runs the same lines on a process mesh
 (``repro_torch.launch.mesh``): this process builds the plan once and
-spawns one gloo rank per shard, each on ``--device`` with its own shard;
+spawns one rank per shard, each on ``--device`` with its own shard
+(``--dist-backend gloo``, the default; ``nccl`` puts rank ``r`` on
+``cuda:r`` and needs a card per rank);
 the lines are printed from the ranks' shards, and a line is ``BAD`` unless
 every rank reports the same iterations.  A ``MESH`` line adds each
 rank's SpMV ``y`` against its row of the virtual mesh's (bit for bit) and
@@ -37,6 +39,7 @@ import tempfile
 
 import numpy as np
 
+from repro_torch.launch.mesh import add_dist_backend, dist_backend
 from repro_torch.testing.refine_check import host_cg
 
 
@@ -92,8 +95,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="virtual",
                     choices=["virtual", "process"],
                     help="virtual: the grid on one device; process: one "
-                         "spawned gloo rank per shard")
+                         "spawned rank per shard")
+    add_dist_backend(ap)
     args = ap.parse_args(argv)
+    dist_backend(ap, args, args.n_node * args.n_core)
     if args.mesh == "process":
         return process_main(args)
 
@@ -461,7 +466,8 @@ def process_main(args) -> int:
         write_plan(plan, d)
         try:
             ranks = spawn_cg_mesh(_rank, args.n_node, args.n_core,
-                                  args.device, args=(d, job), timeout=600)
+                                  args.device, backend=args.dist_backend,
+                                  args=(d, job), timeout=600)
         except RanksKilled as e:      # preempt@N: every rank killed
             print(f"KILLED exit codes {e.exitcodes}")
             return 137
@@ -518,7 +524,8 @@ def process_main(args) -> int:
                                          tol=CG_TOL, maxiter=2000)
     its = [r["mesh_cg"] for r in ranks]
     m_ok = y_bits and _agree(its) and abs(its[0] - int(itv)) <= 1
-    print(f"MESH process RANKS {len(ranks)} SPMV_BITWISE "
+    print(f"MESH process {args.dist_backend} RANKS {len(ranks)} "
+          f"SPMV_BITWISE "
           f"{'ok' if y_bits else 'BAD'} CG_ITERS {its[0]} VIRTUAL "
           f"{int(itv)} {'ok' if m_ok else 'BAD'}")
     ok = ok and m_ok

@@ -44,7 +44,8 @@ two-level node bounds + halo), ``single`` (banded extrusion ordering),
 ``cuda``).
 
 ``--mesh process`` applies every preconditioner on a process mesh
-(``repro_torch.launch.mesh``): one spawned gloo rank per shard, each
+(``repro_torch.launch.mesh``): one spawned rank per shard (on
+``--dist-backend``, gloo or nccl), each
 binding it on its own shard (two_level cuts its R and P plans to the
 rank).  The device applies the checks hold to the host are the ranks',
 gathered; ``static`` traces the virtual mesh's apply as before; each line
@@ -57,6 +58,8 @@ import argparse
 import json
 import sys
 import time
+
+from repro_torch.launch.mesh import add_dist_backend, dist_backend
 
 CASES = ("graded", "single", "halofree")
 
@@ -128,7 +131,8 @@ def _rank_apply(mesh, jobs: list) -> list:
     return out
 
 
-def _process_applies(cases, names, device, faulty: bool) -> list:
+def _process_applies(cases, names, device, faulty: bool,
+                     backend: str = "gloo") -> list:
     """Every ``(A, plan, layout)`` of ``cases`` (one mesh shape) with each
     of ``names`` applied on a process mesh to each of its vectors: per
     case ``{name: [z whole (n_node, n_core, rc_pad), ...]}``."""
@@ -146,7 +150,7 @@ def _process_applies(cases, names, device, faulty: bool) -> list:
                          "vectors": vectors, "faulty": faulty})
         plan = cases[0][1]
         ranks = spawn_cg_mesh(_rank_apply, plan.n_node, plan.n_core, device,
-                              args=(jobs,), timeout=600)
+                              backend=backend, args=(jobs,), timeout=600)
     return [{name: [np.concatenate([r[i][name][v] for r in ranks]).reshape(
         cases[i][1].cg_shape) for v in range(len(cases[i][3]))]
         for name in names} for i in range(len(cases))]
@@ -154,7 +158,7 @@ def _process_applies(cases, names, device, faulty: bool) -> list:
 
 def conformance(case: str, n_node: int, n_core: int, formats, device,
                 preconds=None, mesh: str = "virtual",
-                faulty: bool = False) -> bool:
+                faulty: bool = False, backend: str = "gloo") -> bool:
     import numpy as np
     import torch
 
@@ -181,13 +185,15 @@ def conformance(case: str, n_node: int, n_core: int, formats, device,
         ranks = _process_applies(
             [(A, plan, layout, [to_dist(u, layout, plan).cpu().numpy()
                                 for u in (r, v)])
-             for _, A, plan, layout, r, v in built], names, device, faulty)
+             for _, A, plan, layout, r, v in built], names, device, faulty,
+            backend)
     ok = True
     for i, (fmt, A, plan, layout, r, v) in enumerate(built):
         print(f"CASE {case} FORMAT {fmt} n={A.n_rows} "
               f"n_node={plan.n_node} n_core={plan.n_core} hs={plan.hs}"
               + ("" if ranks is None else
-                 f" MESH process RANKS {plan.n_node * plan.n_core}"))
+                 f" MESH process {backend} RANKS "
+                 f"{plan.n_node * plan.n_core}"))
 
         for pname in preconds:
             pre = get_precond(pname)
@@ -300,15 +306,16 @@ def scaling_solves(mesh, n_node: int, n_core: int, device=None) -> list:
 
 
 def scaling(n_node: int, n_core: int, device, flat_bound: float,
-            mesh: str = "virtual") -> bool:
+            mesh: str = "virtual", backend: str = "gloo") -> bool:
     if mesh == "process":
         from repro_torch.launch.mesh import spawn_cg_mesh
         ranks = spawn_cg_mesh(scaling_solves, n_node, n_core, device,
-                              args=(n_node, n_core), timeout=600)
+                              backend=backend, args=(n_node, n_core),
+                              timeout=600)
         agree = all([[g[p][0] for p in g] for _, g in r]
                     == [[g[p][0] for p in g] for _, g in ranks[0]]
                     for r in ranks)
-        print(f"MESH process RANKS {len(ranks)} ITERS_AGREE "
+        print(f"MESH process {backend} RANKS {len(ranks)} ITERS_AGREE "
               f"{'ok' if agree else 'BAD'}")
         rows = ranks[0]
     else:
@@ -363,8 +370,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="virtual",
                     choices=["virtual", "process"],
                     help="virtual: the grid on one device; process: one "
-                         "spawned gloo rank per shard")
+                         "spawned rank per shard")
+    add_dist_backend(ap)
     args = ap.parse_args(argv)
+    backend = dist_backend(ap, args, args.n_node * args.n_core)
 
     import torch
 
@@ -374,7 +383,7 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     if args.scaling:
         ok = scaling(args.n_node, args.n_core, device, args.flat_bound,
-                     args.mesh)
+                     args.mesh, backend)
         print("OK" if ok else "FAIL")
         return 0 if ok else 1
 
@@ -384,7 +393,8 @@ def main(argv=None) -> int:
         ok = conformance(args.case, args.n_node, args.n_core,
                          args.formats.split(","), device,
                          args.preconds.split(",") if args.preconds else None,
-                         mesh=args.mesh, faulty=args.include_faulty)
+                         mesh=args.mesh, faulty=args.include_faulty,
+                         backend=backend)
     finally:
         if args.include_faulty:
             unregister_precond("faulty")

@@ -22,7 +22,8 @@ Every child runs on ``--device`` (default ``cuda``).  Each prints one
 ``CHILD ...`` line; the parent prints its verdicts and ``OK``/``FAIL``.
 
 ``--mesh process`` runs each child's solve on a process mesh
-(``repro_torch.launch.mesh``): the child spawns one gloo rank per shard
+(``repro_torch.launch.mesh``): the child spawns one rank per shard
+(``--dist-backend``: gloo, or nccl with a card per rank, 8 for the victim)
 and every rank runs the resilient driver on its shard.  The victim's
 ``preempt@K`` kills every rank at one chunk boundary, after rank 0 wrote
 the checkpoint; the child reports the ranks' exit codes (``CHILD KILLED
@@ -35,6 +36,8 @@ import signal
 import subprocess
 import sys
 import tempfile
+
+from repro_torch.launch.mesh import add_dist_backend, dist_backend
 
 #: f32 true-residual / solution-error bounds per solver
 BOUNDS = {"cg": (2e-4, 1e-2), "pipelined_cg": (1e-3, 3e-2),
@@ -83,7 +86,8 @@ def child_main(args) -> int:
         from repro_torch.launch.mesh import RanksKilled, spawn_cg_mesh
         try:
             ranks = spawn_cg_mesh(_rank_solve, args.n_node, args.n_core,
-                                  args.device, args=(args,), timeout=600)
+                                  args.device, backend=args.dist_backend,
+                                  args=(args,), timeout=600)
         except RanksKilled as e:
             print(f"CHILD KILLED {e.exitcodes}")
             return 3
@@ -128,7 +132,7 @@ def parent_main(args) -> int:
               "--tol", str(args.tol), "--check-every",
               str(args.check_every), "--n-surface", str(args.n_surface),
               "--layers", str(args.layers), "--device", args.device,
-              "--mesh", args.mesh]
+              "--mesh", args.mesh, "--dist-backend", args.dist_backend]
     ok = True
 
     # 1) victim: 4x2 grid, ell/a2a, SIGKILLed mid-solve by the injector
@@ -222,8 +226,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="virtual",
                     choices=["virtual", "process"],
                     help="virtual: each child's grid on one device; "
-                         "process: one spawned gloo rank per shard")
+                         "process: one spawned rank per shard")
+    add_dist_backend(ap)
     args = ap.parse_args(argv)
+    # the victim's 4x2 mesh is the widest
+    dist_backend(ap, args, max(8, args.n_node * args.n_core))
     return child_main(args) if args.child else parent_main(args)
 
 

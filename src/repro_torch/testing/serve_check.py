@@ -21,8 +21,9 @@ checks the service's three gates:
      (``recompiles == 0``).
 
 ``--mesh process`` serves on a process mesh (``repro_torch.launch.mesh``):
-one spawned gloo rank per shard, every rank running the same engine on
-its shard and the requests submitted on rank 0.  The gates read rank 0's
+one spawned rank per shard (``--dist-backend`` gloo or nccl), every rank
+running the same engine on its shard and the requests submitted on rank
+0.  The gates read rank 0's
 whole results; a ``RANKS`` line adds that every rank retired the same
 requests at the same iterations, and ``recompiles`` and the cache gate
 hold on every rank.
@@ -34,6 +35,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+from repro_torch.launch.mesh import add_dist_backend, dist_backend
 
 #: f32 (true-residual, oracle solution error) bounds per solver, as the
 #: JAX package's serve_check and resilience_check hold them
@@ -149,8 +152,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="virtual",
                     choices=["virtual", "process"],
                     help="virtual: the grid on one device; process: one "
-                         "spawned gloo rank per shard")
+                         "spawned rank per shard")
+    add_dist_backend(ap)
     args = ap.parse_args(argv)
+    dist_backend(ap, args, args.n_node * args.n_core)
 
     import numpy as np
 
@@ -162,7 +167,8 @@ def main(argv=None) -> int:
     if args.mesh == "process":
         from repro_torch.launch.mesh import spawn_cg_mesh
         ranks = spawn_cg_mesh(_rank_serve, args.n_node, args.n_core,
-                              args.device, args=(args,), timeout=600)
+                              args.device, backend=args.dist_backend,
+                              args=(args,), timeout=600)
         out = ranks[0]
         same = all(r["iterations"] == out["iterations"] for r in ranks)
         print(f"RANKS {len(ranks)} ITERATIONS "

@@ -34,8 +34,9 @@ Exit code 0 iff every check passed.  The virtual mesh holds the whole
 ``n_node x n_core`` grid on ``--device`` (default ``cuda``).
 
 ``--mesh process`` holds every rank of a process mesh
-(``repro_torch.launch.mesh``: one spawned gloo rank per shard, each on
-``--device`` with its own shard of the plan) to the virtual mesh's
+(``repro_torch.launch.mesh``: one spawned rank per shard, each on
+``--device`` with its own shard of the plan; ``--dist-backend nccl``
+puts rank ``r`` on ``cuda:r``) to the virtual mesh's
 ``a2a`` at the same wire dtype, per (case, format, wire dtype,
 transport):
 
@@ -54,6 +55,8 @@ from __future__ import annotations
 import argparse
 import sys
 import tempfile
+
+from repro_torch.launch.mesh import add_dist_backend, dist_backend
 
 CASES = ("graded", "uniform", "single", "dense", "halofree")
 
@@ -195,9 +198,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="virtual",
                     choices=["virtual", "process"],
                     help="virtual: the grid on one device; process: one "
-                         "spawned gloo rank per shard, each held to its row "
+                         "spawned rank per shard, each held to its row "
                          "of the virtual mesh")
+    add_dist_backend(ap)
     args = ap.parse_args(argv)
+    dist_backend(ap, args, args.n_node * args.n_core)
 
     from repro_torch.core.transport import (FaultyTransport,
                                             available_wire_dtypes,
@@ -216,7 +221,8 @@ def main(argv=None) -> int:
             return 2
         ok = check_process(cases, args.formats.split(","), args.n_node,
                            args.n_core, args.device, transports,
-                           wire_dtypes, args.include_faulty)
+                           wire_dtypes, args.include_faulty,
+                           backend=args.dist_backend)
         print("OK" if ok else "FAIL")
         return 0 if ok else 1
     if args.include_faulty:
@@ -259,7 +265,7 @@ def rank_sweep(mesh, jobs: list, include_faulty: bool = False) -> list:
         shape = job["shape"]
         if shape not in meshes:     # the halo-free 1 x world mesh
             meshes[shape] = make_cg_mesh(*shape, device=mesh.device,
-                                         backend="gloo", rank=mesh.rank,
+                                         backend=mesh.backend, rank=mesh.rank,
                                          world_size=mesh.world_size)
         m = meshes[shape]
         plan = read_plan(job["dir"], m)
@@ -286,36 +292,50 @@ def prepare_process(cases, formats, n_node: int, n_core: int, device,
     results to."""
     import numpy as np
 
-    from repro_torch.core import (available_transports, make_exchange,
-                                  make_spmv, resolve_transport, to_dist)
-    from repro_torch.launch.mesh import write_plan
+    from repro_torch.core import to_dist
 
-    names = transports or available_transports()
     virtual, jobs = [], []
     for case in cases:
         for fmt in formats:
             A, plan, layout = build_case(case, n_node, n_core, fmt, "cpu")
             xd = to_dist(np.random.default_rng(7).normal(size=A.n_rows),
                          layout, plan)
-            path = f"{directory}/{case}_{fmt}"
-            write_plan(plan, path)
-            sweep = [(wd, name) for wd in wire_dtypes for name in names]
-            jobs.append({"dir": path, "x": xd.numpy(),
-                         "shape": (plan.n_node, plan.n_core), "sweep": sweep})
-            # the yardstick at each wire dtype: the virtual mesh's a2a,
-            # which every honest transport equals
-            vplan = plan_on(plan, device)
-            xv = xd.to(vplan.device)
-            ref = {wd: (make_exchange(vplan, "a2a", wire_dtype=wd)(
-                xv).cpu().numpy() if plan.hs else None,
-                make_spmv(vplan, transport="a2a", wire_dtype=wd)(
-                    xv).cpu().numpy()) for wd in wire_dtypes}
-            want = {}
-            for wd, name in sweep:
-                tr, st = resolve_transport(name, vplan, wire_dtype=wd)
-                want[(wd, name)] = ref[wd] + (tr.predicted_cost(vplan, st),)
+            want, job = prepare_plan(plan, xd, device,
+                                     f"{directory}/{case}_{fmt}",
+                                     transports, wire_dtypes)
             virtual.append((case, fmt, plan, want))
+            jobs.append(job)
     return virtual, jobs
+
+
+def prepare_plan(plan, xd, device, path, transports=None,
+                 wire_dtypes=("f32",)):
+    """One host plan's process sweep: write it to ``path`` and compute the
+    virtual mesh's ghosts, ``y`` (``a2a`` at each wire dtype, which every
+    honest transport equals) and predicted costs on ``device`` for input
+    ``xd`` (host, distributed).  Returns ``(want, job)``: ``want[(wire
+    dtype, transport)]`` for :func:`report_process`, the job for
+    :func:`rank_sweep`."""
+    from repro_torch.core import (available_transports, make_exchange,
+                                  make_spmv, resolve_transport)
+    from repro_torch.launch.mesh import write_plan
+
+    names = transports or available_transports()
+    write_plan(plan, path)
+    sweep = [(wd, name) for wd in wire_dtypes for name in names]
+    job = {"dir": path, "x": xd.numpy(), "shape": (plan.n_node, plan.n_core),
+           "sweep": sweep}
+    vplan = plan_on(plan, device)
+    xv = xd.to(vplan.device)
+    ref = {wd: (make_exchange(vplan, "a2a", wire_dtype=wd)(
+        xv).cpu().numpy() if plan.hs else None,
+        make_spmv(vplan, transport="a2a", wire_dtype=wd)(
+            xv).cpu().numpy()) for wd in wire_dtypes}
+    want = {}
+    for wd, name in sweep:
+        tr, st = resolve_transport(name, vplan, wire_dtype=wd)
+        want[(wd, name)] = ref[wd] + (tr.predicted_cost(vplan, st),)
+    return want, job
 
 
 def report_process(virtual, ranks) -> bool:
@@ -357,11 +377,12 @@ def report_process(virtual, ranks) -> bool:
 
 def check_process(cases, formats, n_node: int, n_core: int, device,
                   transports=None, wire_dtypes=("f32",),
-                  include_faulty: bool = False) -> bool:
+                  include_faulty: bool = False,
+                  backend: str = "gloo") -> bool:
     """Every (case, format, wire dtype, transport) on a process mesh of
-    ``n_node * n_core`` spawned ranks against the virtual mesh on
-    ``device``; print one line per (wire dtype, transport); return whether
-    all passed."""
+    ``n_node * n_core`` spawned ranks (on ``backend``) against the virtual
+    mesh on ``device``; print one line per (wire dtype, transport); return
+    whether all passed."""
     from repro_torch.core.transport import (FaultyTransport,
                                             register_transport,
                                             unregister_transport)
@@ -375,6 +396,7 @@ def check_process(cases, formats, n_node: int, n_core: int, device,
                                             device, d, transports,
                                             wire_dtypes)
             ranks = spawn_cg_mesh(rank_sweep, n_node, n_core, device,
+                                  backend=backend,
                                   args=(jobs, include_faulty), timeout=600)
     finally:
         if include_faulty:

@@ -20,7 +20,14 @@ whose column indices exceed its ``x`` is refused before any launch; a
 process mesh of 8 ranks on the card gives the virtual mesh's ghosts and
 ``y`` bit for bit; on 4 ranks, two_level's iterations are the virtual
 mesh's ±1 and the resilient driver's chunked ``x`` is each rank's
-monolithic shard bit for bit.
+monolithic shard bit for bit.  With several cards (each test skips unless
+``torch.cuda.device_count()`` covers its ranks): a kernel on ``cuda:1``
+launched from a thread whose current card is 0 gives ``cuda:0``'s bits;
+four NCCL ranks (2x2) give the virtual mesh's ghosts and ``y`` bit for
+bit, for every transport x wire dtype, and cg iterations equal on every
+rank (±1 of the virtual mesh's); on two NCCL ranks, 32 more cg
+iterations add only their two gated convergence checks' device-to-host
+copies.
 """
 import dataclasses
 import json
@@ -885,3 +892,168 @@ def test_two_level_and_the_resilient_driver_on_a_process_mesh(golden):
                               xs[0, 0][g >= 0].view(np.int32))
         assert res["nan"].rollbacks == 1 and res["nan"].converged
         assert res["nan"].trajectory == ranks[0]["nan"].trajectory
+
+
+# ---------------------------------------------------------------------- #
+# several cards: each tensor's own card, and the NCCL mesh
+# ---------------------------------------------------------------------- #
+def _cards(n: int) -> None:
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards (torch.cuda.device_count() is "
+                    f"{torch.cuda.device_count()})")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernels_launch_on_the_tensors_own_card(case, golden):
+    """A plan on ``cuda:1`` launched from a thread whose current card is
+    0 gives ``cuda:0``'s ``y`` bit for bit: each launch runs under its
+    tensors' card."""
+    from repro_torch.testing.transport_check import plan_on
+
+    _cards(2)
+    A, x, _ = golden
+    plan, layout = _plan(case, A)
+    y0 = make_spmv(plan)(to_dist(x, layout, plan))
+    plan1 = plan_on(plan, "cuda:1")
+    with torch.cuda.device(0):
+        reset_launches()
+        y1 = make_spmv(plan1)(to_dist(x, layout, plan1))
+        torch.cuda.synchronize(1)
+        assert torch.cuda.current_device() == 0
+    assert y1.device == torch.device("cuda", 1)
+    assert LAUNCHES[CASES[case]] == 1
+    assert torch.equal(y1.cpu().view(torch.int32), y0.cpu().view(torch.int32))
+
+
+def test_balanced_kernel_launches_on_the_tensors_own_card(golden):
+    _cards(2)
+    A, x, _ = golden
+    bounds = partition_balanced(A.row_nnz, 13)
+    y = [ops.balanced_spmv(BalancedCOO.from_csr(A, bounds, device=dev),
+                           torch.from_numpy(x).to(dev))
+         for dev in ("cuda:0", "cuda:1")]
+    torch.cuda.synchronize(1)
+    assert y[1].device == torch.device("cuda", 1)
+    assert torch.equal(y[1].cpu().view(torch.int32),
+                       y[0].cpu().view(torch.int32))
+
+
+def _rank_nccl(mesh, job):
+    """One NCCL rank: its card, then per format its shard's a2a ghosts and
+    ``y``, and cg + jacobi's iterations."""
+    from repro_torch.core import make_exchange
+    from repro_torch.launch.mesh import read_plan
+
+    out = {"device": str(mesh.device),
+           "current": torch.cuda.current_device()}
+    for fmt, d in job["dirs"].items():
+        plan = read_plan(d, mesh)
+        x, b = (torch.from_numpy(np.array(job[v][fmt][
+            mesh.node:mesh.node + 1, mesh.core:mesh.core + 1])).to(
+            mesh.device) for v in ("x", "b"))
+        _, iters, _ = make_solver(plan, precond="jacobi")(b, tol=3e-6,
+                                                         maxiter=400)
+        out[fmt] = (make_exchange(plan, "a2a")(x).cpu().numpy(),
+                    make_spmv(plan)(x).cpu().numpy(), int(iters))
+    return out
+
+
+def test_nccl_2x2_mesh_is_the_virtual_mesh(golden):
+    """Four NCCL ranks, one per card (2x2, the golden 4x2 case's matrix):
+    rank r on ``cuda:r``; every rank's ghosts and ``y`` bit for bit its
+    row of the virtual mesh's, ell and sell; cg's iterations equal on
+    every rank and within ±1 of the virtual mesh's."""
+    import tempfile
+
+    from repro_torch.core import make_exchange
+    from repro_torch.launch.mesh import spawn_cg_mesh, write_plan
+
+    _cards(4)
+    A, x, b = golden
+    job, want = {"dirs": {}, "x": {}, "b": {}}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for fmt in ("ell", "sell"):
+            plan, layout = build_spmv_plan(A, 2, 2, format=fmt,
+                                           device="cuda")
+            job["dirs"][fmt] = str(write_plan(plan, f"{d}/{fmt}"))
+            xd, bd = to_dist(x, layout, plan), to_dist(b, layout, plan)
+            job["x"][fmt], job["b"][fmt] = xd.cpu().numpy(), bd.cpu().numpy()
+            _, iters, _ = make_solver(plan, precond="jacobi")(
+                bd, tol=3e-6, maxiter=400)
+            want[fmt] = (make_exchange(plan, "a2a")(xd).cpu().numpy(),
+                         make_spmv(plan)(xd).cpu().numpy(), int(iters),
+                         plan.g_pad)
+        ranks = spawn_cg_mesh(_rank_nccl, 2, 2, "cuda", backend="nccl",
+                              args=(job,), timeout=300)
+    assert [(r["device"], r["current"]) for r in ranks] == [
+        (f"cuda:{i}", i) for i in range(4)]
+    for fmt, (ghost, y, iters, g) in want.items():
+        its = [r[fmt][2] for r in ranks]
+        assert all(i == its[0] for i in its) and abs(its[0] - iters) <= 1
+        for i, r in enumerate(ranks):
+            node, core = divmod(i, 2)
+            assert np.array_equal(r[fmt][0][0, 0, :g].view(np.int32),
+                                  ghost[node, core, :g].view(np.int32))
+            assert np.array_equal(r[fmt][1][0, 0].view(np.int32),
+                                  y[node, core].view(np.int32))
+
+
+def test_nccl_transport_sweep_is_the_virtual_mesh():
+    """``transport_check --mesh process --dist-backend nccl`` at 2x2:
+    every transport x wire dtype's ghosts, ``y`` and census on every
+    rank equal the virtual mesh's."""
+    from repro_torch.testing import transport_check
+
+    _cards(4)
+    assert transport_check.main(
+        ["--mesh", "process", "--dist-backend", "nccl", "--device", "cuda",
+         "--case", "graded", "--n-node", "2", "--n-core", "2",
+         "--wire-dtype", "all"]) == 0
+
+
+def _rank_copies(mesh, job):
+    """Device-to-host copies (``torch.profiler``) in cg runs of 32 and of
+    64 iterations on one NCCL rank, and the device events seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.mesh import read_plan
+
+    plan = read_plan(job["dir"], mesh)
+    b = torch.from_numpy(np.array(job["b"][
+        mesh.node:mesh.node + 1, mesh.core:mesh.core + 1])).to(mesh.device)
+    solve = make_solver(plan, precond="jacobi", check_every=16)
+    solve(b, tol=0.0, maxiter=16)                       # warm
+    out = {}
+    for iters in (32, 64):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solve(b, tol=0.0, maxiter=iters)
+            torch.cuda.synchronize()
+        dev = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[iters] = (sum("DtoH" in n for n in dev), len(dev))
+    return out
+
+
+def test_a_cg_iteration_on_an_nccl_rank_copies_nothing_to_the_host(golden):
+    """Two NCCL ranks (2x1, sell: every collective crosses cards): 32
+    more iterations add exactly their two gated convergence checks'
+    device-to-host copies, so no iteration copies anything else to the
+    host (a gloo rank on a card stages every collective there)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_cg_mesh, write_plan
+
+    _cards(2)
+    A, _, b = golden
+    plan, layout = build_spmv_plan(A, 2, 1, format="sell", device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        job = {"dir": str(write_plan(plan, d)),
+               "b": to_dist(b, layout, plan).cpu().numpy()}
+        ranks = spawn_cg_mesh(_rank_copies, 2, 1, "cuda", backend="nccl",
+                              args=(job,), timeout=300)
+    for r in ranks:
+        (d32, n32), (d64, n64) = r[32], r[64]
+        assert n64 > n32 > 0                # the profiler saw the card
+        assert d64 - d32 == 2, r

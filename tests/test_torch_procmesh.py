@@ -385,10 +385,59 @@ def test_spawns_finish_well_inside_their_timeout(ranks):
 # ---------------------------------------------------------------------- #
 # the mesh and the launcher
 # ---------------------------------------------------------------------- #
-def test_nccl_is_refused_naming_its_queue():
-    with pytest.raises(ValueError, match="A7c"):
-        make_cg_mesh(2, 2, backend="nccl", rank=0, world_size=4,
-                     init_method="file:///nonexistent")
+# NCCL runs one rank per card; this machine has none
+_NO_CARDS = r"4 rank\(s\) need 4 card\(s\), and this host has 0 present"
+
+
+@pytest.mark.parametrize("device,words", [
+    ("cuda", _NO_CARDS + r" \(NCCL"),
+    ("cpu", _NO_CARDS + r"; device 'cpu' is not a card")])
+def test_make_cg_mesh_refuses_nccl_without_a_card_per_rank(device, words):
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError, match=words):
+        make_cg_mesh(2, 2, device=device, backend="nccl", rank=0,
+                     world_size=4, init_method="file:///nonexistent")
+    assert not dist.is_initialized()        # refused before any group
+
+
+@pytest.mark.parametrize("grid,kw,words", [
+    ((2, 2), dict(device="cuda", rank=0),
+     r"4 rank\(s\) need 4 card\(s\), and this host has 2 present"),
+    ((2, 1), dict(device="cpu", rank=0), "device 'cpu' is not a card"),
+    ((2, 1), dict(device="cuda:0", rank=1),
+     "NCCL rank 1 runs on cuda:1, not cuda:0")])
+def test_make_cg_mesh_binds_each_nccl_rank_to_its_own_card(grid, kw, words,
+                                                          monkeypatch):
+    """With two cards present: four ranks are refused, a CPU device is
+    refused, and rank r runs on cuda:r and no other card."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match=words):
+        make_cg_mesh(*grid, backend="nccl", world_size=grid[0] * grid[1],
+                     init_method="file:///nonexistent", **kw)
+    assert not dist.is_initialized()
+
+
+def _never(mesh):
+    raise AssertionError("a refused spawn ran a rank")
+
+
+@pytest.mark.parametrize("device,backend,words", [
+    ("cuda", "nccl", _NO_CARDS),
+    ("cpu", "nccl", _NO_CARDS + r"; device 'cpu' is not a card"),
+    ("cpu", "mpi", "backend must be one of")])
+def test_spawn_cg_mesh_refuses_before_any_process_starts(device, backend,
+                                                         words, monkeypatch):
+    import torch.multiprocessing as mp
+
+    started = []
+    monkeypatch.setattr(mp, "start_processes",
+                        lambda *a, **k: started.append(a))
+    with pytest.raises(ValueError, match=words):
+        spawn_cg_mesh(_never, 2, 2, device, backend=backend)
+    assert not started
 
 
 @pytest.mark.parametrize("kw,words", [

@@ -12,7 +12,10 @@ injected ``nan`` and a ``preempt`` that kills every rank) on the ranks.
 ``precond_check``, ``resilience_check``, ``serve_check`` and
 ``launch/serve`` with ``--mesh process``: their gates, each line's
 ``mesh=`` / ``RANKS`` agreement, and ``launch/serve``'s iterations equal
-to the virtual mesh's.  Each run spawns its ranks (``resilience_check``
+to the virtual mesh's.  Every CLI with ``--mesh process`` (and
+``bench_spmv``) takes ``--dist-backend``: ``nccl`` is refused here, before
+any work, naming the cards needed and present (this machine has none),
+and without ``--mesh process`` it is a usage error.  Each run spawns its ranks (``resilience_check``
 three times, through its children); the children get no jax
 compatibility shim.
 """
@@ -21,9 +24,19 @@ import re
 
 import pytest
 
-from repro_torch.testing import (dist_check, precond_check,
+from repro_torch.launch import serve as launch_serve
+from repro_torch.testing import (bench_spmv, dist_check, precond_check,
                                  resilience_check, serve_check,
                                  transport_check)
+
+#: each CLI with ``--mesh process`` and what its parser needs besides
+CLIS = {"dist_check": (dist_check, []),
+        "transport_check": (transport_check, []),
+        "precond_check": (precond_check, []),
+        "resilience_check": (resilience_check, []),
+        "serve_check": (serve_check, []),
+        "bench_spmv": (bench_spmv, ["--n-node", "2", "--n-core", "2"]),
+        "launch.serve": (launch_serve, [])}
 
 
 @pytest.fixture(autouse=True)
@@ -193,3 +206,29 @@ def test_transport_check_process_mesh_refuses_autotune(capsys):
     assert transport_check.main(["--mesh", "process", "--device", "cpu",
                                  "--autotune"]) == 2
     assert "virtual mesh only" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name", sorted(CLIS))
+def test_cli_refuses_nccl_naming_the_cards_needed_and_present(name):
+    module, argv = CLIS[name]
+    with pytest.raises(ValueError, match=r"rank\(s\) need \d+ card\(s\), "
+                       r"and this host has 0 present"):
+        module.main(argv + ["--mesh", "process", "--dist-backend", "nccl",
+                            "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", sorted(CLIS))
+def test_cli_takes_dist_backend_only_with_mesh_process(name, capsys):
+    module, argv = CLIS[name]
+    with pytest.raises(SystemExit) as e:
+        module.main(argv + ["--dist-backend", "nccl", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "add --mesh process" in capsys.readouterr().err
+
+
+def test_dist_check_names_its_mesh_backend(capsys):
+    assert dist_check.main(["--mesh", "process", "--dist-backend", "gloo",
+                            "--device", "cpu", "--n-node", "2",
+                            "--n-core", "2"]) == 0
+    mesh = [ln for ln in _lines(capsys) if ln.startswith("MESH")]
+    assert mesh[0].startswith("MESH process gloo RANKS 4 SPMV_BITWISE ok")
