@@ -25,7 +25,17 @@ versions) and the last lines, for a run on several cards.
             the real entries' values and columns, the lengths, x and y,
             and its flops two per real entry; ``bound_stored_ms`` beside
             it counts every stored slot, padding included.  SELL counts
-            its stored entries (about nnz) and slice descriptors;
+            its stored entries (about nnz) and slice descriptors.  Then
+            (``kernel_onto``) the split two-phase SpMV of the overlapped
+            schedule on the 4x2 plans, single-column and at k = 4, f32
+            and bf16: the diag pass (B3's / B4's launch on the diag
+            stream) then the offd pass onto its ``y`` (``ONTO``), bit for
+            bit the fused kernel (B1, B2, batched B1, B2) and within
+            2e-5·max|y| of the plain version; the offd pass's ms (in
+            place), the plain onto's, the diag pass's, both together and
+            the fused kernel's; its bound (the offd stream, the ghosts and
+            ``y`` read and written) and the library's ``addmv`` /
+            ``addmm`` of the offd blocks onto the partial;
 3b. balanced the single-device kernel path on the full-size matrix of
             phase 5: ``BalancedCOO`` (``partition_balanced`` and
             ``partition_equal_rows`` bounds, 16, 64 and 8 x SM-count bins)
@@ -207,14 +217,24 @@ versions) and the last lines, for a run on several cards.
             ell and sell plans of phase 5 (written once here, each rank
             reading its own rows through ``plan_from_arrays``; the rank
             loop and its report are phase 6m's, ``mesh_rank`` and
-            ``mesh_report``).  Per plan and rank: one a2a f32 SpMV, ``y``
+            ``mesh_report``), and the sell 4x2 plan on equal rows
+            (``sell/4x2/rows``), where ``vector`` and ``task`` alternate.
+            The balanced plans run the overlapped schedule (``task``'s):
+            the diag pass while the exchange is in flight, the offd pass
+            onto it.  Per plan, mode and rank: one a2a f32 SpMV, ``y``
             and ghosts bit for bit its row of the virtual mesh's at 4x2,
+            one batched SpMV (k = 4) each column bit for bit the
+            single-column body, the schedule, the diag pass's ms, the
+            wire's ms per SpMV and its exposed part (``procmesh_modes``:
+            ``y``, ghosts, iterations and ``x`` bit for bit across
+            ``vector`` and ``task``, whose cg runs to 1e-2),
             then fused cg + jacobi to tol 1e-6 after a warm block
             (iterations equal on every rank and within ±1 of the virtual
             mesh's, true relative residual < 1e-4, iterates held to the
             virtual mesh's bit for bit and reported), with the rank's
-            launch counts zeroed just before and read just after (B1 on
-            ell, B2 on sell, every rank); ms per SpMV (median of 20
+            launch counts zeroed just before and read just after (the
+            kernels of the mode's schedule, ``path_kernels``, every
+            rank); ms per SpMV (median of 20
             CUDA-event runs, the ranks released together by a barrier)
             and per CG iteration beside the virtual mesh's, and the
             wire's ms by kind and share.  The halo-free 1x8 ell and sell
@@ -229,15 +249,17 @@ versions) and the last lines, for a run on several cards.
             ``transport="auto"`` on both 4x2 plans (one winner on every
             rank, each candidate's µs); two_level (agg 256, jacobi
             smoother) cg to 1e-6 on the sell plan (iterations equal on
-            every rank and within ±1 of phase 6h's, B1 launched at R's
-            and P's shapes on every rank, per-rank host build seconds);
+            every rank and within ±1 of phase 6h's, the ELL offd pass
+            launched at R's and P's shapes on every rank, per-rank host
+            build seconds);
             the resilient driver there in chunks of 50 (every rank's
             rows of the whole ``x`` bit for bit its monolithic shard,
             ``nan@60`` rolled back once with one trajectory on every
             rank); the service (nrhs 4, the first 5 of phase 6i's
             requests, one spliced in mid-solve: iterations equal on
             every rank and within ±1 of phase 6i's, ``recompiles == 0``
-            and the batched B2 launched on every rank, true residuals
+            and the batched SELL offd pass launched on every rank, true
+            residuals
             under 1e-4, 2e-4 at tol 1e-4; makespan reported, not gated);
             and ``resilience_check --mesh process --device cuda``.  Eight processes share one card and
             their wire is host memory: no inter-node wire is measured;
@@ -266,7 +288,15 @@ versions) and the last lines, for a run on several cards.
             code), and both again with each rank's threads pinned to its
             own share of the CPUs.  Then ``nccl_scaling``: speedup and
             efficiency per card of ms per SpMV and per CG iteration
-            against the 1x1 NCCL mesh.
+            against the 1x1 NCCL mesh.  On 2x1, 4x1 and 2x2 also the
+            plans on equal rows, ``vector`` and ``task`` alternated in one
+            call beside ``balanced`` on its own plan (``nccl_grid`` per
+            mode, ``nccl_modes``): the same bit gates, ``y`` and ``x``
+            bit for bit across the two, iterations equal, ms per SpMV and
+            per CG iteration, the diag pass's ms and the exposed wire per
+            SpMV and per iteration; on 2x2 ``ring`` and ``hier`` under
+            ``task`` bit for bit ``a2a``.  At 1x1 the modes coincide (no
+            collective moves data, no halo).
             On four cards, on the 2x2 plans of the same ranks:
             ``transport_check``'s sweep on the full sell plan (every
             transport x wire dtype bit for bit the virtual mesh's
@@ -280,13 +310,17 @@ versions) and the last lines, for a run on several cards.
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
-   time), the ``nvidia-smi`` line, and the last line ``{"ok": true,
+   time, then the offd passes (ELL, SELL, batched ELL and SELL at k = 4)
+   with their launches over phase 6l's ranks and the library's ``addmv``
+   / ``addmm``), the ``nvidia-smi`` line, and the last line ``{"ok": true,
    "device": {...}}``.  Under ``--only nccl`` the kernels line holds the
    kernels of 6m's path, each held to its plain version and timed at the
    shapes 6m gave it, with its launches over every rank: on one card B3
-   and B4 (1x1); on four B1-B4 (2x2, 1x4), B1 at the 2x2 two_level's R
-   and P (with that run's launches) and the batched B2 at the 2x2
-   service's k (with the service's launches).
+   and B4 (1x1); on four B1-B4 (2x2, 1x4), the offd passes at the 2x2
+   shapes (single and k = 4; the grids', two_level's and the service's
+   launches) and the ELL offd pass at the 2x2 two_level's R and P (that
+   run's launches): on the ranks two_level and the service run balanced
+   plans, so the overlapped schedule.
 
 ``library_ms`` is one ``torch.sparse`` CSR matvec of the same global
 matrix (cuSPARSE) — the yardstick only; the port never calls it.
@@ -329,6 +363,21 @@ def kernel_of(fmt: str, halo: bool) -> str:
     return {("ell", True): "fused_ell_spmv", ("ell", False): "ell_spmv",
             ("sell", True): "fused_sell_spmv",
             ("sell", False): "sell_spmv"}[(fmt, halo)]
+
+
+def path_kernels(fmt: str, halo: bool, mode: str, batched: bool = False
+                 ) -> tuple[str, ...]:
+    """The kernels one SpMV of a rank-local plan launches in ``mode``: the
+    fused kernel under ``vector``'s barrier; the diag pass and the offd
+    pass onto it under ``task`` / ``balanced`` (the overlapped schedule);
+    the halo-free kernel alone without a halo.  ``batched``: the batched
+    kernels' names."""
+    tag = "_batched" if batched else ""
+    if not halo:
+        return (kernel_of(fmt, False) + tag,)
+    if mode == "vector":
+        return (kernel_of(fmt, True) + tag,)
+    return (kernel_of(fmt, False) + tag, f"{fmt}_spmv_onto{tag}")
 
 
 def emit(phase: str, **kw) -> None:
@@ -1641,6 +1690,164 @@ def serve_kernels(A, plans, bw, f32_peak, keys: dict | None = None,
     return rows
 
 
+#: the offd passes onto the diag partial (the second launch of the
+#: overlapped schedule on a rank): name -> (plan key, columns (``None``:
+#: one), the TPU kernel whose offd phase it takes over)
+ONTO = {
+    "ell_spmv_onto": ("ell/4x2", None,
+                      "src/repro/kernels/spmv_bcsr.py:103 (offd phase)"),
+    "sell_spmv_onto": ("sell/4x2", None,
+                       "src/repro/kernels/spmv_bcsr.py:211 (offd phase)"),
+    "ell_spmv_onto_batched": (
+        "ell/4x2", SERVE_NRHS, "src/repro/kernels/spmv_bcsr.py:103 (offd "
+        "phase) via src/repro/solvers/base.py:419"),
+    "sell_spmv_onto_batched": (
+        "sell/4x2", SERVE_NRHS, "src/repro/kernels/spmv_bcsr.py:211 (offd "
+        "phase) via src/repro/solvers/base.py:419"),
+}
+
+
+def offd_cost(fmt, F, xg) -> tuple[int, int]:
+    """``(bytes, flops)`` the offd pass reads from the offd stream and
+    one column's ``xg``, as ``kernel_cost`` counts them."""
+    if fmt.name == "ell":
+        byts, flops, _ = ell_bytes([F["offd_vals"]], [F["offd_cols"]],
+                                   [F["offd_len"]], [xg])
+        return byts, flops
+    names = ("sell_ovals", "sell_ocols", "sell_ostart", "sell_owidth")
+    return (nbytes(*(F[k] for k in names), xg),
+            2 * F["sell_ovals"].numel())
+
+
+def offd_csr(plan, F):
+    """Every shard's offd block as one torch.sparse CSR on the card, row
+    ``shard * rc_pad + slot``, column ``node * (g_pad + 1) + ghost``: the
+    library's yardstick for the offd pass (``addmv`` / ``addmm`` onto the
+    partial), never called by the port."""
+    import numpy as np
+    import torch
+
+    shards = plan.shard_shape[0] * plan.shard_shape[1]
+    if plan.format == "ell":
+        vals = F["offd_vals"].float().cpu().numpy().reshape(
+            shards, plan.rc_pad, -1)
+        cols = F["offd_cols"].cpu().numpy().reshape(vals.shape)
+        s, r, k = np.nonzero(vals)
+        rows, col, v = s * plan.rc_pad + r, cols[s, r, k], vals[s, r, k]
+    else:
+        vals = F["sell_ovals"].float().cpu().numpy().reshape(shards, -1)
+        cols = F["sell_ocols"].cpu().numpy().reshape(vals.shape)
+        slots = F["sell_orows"].cpu().numpy().reshape(vals.shape)
+        s, e = np.nonzero(vals)
+        rows, col, v = s * plan.rc_pad + slots[s, e], cols[s, e], vals[s, e]
+    col = col + (s // plan.shard_shape[1]) * (plan.g_pad + 1)
+    coo = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([rows, col]).astype(np.int64)),
+        torch.from_numpy(v.astype(np.float32)),
+        size=(shards * plan.rc_pad, plan.shard_shape[0] * (plan.g_pad + 1)))
+    return coo.coalesce().to_sparse_csr().to(DEVICE)
+
+
+def onto_row(phase: str, name: str, label: str, plan, X, bw: float,
+             f32_peak: float) -> dict:
+    """The offd pass onto the diag partial at ``plan``'s shapes (``X``:
+    one input in the plan's column layout, or a batch of them), f32 and
+    bf16 storage: the diag pass then the offd pass bit for bit the fused
+    kernel, within 2e-5·max|y| of the plain version.  In f32 the offd
+    pass's ms (in place on one partial, 20 CUDA-event runs), the plain
+    onto's, the diag pass's, the two passes together and the fused
+    kernel's; the bound of the offd pass's bytes (the offd stream, the
+    ghosts, ``y`` read and written) and the library's ``addmv`` /
+    ``addmm`` of the offd blocks onto the partial.  One ``phase`` line per
+    dtype; returns the f32 row."""
+    import torch
+
+    from repro_torch.core import make_shard_body
+    from repro_torch.sparse import get_format
+
+    fmt, rc = get_format(plan.format), plan.rc_pad
+    xl, xg = make_shard_body(plan).inputs(X)
+    k = None if X.dim() == 3 else X.shape[0]
+    out = None
+    for dtype in (torch.float32, torch.bfloat16):
+        F = {kk: (v.to(dtype) if v.is_floating_point() else v)
+             for kk, v in plan.fmt_data.items()}
+        fused = fmt.matvec_kernel(F, xl, xg, rc)
+        got = fmt.matvec_offd_onto(F, fmt.matvec_diag(F, xl, rc), xg, rc)
+        want = fmt.matvec_plain(F, xl, xg, rc)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got.view(torch.int32), fused.view(torch.int32))
+        err = float((got - want).abs().max())
+        tol = 2e-5 * max(1.0, float(want.abs().max()))
+        row = {"kernel": name, "plan": label, "dtype": str(dtype)[6:],
+               "k": k, "bitwise_fused": bitwise, "max_abs_err": err,
+               "tol": tol}
+        if dtype == torch.float32:
+            y0 = fmt.matvec_diag(F, xl, rc)
+            yp = y0.clone()
+            xg1 = xg if k is None else xg[0]
+            one_bytes, one_flops = offd_cost(fmt, F, xg1)
+            byts = (one_bytes - nbytes(xg1) + nbytes(xg) + 2 * nbytes(y0))
+            flops = one_flops * (k or 1)
+            bytes_ms, flops_ms = byts / bw * 1e3, flops / f32_peak * 1e3
+            csr = offd_csr(plan, F)
+            if k is None:
+                yf, xf = y0.reshape(-1), xg.reshape(-1)
+                lib_y = torch.addmv(yf, csr, xf)
+                lib = time_ms(lambda: torch.addmv(yf, csr, xf))
+            else:
+                yf = y0.reshape(k, -1).T.contiguous()
+                xf = xg.reshape(k, -1).T.contiguous()
+                lib_y = torch.addmm(yf, csr, xf).T
+                lib = time_ms(lambda: torch.addmm(yf, csr, xf))
+            lib_err = float((lib_y.reshape(want.shape) - want).abs().max())
+            check(lib_err <= tol, f"{name} {label}: the library's addmv/"
+                  f"addmm is off the plain version by {lib_err} > {tol}")
+            row.update(
+                ms=time_ms(lambda: fmt.matvec_offd_onto(F, y0, xg, rc)),
+                plain_ms=time_ms(lambda: fmt.matvec_offd_onto(
+                    F, yp, xg, rc, "plain")),
+                diag_ms=time_ms(lambda: fmt.matvec_diag(F, xl, rc)),
+                split_ms=time_ms(lambda: fmt.matvec_offd_onto(
+                    F, fmt.matvec_diag(F, xl, rc), xg, rc)),
+                fused_ms=time_ms(lambda: fmt.matvec_kernel(F, xl, xg, rc)),
+                bytes=byts, flops=flops, bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                library_ms=lib, library_max_abs_err=lib_err,
+                library="torch.addmv / addmm of the offd blocks as one "
+                        "torch.sparse CSR onto the partial (cuSPARSE)")
+            out = row
+        emit(phase, **row)
+        what = f"{name} {label} {row['dtype']}"
+        check(bitwise, f"{what}: diag + offd passes differ from the fused "
+              "kernel")
+        check(got.shape == want.shape and err <= tol,
+              f"{what}: max|err| {err} > {tol}")
+        del F
+    return out
+
+
+def phase_onto(A, plans, x, bw, f32_peak) -> dict:
+    """Phase 3's split two-phase SpMV at the full 4x2 shapes (``ONTO``):
+    :func:`onto_row` for each offd pass, single-column on ``x`` and
+    batched on ``SERVE_NRHS`` seeded columns; the f32 rows by name."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import to_dist
+
+    rng = np.random.default_rng(SEED + 6)
+    rows = {}
+    for name, (key, k, _) in ONTO.items():
+        plan, layout = plans[key]
+        X = (to_dist(x, layout, plan) if k is None else torch.stack(
+            [to_dist(rng.standard_normal(A.n_rows), layout, plan)
+             for _ in range(k)]))
+        rows[name] = onto_row("kernel_onto", name, key, plan, X, bw,
+                              f32_peak)
+    return rows
+
+
 def serve_bodies(plans) -> None:
     """The batched shard body on the full 4x2 plans: each column bit for
     bit the unbatched body, every transport x wire dtype."""
@@ -2035,30 +2242,90 @@ PROCMESH_HALOFREE = ("ell/1x8", "sell/1x8")
 PROCMESH_REQUESTS = 5
 #: phase procmesh's two_level: phase precond's full-plan options
 PROCMESH_TWO_LEVEL = {"agg_size": 256, "smoother": "jacobi"}
+#: phase procmesh's alternated modes: the full sell 4x2 plan on equal
+#: rows (``vector`` and ``task`` share it; ``balanced`` runs on its own
+#: nnz plan, ``sell/4x2``), and the tol of its cg per mode: 1e-2 keeps
+#: the two solves well under the 1e-6 one's 515 iterations (1e-3 took
+#: 254; gloo's loopback costs ~37 ms an iteration), so the phase's added
+#: time stays under 15%
+PROCMESH_MODES = {"sell/4x2/rows": ("vector", "task")}
+PROCMESH_MODES_TOL = 1e-2
+
+
+def rows_plan(A, key: str, device):
+    """The plan of a ``<format>/<grid>/rows`` key: the grid on equal rows
+    (mode ``vector``; ``task`` shares its partition), a2a."""
+    from repro_torch.core import build_spmv_plan
+
+    fmt, grid, _ = key.split("/")
+    t0 = time.perf_counter()
+    plan, layout = build_spmv_plan(A, *(int(v) for v in grid.split("x")),
+                                   mode="vector", format=fmt,
+                                   transport="a2a", device=device)
+    emit("plan", plan=key, seconds=round(time.perf_counter() - t0, 3),
+         rc_pad=plan.rc_pad, hs=plan.hs)
+    return plan, layout
+
+
+def sum_launches(rows) -> dict:
+    """Kernel launches summed over ``rows`` (each with ``launches``)."""
+    total = {}
+    for r in rows:
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def report_modes(phase: str, A, b64, smi, plans: dict, ranks: list,
+                 want: dict) -> tuple[dict, dict]:
+    """``mesh_report`` for every plan of ``plans`` in every mode it ran,
+    ``modes_report`` where it ran more than one: ``(the lines by key and
+    mode, the launches summed over every rank, plan and mode)``."""
+    lines, runs = {}, []
+    for key, (plan, layout) in plans.items():
+        res = {mode: [r[key][mode] for r in ranks] for mode in ranks[0][key]}
+        for mode, rr in res.items():
+            lines[key, mode] = mesh_report(phase, A, b64, smi, key, plan,
+                                           layout, rr, want[key], mode)
+            runs += rr
+        if len(res) > 1:
+            modes_report(phase, smi, key,
+                         {m: lines[key, m] for m in res}, res)
+    return lines, sum_launches(runs)
 
 
 def mesh_rank(mesh, job: dict) -> dict:
     """One rank of a process-mesh phase (``procmesh`` on gloo, ``nccl``
     one rank per card).  For each of ``job["keys"]`` (its grid a further
-    mesh over the spawned group where it differs): one SpMV (``y``, the
-    a2a ghosts, launches) and ms per SpMV (median of ``REPS`` CUDA-event
+    mesh over the spawned group where it differs), in each of its modes
+    (``job["modes"][key]``, alternated; by default the plan's own): one
+    SpMV (``y``, the a2a ghosts, launches, the schedule), one batched
+    SpMV of ``SERVE_NRHS`` columns (each column bit for bit the
+    single-column body) and ms per SpMV (median of ``REPS`` CUDA-event
     runs, each started with every card idle and the ranks released
-    together by a barrier, host control, not timed), with the wire's ms
-    by kind; for those in ``job["solve"]`` cg + jacobi to 1e-6 after a
-    warm block (wall ms, the wire, launches, ``x``) and, with
-    ``job["profile"]``, its device profile.  Then the wire probe on each
-    mesh that solved (``job["wheres"]``; ``job["host_split"]`` adds
+    together by a barrier, host control, not timed; the modes in turns),
+    with the wire's ms by kind and its exposed ms, and the diag pass's ms
+    alone; ``job["transports"][key]`` more transports under the last
+    mode, each ``y`` against a2a's; for those in ``job["solve"]`` cg +
+    jacobi to ``job["tol"]`` (default 1e-6) after a warm block (wall ms,
+    the wire, launches, ``x``) and, with ``job["profile"]``, its device
+    profile.  ``out[key][mode]``.  Then the wire probe on each mesh that
+    solved (``job["wheres"]``; ``job["host_split"]`` adds
     ``host_split``), ``job["sweep"]`` (``transport_check``'s process
     sweep) and ``job["layers"]``, the layers above the solvers
     (``procmesh_layers``)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
-    from repro_torch.core import make_exchange, make_spmv
-    from repro_torch.core.collectives import CONTROL, WIRE, reset_wire
+    from repro_torch.core import make_exchange, make_shard_body, make_spmv
+    from repro_torch.core.collectives import (CONTROL, WIRE, reset_wire,
+                                              wire_seconds)
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.mesh import make_cg_mesh, read_plan
     from repro_torch.solvers import make_solver
+    from repro_torch.sparse import get_format
     from repro_torch.testing.transport_check import rank_sweep
 
     def sync():
@@ -2072,6 +2339,37 @@ def mesh_rank(mesh, job: dict) -> dict:
     def wire_ms(by_kind) -> dict:
         return {k: v * 1e3 for k, v in by_kind.items() if k != CONTROL}
 
+    def timed_runs(m, fns: dict) -> dict:
+        """``REPS`` timed calls of each of ``fns`` (name -> call), in
+        turns: ms, the wire's ms by kind and the wire's and exposed ms of
+        each call."""
+        got = {n: {"times": [], "by_kind": {}, "wire": [], "exposed": []}
+               for n in fns}
+        for _ in range(REPS):
+            for n, fn in fns.items():
+                sync()
+                m.barrier()
+                reset_wire()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                g = got[n]
+                g["times"].append(start.elapsed_time(end))
+                for k, v in WIRE["by_kind"].items():
+                    g["by_kind"][k] = g["by_kind"].get(k, 0.0) + v
+                w, e = wire_seconds()
+                g["wire"].append(w * 1e3)
+                g["exposed"].append(e * 1e3)
+        return {n: {"spmv_ms": statistics.median(g["times"]),
+                    "spmv_wire_ms_by_kind": {
+                        k: v / REPS for k, v in wire_ms(g["by_kind"]).items()},
+                    "spmv_wire_ms": statistics.median(g["wire"]),
+                    "spmv_exposed_ms": statistics.median(g["exposed"])}
+                for n, g in got.items()}
+
     meshes = {(mesh.n_node, mesh.n_core): mesh}
     solved = []
     out = {"device": str(mesh.device)}
@@ -2083,71 +2381,93 @@ def mesh_rank(mesh, job: dict) -> dict:
                                          rank=mesh.rank,
                                          world_size=mesh.world_size)
         m = meshes[shape]
-        plan = read_plan(job["dirs"][key], m)
-        x = vec(key, "x", m)
-        spmv = make_spmv(plan)
-        reset_launches()
-        y = spmv(x)
-        ghost = make_exchange(plan, "a2a")(x) if plan.hs else None
-        sync()
-        launches = dict(LAUNCHES)
-        for _ in range(3):
-            spmv(x)
-        times, by_kind = [], {}
-        for _ in range(REPS):
-            sync()
-            m.barrier()
-            reset_wire()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            spmv(x)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-            for k, v in WIRE["by_kind"].items():
-                by_kind[k] = by_kind.get(k, 0.0) + v
-        row = {"y": y.cpu().numpy(),
-               "ghost": None if ghost is None else ghost.cpu().numpy(),
-               "launches": launches, "spmv_ms": statistics.median(times),
-               "spmv_wire_ms_by_kind": {
-                   k: v / REPS for k, v in wire_ms(by_kind).items()}}
-        if key in job["solve"]:
-            b = vec(key, "b", m)
-            solve = make_solver(plan, solver="cg", precond="jacobi",
-                                check_every=CHECK_EVERY)
-            solve(b, tol=0.0, maxiter=CHECK_EVERY)          # warm
-            sync()
-            m.barrier()
-            reset_wire()
+        base = read_plan(job["dirs"][key], m)
+        modes = tuple(job.get("modes", {}).get(key, (base.mode,)))
+        plans = {mode: dataclasses.replace(base, mode=mode)
+                 for mode in modes}
+        x, b = vec(key, "x", m), vec(key, "b", m)
+        X = torch.stack([x, b, -x, 2 * b])
+        ghost = make_exchange(base, "a2a")(x) if base.hs else None
+        rows = {}
+        for mode, plan in plans.items():
+            body = make_shard_body(plan)
             reset_launches()
-            t0 = time.perf_counter()
-            xs, iters, rel = solve(b, tol=1e-6, maxiter=10_000)
+            y = body(x)
+            Y = body(X)
             sync()
-            row.update(ms=(time.perf_counter() - t0) * 1e3,
-                       wire={"calls": WIRE["calls"], "bytes": WIRE["bytes"],
-                             "ms_by_kind": wire_ms(WIRE["by_kind"])},
-                       iters=int(iters), rel=float(rel), x=xs.cpu().numpy())
-            for k, v in LAUNCHES.items():
-                launches[k] = launches.get(k, 0) + v
-            if job.get("profile"):
-                host = {}
-                prof, dev = profile_solve(solve, b, NCCL_PROFILE_ITERS,
-                                          host=host)
-                row.update(
-                    device_ms_per_iter=sum(prof.values())
-                    / NCCL_PROFILE_ITERS,
-                    nccl_ms_per_iter=sum(t for n, t in prof.items()
-                                         if "nccl" in n.lower())
-                    / NCCL_PROFILE_ITERS,
-                    device_launches_per_iter=dev / NCCL_PROFILE_ITERS,
-                    host_c10d_ms_per_iter={k: v / NCCL_PROFILE_ITERS
-                                           for k, v in host.items()})
+            launches = dict(LAUNCHES)
+            rows[mode] = {
+                "y": y.cpu().numpy(), "launches": launches,
+                "ghost": None if ghost is None else ghost.cpu().numpy(),
+                "schedule": [" ".join(st) for st in body.schedule],
+                "batched_bitwise": all(torch.equal(Y[j], body(X[j]))
+                                       for j in range(len(X)))}
+        spmvs = {mode: make_spmv(plan) for mode, plan in plans.items()}
+        for _ in range(3):
+            for spmv in spmvs.values():
+                spmv(x)
+        for mode, t in timed_runs(m, {mode: (lambda f=f: f(x))
+                                      for mode, f in spmvs.items()}).items():
+            rows[mode].update(t)
+        if base.hs:
+            fmt = get_format(base.format)
+            xl, _ = make_shard_body(base).inputs(x)
+            diag_ms = time_ms(lambda: fmt.matvec_diag(base.fmt_data, xl,
+                                                      base.rc_pad))
+            for row in rows.values():
+                row["diag_ms"] = diag_ms
+        last = modes[-1]
+        extra = {t: make_spmv(plans[last], transport=t)
+                 for t in job.get("transports", {}).get(key, ())}
+        for t, spmv in extra.items():
+            yt = spmv(x)
+            rows[last].setdefault("transports", {})[t] = {
+                "bitwise_a2a": np.array_equal(
+                    yt.cpu().numpy().view(np.int32),
+                    rows[last]["y"].view(np.int32)),
+                **timed_runs(m, {t: lambda f=spmv: f(x)})[t]}
+        if key in job["solve"]:
+            tol = job.get("tol", {}).get(key, 1e-6)
+            for mode, plan in plans.items():
+                row = rows[mode]
+                solve = make_solver(plan, solver="cg", precond="jacobi",
+                                    check_every=CHECK_EVERY)
+                solve(b, tol=0.0, maxiter=CHECK_EVERY)          # warm
+                sync()
+                m.barrier()
+                reset_wire()
+                reset_launches()
+                t0 = time.perf_counter()
+                xs, iters, rel = solve(b, tol=tol, maxiter=10_000)
+                sync()
+                w, e = wire_seconds()
+                row.update(ms=(time.perf_counter() - t0) * 1e3, tol=tol,
+                           wire={"calls": WIRE["calls"],
+                                 "bytes": WIRE["bytes"],
+                                 "ms_by_kind": wire_ms(WIRE["by_kind"]),
+                                 "ms": w * 1e3, "exposed_ms": e * 1e3},
+                           iters=int(iters), rel=float(rel),
+                           x=xs.cpu().numpy())
+                for k, v in LAUNCHES.items():
+                    row["launches"][k] = row["launches"].get(k, 0) + v
+                if job.get("profile"):
+                    host = {}
+                    prof, dev = profile_solve(solve, b, NCCL_PROFILE_ITERS,
+                                              host=host)
+                    row.update(
+                        device_ms_per_iter=sum(prof.values())
+                        / NCCL_PROFILE_ITERS,
+                        nccl_ms_per_iter=sum(t for n, t in prof.items()
+                                             if "nccl" in n.lower())
+                        / NCCL_PROFILE_ITERS,
+                        device_launches_per_iter=dev / NCCL_PROFILE_ITERS,
+                        host_c10d_ms_per_iter={k: v / NCCL_PROFILE_ITERS
+                                               for k, v in host.items()})
+                del solve
             if shape not in solved:
                 solved.append(shape)
-            del solve
-        out[key] = row
-        del plan, spmv
+        out[key] = rows
+        del base, plans, spmvs, extra
     out["wire_probe"] = {}
     for n, c in solved:
         probe = wire_probe(meshes[(n, c)], sync, wheres=job["wheres"])
@@ -2163,8 +2483,8 @@ def mesh_rank(mesh, job: dict) -> dict:
             k: np.load(f"{job['vecs'][k]}/b.npy", mmap_mode="r")
             for k in lj["keys"]})
         shape = tuple(int(v) for v in lj["sell"].split("/")[1].split("x"))
-        out["layers"] = procmesh_layers(meshes[shape], layers, sync,
-                                        out[lj["sell"]])
+        mono = next(iter(out[lj["sell"]].values()))
+        out["layers"] = procmesh_layers(meshes[shape], layers, sync, mono)
     return out
 
 
@@ -2414,10 +2734,11 @@ def write_job(plans: dict, x, b, d: str) -> dict:
     return job
 
 
-def virtual_row(plan, layout, x, b, solve: bool = True) -> dict:
+def virtual_row(plan, layout, x, b, solve: bool = True,
+                tol: float = 1e-6) -> dict:
     """The virtual mesh at a process mesh's grid, on this process's card:
     one SpMV (``y``, the a2a ghosts) and its ms, and with ``solve`` cg +
-    jacobi to 1e-6 (``x``, iterations, ms/iteration)."""
+    jacobi to ``tol`` (``x``, iterations, ms/iteration)."""
     import torch
 
     from repro_torch.core import make_exchange, make_spmv, to_dist
@@ -2436,7 +2757,7 @@ def virtual_row(plan, layout, x, b, solve: bool = True) -> dict:
         xs, iters, rel, ms, iters_run = solve_timed(
             make_solver(vplan, solver="cg", precond="jacobi",
                         check_every=CHECK_EVERY),
-            to_dist(b, layout, vplan))
+            to_dist(b, layout, vplan), tol)
         row.update(x=xs.cpu().numpy(), iters=iters, rel=rel,
                    ms_per_iter=ms / iters_run)
     torch.cuda.synchronize()
@@ -2444,19 +2765,22 @@ def virtual_row(plan, layout, x, b, solve: bool = True) -> dict:
 
 
 def mesh_report(phase: str, A, b64, smi, key, plan, layout, res: list,
-                want: dict) -> dict:
-    """One plan of a process-mesh phase on every rank (``res``, rank
-    order) against the virtual mesh at that grid (``want``,
-    ``virtual_row``'s): ``y`` and ghosts bit for bit, every rank launched
-    its kernel; where the ranks solved, cg's iterations equal on every
-    rank (and to the virtual mesh's on one rank, within ±1 elsewhere),
-    the true residual, the iterates against the virtual mesh's
-    (reported); one ``phase`` line, returned."""
+                want: dict, mode: str | None = None) -> dict:
+    """One plan of a process-mesh phase in one mode on every rank (``res``,
+    rank order; ``mode`` default the plan's own) against the virtual
+    mesh at that grid (``want``, ``virtual_row``'s): ``y`` and ghosts bit
+    for bit, every rank launched the kernels of its schedule
+    (``path_kernels``, single-column and batched) and its batched SpMV's
+    columns are the single-column body's bits; where the ranks solved,
+    cg's iterations equal on every rank (and to the virtual mesh's on one
+    rank, within ±1 elsewhere), the true residual, the iterates against
+    the virtual mesh's (reported); one ``phase`` line, returned."""
     import numpy as np
     import torch
 
     from repro_torch.core import from_dist
 
+    mode = mode or plan.mode
     grid, world = plan.n_core, len(res)
     y_ok = all(np.array_equal(r["y"][0, 0].view(np.int32),
                               want["y"][divmod(i, grid)].view(np.int32))
@@ -2466,15 +2790,27 @@ def mesh_report(phase: str, A, b64, smi, key, plan, layout, res: list,
         np.array_equal(r["ghost"][0, 0, :g].view(np.int32),
                        want["ghost"][divmod(i, grid)][:g].view(np.int32))
         for i, r in enumerate(res))
-    kernel = kernel_of(plan.format, bool(plan.hs))
-    row = {"plan": key, "ranks": world, "spmv_bitwise": y_ok,
-           "ghosts_bitwise": ghost_ok,
+    kernels = (path_kernels(plan.format, bool(plan.hs), mode)
+               + path_kernels(plan.format, bool(plan.hs), mode, True))
+    row = {"plan": key, "mode": mode, "ranks": world, "spmv_bitwise": y_ok,
+           "ghosts_bitwise": ghost_ok, "schedule": res[0]["schedule"],
+           "batched_bitwise": all(r["batched_bitwise"] for r in res),
            "spmv_ms": max(r["spmv_ms"] for r in res),
            "spmv_ms_by_rank": [r["spmv_ms"] for r in res],
+           "spmv_wire_ms": max(r["spmv_wire_ms"] for r in res),
+           "spmv_exposed_ms": max(r["spmv_exposed_ms"] for r in res),
            "spmv_wire_ms_by_kind_rank0": res[0]["spmv_wire_ms_by_kind"],
-           "virtual_spmv_ms": want["spmv_ms"], "kernel": kernel,
-           "kernel_launches_per_rank": [r["launches"][kernel]
-                                        for r in res]}
+           "diag_ms": max((r.get("diag_ms", 0.0) for r in res)),
+           "virtual_spmv_ms": want["spmv_ms"], "kernels": kernels,
+           "kernel_launches_per_rank": {
+               k: [r["launches"].get(k, 0) for r in res] for k in kernels}}
+    if "transports" in res[0]:
+        row["transports"] = {
+            t: {"bitwise_a2a": all(r["transports"][t]["bitwise_a2a"]
+                                   for r in res),
+                **{k: max(r["transports"][t][k] for r in res)
+                   for k in ("spmv_ms", "spmv_wire_ms", "spmv_exposed_ms")}}
+            for t in res[0]["transports"]}
     if "iters" in res[0]:
         its = [r["iters"] for r in res]
         xg = from_dist(torch.from_numpy(np.concatenate(
@@ -2487,12 +2823,15 @@ def mesh_report(phase: str, A, b64, smi, key, plan, layout, res: list,
         wire_ms = {k: max(r["wire"]["ms_by_kind"].get(k, 0.0) for r in res)
                    for k in res[0]["wire"]["ms_by_kind"]}
         row.update(
-            iters=its[0], virtual_iters=want["iters"], rel=res[0]["rel"],
-            true_rel=true_rel, ms=ms, ms_per_iter=ms / iters_run,
+            tol=res[0]["tol"], iters=its[0], virtual_iters=want["iters"],
+            rel=res[0]["rel"], true_rel=true_rel, ms=ms,
+            ms_per_iter=ms / iters_run,
             virtual_ms_per_iter=want["ms_per_iter"],
             wire_ms_per_iter_by_kind={k: v / iters_run
                                       for k, v in wire_ms.items()},
             wire_share=sum(wire_ms.values()) / ms,
+            exposed_ms_per_iter=max(r["wire"]["exposed_ms"]
+                                    for r in res) / iters_run,
             wire_calls_per_iter_rank0=res[0]["wire"]["calls"] / iters_run,
             wire_bytes_per_iter_rank0=res[0]["wire"]["bytes"] / iters_run,
             iterates_bitwise=all(np.array_equal(
@@ -2509,26 +2848,70 @@ def mesh_report(phase: str, A, b64, smi, key, plan, layout, res: list,
                                           for r in res],
                 host_c10d_ms_per_iter_rank0=res[0]["host_c10d_ms_per_iter"])
     emit(phase, nvidia_smi=smi, **row)
-    check(y_ok, f"{phase} {key}: a rank's y differs from its row of the "
-          "virtual mesh's")
-    check(ghost_ok is not False, f"{phase} {key}: a rank's ghosts differ "
-          "from its row of the virtual mesh's")
-    check(all(n > 0 for n in row["kernel_launches_per_rank"]),
-          f"{phase} {key}: {kernel} did not launch on every rank "
-          f"({row['kernel_launches_per_rank']})")
+    what = f"{phase} {key} {mode}"
+    check(y_ok, f"{what}: a rank's y differs from its row of the virtual "
+          "mesh's")
+    check(ghost_ok is not False, f"{what}: a rank's ghosts differ from its "
+          "row of the virtual mesh's")
+    check(row["batched_bitwise"], f"{what}: a batched column differs from "
+          "the single-column body's")
+    for k, n in row["kernel_launches_per_rank"].items():
+        check(all(v > 0 for v in n),
+              f"{what}: {k} did not launch on every rank ({n})")
+    check(all(r["spmv_exposed_ms"] <= r["spmv_wire_ms"] + 1e-9 for r in res),
+          f"{what}: exposed wire above the wire")
+    for t, tr in row.get("transports", {}).items():
+        check(tr["bitwise_a2a"], f"{what}: {t}'s y differs from a2a's")
     if "iters" in row:
         its = [r["iters"] for r in res]
         slack = 0 if world == 1 else 1
         check(all(i == its[0] for i in its),
-              f"{phase} {key}: iterations differ across ranks {its}")
+              f"{what}: iterations differ across ranks {its}")
         check(abs(its[0] - want["iters"]) <= slack,
-              f"{phase} {key}: {its[0]} iterations, the virtual mesh "
+              f"{what}: {its[0]} iterations, the virtual mesh "
               f"{want['iters']} (±{slack})")
-        check(row["rel"] <= 1e-6 and np.isfinite(xg).all(),
-              f"{phase} {key}: CG stopped at rel {row['rel']}")
-        check(row["true_rel"] < 1e-4,
-              f"{phase} {key}: true rel {row['true_rel']}")
+        check(row["rel"] <= row["tol"] and np.isfinite(xg).all(),
+              f"{what}: CG stopped at rel {row['rel']}")
+        check(row["true_rel"] < 1e-4 if row["tol"] <= 1e-6
+              else row["true_rel"] < 10 * row["tol"],
+              f"{what}: true rel {row['true_rel']}")
     return row
+
+
+def modes_report(phase: str, smi, key, rows: dict, res: dict) -> None:
+    """The modes one plan ran in (``rows``: ``mesh_report``'s line by
+    mode, ``res``: every rank's rows by mode): ``y``, ghosts and cg's every
+    iterate bit for bit across the modes on every rank, iterations equal
+    across the modes; one ``<phase>_modes`` line with ms per SpMV and per
+    CG iteration, the wire and its exposed part per mode."""
+    import numpy as np
+
+    modes = list(rows)
+    first = res[modes[0]]
+
+    def same(name):
+        return all(np.array_equal(r[name].view(np.int32),
+                                  f[name].view(np.int32))
+                   for mode in modes[1:] for r, f in zip(res[mode], first)
+                   if r.get(name) is not None)
+
+    its = {mode: [r.get("iters") for r in res[mode]] for mode in modes}
+    row = {"plan": key, "modes": modes, "spmv_bitwise": same("y"),
+           "ghosts_bitwise": same("ghost"),
+           "iterates_bitwise": same("x") if "x" in first[0] else None,
+           "iters": {mode: v[0] for mode, v in its.items()},
+           "per_mode": {mode: {k: r.get(k) for k in (
+               "schedule", "spmv_ms", "spmv_wire_ms", "spmv_exposed_ms",
+               "diag_ms", "ms_per_iter", "exposed_ms_per_iter",
+               "wire_share", "device_ms_per_iter", "transports")}
+               for mode, r in rows.items()}}
+    emit(f"{phase}_modes", nvidia_smi=smi, **row)
+    check(row["spmv_bitwise"] and row["ghosts_bitwise"],
+          f"{phase} {key}: y or ghosts differ across the modes {modes}")
+    check(row["iterates_bitwise"] is not False,
+          f"{phase} {key}: cg's iterates differ across the modes {modes}")
+    check(all(v == its[modes[0]] for v in its.values()),
+          f"{phase} {key}: iterations differ across the modes {its}")
 
 
 def emit_wire(phase: str, smi, ranks: list) -> None:
@@ -2541,11 +2924,12 @@ def emit_wire(phase: str, smi, ranks: list) -> None:
 
 
 def phase_procmesh(A, plans, x, b, smi, two_level: dict,
-                   service: dict) -> None:
+                   service: dict) -> dict:
     """The full 4x2 plans on a process mesh of 8 ranks of this card (see
     the module docstring, 6l), held to the virtual mesh's rows at the
-    same grids and to phases ``precond`` (``two_level``) and ``serve``
-    (``service``)."""
+    same grids, to each other across the modes and to phases ``precond``
+    (``two_level``) and ``serve`` (``service``).  Returns every kernel's
+    launches over the ranks."""
     import contextlib
     import io
     import os
@@ -2559,18 +2943,23 @@ def phase_procmesh(A, plans, x, b, smi, two_level: dict,
 
     t_phase = time.perf_counter()
     keys = (*PROCMESH_PLANS, *PROCMESH_HALOFREE)
+    mplans = {k: plans[k] for k in keys}
+    mplans.update({k: rows_plan(A, k, DEVICE) for k in PROCMESH_MODES})
+    solve = (*PROCMESH_PLANS, *PROCMESH_MODES)
+    tols = {k: PROCMESH_MODES_TOL for k in PROCMESH_MODES}
     with tempfile.TemporaryDirectory(prefix="procmesh_") as d:
         t0 = time.perf_counter()
-        job = write_job({k: plans[k] for k in keys}, x, b, d)
-        want = {k: virtual_row(*plans[k], x, b, solve=k in PROCMESH_PLANS)
-                for k in keys}
+        job = write_job(mplans, x, b, d)
+        want = {k: virtual_row(*mplans[k], x, b, solve=k in solve,
+                               tol=tols.get(k, 1e-6)) for k in mplans}
         golden, job["sweep"] = transport_check.prepare_process(
             ("graded",), ("ell", "sell"), 4, 2, DEVICE, f"{d}/golden",
             wire_dtypes=available_wire_dtypes())
         # the host matrix, the sell plan's whole layout and b: two_level,
         # the resilient driver and the service build from them on each
         # rank
-        job.update(solve=PROCMESH_PLANS, wheres=("host", "card"), layers={
+        job.update(solve=solve, modes=PROCMESH_MODES, tol=tols,
+                   wheres=("host", "card"), layers={
             "keys": PROCMESH_PLANS, "sell": "sell/4x2", "nan_shard": (2, 1),
             "A": A, "layout": plans["sell/4x2"][1], "b_global": b})
         write_s = time.perf_counter() - t0
@@ -2580,9 +2969,12 @@ def phase_procmesh(A, plans, x, b, smi, two_level: dict,
         spawn_s = time.perf_counter() - t0
 
     b64 = b.astype(np.float64)
-    for key in keys:
-        mesh_report("procmesh", A, b64, smi, key, *plans[key],
-                    [r[key] for r in ranks], want[key])
+    _, launches = report_modes("procmesh", A, b64, smi, mplans, ranks, want)
+    for layer in ("two_level", "resilient", "serve"):
+        for k, n in sum_launches(r["layers"][layer]
+                                 for r in ranks).items():
+            launches[k] = launches.get(k, 0) + n
+    del mplans
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         g_ok = transport_check.report_process(
@@ -2610,6 +3002,7 @@ def phase_procmesh(A, plans, x, b, smi, two_level: dict,
           "resilience_check --mesh process --device cuda did not print OK")
     emit("procmesh_seconds", write_s=write_s, spawn_s=spawn_s,
          seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
@@ -2643,7 +3036,8 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
     b64 = b.astype(np.float64)
     true_rel = float(np.linalg.norm(A.matvec(xg) - b64)
                      / np.linalg.norm(b64))
-    b1 = [t["launches"]["fused_ell_spmv"] for t in tl]
+    # two_level's R and P are balanced plans: on a rank, diag + offd passes
+    b1 = [t["launches"]["ell_spmv_onto"] for t in tl]
     ms = max(t["ms"] for t in tl)
     emit(f"{phase}_two_level", nvidia_smi=smi, plan=sell,
          options=PROCMESH_TWO_LEVEL, iters=its[0],
@@ -2655,9 +3049,9 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
              k: v * 1e3 / iters_run
              for k, v in tl[0]["wire"]["by_kind"].items()},
          build_s_per_rank=[t["build_s"] for t in tl],
-         host_s_rank0=tl[0]["host_s"], fused_ell_spmv_per_rank=b1,
-         fused_sell_spmv_per_rank=[t["launches"]["fused_sell_spmv"]
-                                   for t in tl])
+         host_s_rank0=tl[0]["host_s"], ell_spmv_onto_per_rank=b1,
+         sell_spmv_onto_per_rank=[t["launches"]["sell_spmv_onto"]
+                                  for t in tl])
     check(all(i == its[0] for i in its),
           f"{phase} two_level: iterations differ across ranks {its}")
     check(abs(its[0] - two_level["iters"]) <= 1,
@@ -2665,7 +3059,7 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
           f"{two_level['iters']}")
     check(tl[0]["rel"] <= 1e-6 and true_rel < 1e-4,
           f"{phase} two_level: rel {tl[0]['rel']}, true rel {true_rel}")
-    check(all(n > 0 for n in b1), f"{phase} two_level: fused_ell_spmv "
+    check(all(n > 0 for n in b1), f"{phase} two_level: ell_spmv_onto "
           f"(R and P) did not launch on every rank ({b1})")
 
     rs = [r["resilient"] for r in ranks]
@@ -2680,8 +3074,8 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
          nan_rollbacks=[r["nan_rollbacks"] for r in rs],
          nan_iters=rs[0]["nan_iters"], nan_rel=rs[0]["nan_rel"],
          nan_converged=rs[0]["nan_converged"],
-         fused_sell_spmv_per_rank=[r["launches"]["fused_sell_spmv"]
-                                   for r in rs])
+         sell_spmv_onto_per_rank=[r["launches"]["sell_spmv_onto"]
+                                  for r in rs])
     check(all(r["x_bitwise_monolithic"] for r in rs),
           f"{phase} resilient: a rank's chunked x differs from its "
           "monolithic solve's")
@@ -2689,13 +3083,13 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
               and r["nan_trajectory"] == rs[0]["nan_trajectory"]
               for r in rs), f"{phase} resilient: nan@60 not rolled back "
           "once with one trajectory on every rank")
-    check(all(r["launches"]["fused_sell_spmv"] > 0 for r in rs),
-          f"{phase} resilient: fused_sell_spmv did not launch on every rank")
+    check(all(r["launches"]["sell_spmv_onto"] > 0 for r in rs),
+          f"{phase} resilient: sell_spmv_onto did not launch on every rank")
 
     sv = [r["serve"] for r in ranks]
     its = [s["iters"] for s in sv]
     want = service["iters"][:PROCMESH_REQUESTS]
-    b2 = [s["launches"]["fused_sell_spmv_batched"] for s in sv]
+    b2 = [s["launches"]["sell_spmv_onto_batched"] for s in sv]
     ms = max(s["ms"] for s in sv)
     emit(f"{phase}_serve", nvidia_smi=smi, plan=sell,
          requests=PROCMESH_REQUESTS, nrhs=SERVE_NRHS, tols=SERVE_TOLS,
@@ -2705,14 +3099,14 @@ def procmesh_layers_report(A, plans, b, smi, ranks: list, two_level: dict,
          recompiles=[s["recompiles"] for s in sv],
          wire_ms_by_kind_rank0={k: v * 1e3 for k, v in
                                 sv[0]["wire"]["by_kind"].items()},
-         fused_sell_spmv_batched_per_rank=b2)
+         sell_spmv_onto_batched_per_rank=b2)
     check(all(i == its[0] for i in its) and len(its[0]) == len(want),
           f"{phase} serve: iterations differ across ranks {its}")
     check(all(abs(a - w) <= 1 for a, w in zip(its[0], want)),
           f"{phase} serve: iterations {its[0]}, phase serve {want}")
     check(all(s["recompiles"] == 0 for s in sv),
           f"{phase} serve: a rank recompiled while serving")
-    check(all(n > 0 for n in b2), f"{phase} serve: fused_sell_spmv_batched "
+    check(all(n > 0 for n in b2), f"{phase} serve: sell_spmv_onto_batched "
           f"did not launch on every rank ({b2})")
     # a request at tol 1e-4 stops just under it: its true residual is
     # held to twice its tol (phase serve's 2e-4), the others to 1e-4
@@ -2740,6 +3134,10 @@ NCCL_KERNELS = {4: {"fused_ell_spmv": "ell/2x2",
                 1: {"ell_spmv": "ell/1x1", "sell_spmv": "sell/1x1"}}
 #: fused-CG iterations ``torch.profiler`` traces on each rank
 NCCL_PROFILE_ITERS = 32
+#: the modes phase nccl alternates on each halo grid's rows plan, and the
+#: transports it adds under the last of them on the 2x2 plans
+NCCL_MODES = ("vector", "task")
+NCCL_TRANSPORTS = ("ring", "hier")
 
 
 def nccl_layers_virtual(A, plan, layout, b) -> tuple[dict, dict, dict]:
@@ -2843,9 +3241,21 @@ def phase_nccl(A, x, b, smi) -> dict:
                     plans[f"{fmt}/{n_node}x{n_core}"] = build_spmv_plan(
                         A, n_node, n_core, mode="balanced", format=fmt,
                         transport="a2a", device="cpu")
+            # vector and task, alternated, on each halo grid's rows plan
+            modes = {f"{fmt}/{n}x{c}/rows": NCCL_MODES
+                     for n, c in NCCL_GRIDS[w] if n > 1
+                     for fmt in NCCL_FORMATS}
+            plans.update({k: rows_plan(A, k, "cpu") for k in modes})
             job = write_job(plans, x, b, f"{d}/{w}")
             job.update(solve=job["keys"], profile=True, wheres=("card",),
-                       host_split=True)
+                       host_split=True, modes=modes, transports={
+                           k: NCCL_TRANSPORTS for k in modes
+                           if k.split("/")[1] == "2x2"})
+            if w == 1:
+                emit("nccl_modes", grid="1x1", modes=list(NCCL_MODES),
+                     note="one rank: no collective moves data and the "
+                          "plan has no halo, so every mode runs the one "
+                          "halo-free launch and the modes coincide")
             want = {k: virtual_row(*plans[k], x, b) for k in plans}
             for key in set(kernel_keys.values()) & set(plans):
                 got["plans"][key] = (plan_on(plans[key][0], DEVICE),
@@ -2873,13 +3283,12 @@ def phase_nccl(A, x, b, smi) -> dict:
             check([r["device"] for r in ranks]
                   == [f"cuda:{r}" for r in range(w)],
                   f"nccl: ranks ran on {[r['device'] for r in ranks]}")
-            for key in job["keys"]:
-                rows[key] = mesh_report("nccl_grid", A, b64, smi, key,
-                                        *plans[key],
-                                        [r[key] for r in ranks], want[key])
-                for r in ranks:
-                    for k, n in r[key]["launches"].items():
-                        got["launches"][k] = got["launches"].get(k, 0) + n
+            lines, launches = report_modes("nccl_grid", A, b64, smi, plans,
+                                           ranks, want)
+            rows.update({key: line for (key, mode), line in lines.items()
+                         if key not in modes})
+            for k, n in launches.items():
+                got["launches"][k] = got["launches"].get(k, 0) + n
             if virtual is not None:
                 out = io.StringIO()
                 with contextlib.redirect_stdout(out):
@@ -2978,6 +3387,7 @@ def main(argv=None) -> int:
     if args.only == "nccl":
         return only_nccl(A, x, b, smi, bw, f32_peak)
     kern = phase_kernels(plans, x, bw, f32_peak)
+    onto = phase_onto(A, plans, x, bw, f32_peak)
     bal_launches, bal = phase_balanced(A, x, bw, f32_peak)
     lib = library_ms(A, x)
     emit("library", what="torch.sparse CSR matvec, global matrix, f32",
@@ -2996,7 +3406,7 @@ def main(argv=None) -> int:
                                                       f32_peak)
     phase_analyze(plans)
     phase_cli(rows)
-    phase_procmesh(A, plans, x, b, smi, two_level, service)
+    mesh_launches = phase_procmesh(A, plans, x, b, smi, two_level, service)
     phase_nccl(A, x, b, smi)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
@@ -3012,6 +3422,11 @@ def main(argv=None) -> int:
                     bal[BALANCED[2]]))
     entries.append((FLAT_ELL[0], FLAT_ELL[1], bal_launches["ell_spmv"],
                     bal[FLAT_ELL[2]]))
+    # the offd passes run on the process mesh's ranks (phase procmesh)
+    for name, (_, _, replaces) in ONTO.items():
+        check(mesh_launches.get(name, 0) > 0,
+              f"{name} never launched on phase procmesh's ranks")
+        entries.append((name, replaces, mesh_launches[name], onto[name]))
     finish(entries, lib, smi)
     return 0
 
@@ -3040,10 +3455,16 @@ def only_nccl(A, x, b, smi, bw, f32_peak) -> int:
     """``--only nccl``: phase nccl, then each kernel of its path held to
     its plain version and timed at the shapes phase nccl gave it (its
     virtual plans), with its launches over every rank: B1-B4 on the
-    grids; on four cards also B1 at two_level's R and P and the batched
-    B2 at the service's k, with the 2x2 two_level and service runs'
-    launches."""
+    grids; on four cards also the offd passes (``ONTO``) at the 2x2
+    shapes, single-column and at the service's k, with the grids', the
+    2x2 two_level's and the service's launches, and the ELL offd pass at
+    two_level's R and P (two_level's launches).  two_level's R and P and
+    the service are balanced plans: on the ranks they run the overlapped
+    schedule, so the fused kernels do not launch there."""
     import numpy as np
+    import torch
+
+    from repro_torch.core import to_dist
 
     got = phase_nccl(A, x, b, smi)
     kern = phase_kernels(got["plans"], x, bw, f32_peak, keys=got["keys"])
@@ -3053,26 +3474,35 @@ def only_nccl(A, x, b, smi, bw, f32_peak) -> int:
     entries = [(name, KERNELS[name][1], got["launches"].get(name, 0),
                 kern[name]) for name in got["keys"]]
     if got["rp"] is not None:
-        R = restriction(A.n_rows, PROCMESH_TWO_LEVEL["agg_size"])
-        mats = {"R": R, "P": R.transpose()}
+        launches = dict(got["launches"])
+        for layer in ("two_level", "serve"):
+            for k, n in got["layer_launches"][layer].items():
+                launches[k] = launches.get(k, 0) + n
+        rng = np.random.default_rng(SEED + 6)
+        for name, (key, k, replaces) in ONTO.items():
+            key = key.replace("4x2", "2x2")
+            plan, layout = got["plans"][key]
+            X = (to_dist(x, layout, plan) if k is None else torch.stack(
+                [to_dist(rng.standard_normal(A.n_rows), layout, plan)
+                 for _ in range(k)]))
+            row = onto_row("nccl_kernel_onto", name, key, plan, X, bw,
+                           f32_peak)
+            check(launches.get(name, 0) > 0, f"nccl: {name} never launched")
+            entries.append((name, replaces, launches[name], row))
+        two_level = got["layer_launches"]["two_level"]
         rng = np.random.default_rng(SEED + 2)
-        rows = rect_kernels({
-            f"sell/2x2/{k}": (f"sell/2x2/two_level/{k}", *got["rp"][k],
-                              M, rng.standard_normal(M.n_cols).astype(
-                                  np.float32))
-            for k, M in mats.items()}, bw, f32_peak)
-        launches = got["layer_launches"]["two_level"]
-        for label, row in rows.items():
-            name = row["kernel"]
-            check(launches[name] > 0, f"nccl two_level: {name} never "
-                  "launched")
-            entries.append((f"{name}/{label}", KERNELS[name][1],
-                            launches[name], row))
-        name = "fused_sell_spmv_batched"
-        row = serve_kernels(A, got["plans"], bw, f32_peak,
-                            keys={name: "sell/2x2"}, ks=(SERVE_NRHS,))[name]
-        entries.append((name, BATCHED[name][1],
-                        got["layer_launches"]["serve"][name], row))
+        for label in ("R", "P"):
+            plan, layout = got["rp"][label]
+            X = to_dist(rng.standard_normal(plan.n_cols).astype(np.float32),
+                        layout, plan, space="col")
+            name = "ell_spmv_onto"
+            row = onto_row("nccl_rect_onto", name,
+                           f"sell/2x2/two_level/{label}", plan, X, bw,
+                           f32_peak)
+            check(two_level.get(name, 0) > 0,
+                  f"nccl two_level: {name} never launched")
+            entries.append((f"{name}/sell/2x2/{label}", ONTO[name][2],
+                            two_level[name], row))
     finish(entries, lib, smi)
     return 0
 

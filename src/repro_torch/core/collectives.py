@@ -47,6 +47,21 @@ staged through host memory after a stream sync (``_Staged``); NCCL moves
 them card to card (``_OnCard``): no host copy and no sync, the calls
 queued on the card's stream like its kernels.  :data:`WIRE` times both.
 The records are the same on every mesh.
+
+**Issue now, wait later.**  ``all_to_all``, ``ppermute`` and
+``all_gather`` each have a form that issues the call and returns a
+:class:`Pending` handle (``all_to_all_start``, ``ppermute_start``,
+``all_gather_start``); ``handle.wait()`` returns what the synchronous call
+returns, and the synchronous call is ``start(...).wait()``.  On NCCL the
+call is issued with ``async_op`` (P2P as one ``batch_isend_irecv``) and
+the wait makes the card's stream wait on the process group's, with no
+host sync; on gloo the payload is staged to the host and the call issued
+async at ``start``, and the wait blocks the host, then copies the result
+back to the card.  The handle keeps its send and receive buffers until
+the wait.  On the virtual mesh there is nothing to wait for: the handle
+holds the view the call returns.  The census records at issue.  Every
+handle is waited exactly once; :func:`open_handles` and
+:func:`check_waited` let a shard body raise on one it left behind.
 """
 from __future__ import annotations
 
@@ -62,7 +77,9 @@ import torch
 __all__ = ["COLLECTIVE_OPS", "SOLVER_REDUCTION_OPS", "TRANSPORT_OPS",
            "census_split", "Collective", "record_collectives", "census",
            "all_to_all", "ppermute", "all_gather", "psum", "WIRE",
-           "reset_wire", "CONTROL", "host_control"]
+           "reset_wire", "CONTROL", "host_control", "Pending",
+           "all_to_all_start", "ppermute_start", "all_gather_start",
+           "open_handles", "check_waited", "wire_seconds"]
 
 COLLECTIVE_OPS = ("all-reduce", "reduce-scatter", "all-gather",
                   "all-to-all", "collective-permute",
@@ -152,35 +169,94 @@ def _check_axis(axis: str) -> None:
         raise ValueError(f"mesh axis must be one of {AXES}, got {axis!r}")
 
 
+#: handles issued and not yet waited, in issue order
+_OPEN: list["Pending"] = []
+
+
+class Pending:
+    """A collective issued and not yet waited for: ``wait()`` returns the
+    synchronous call's result, once (``kind``: its
+    :data:`COLLECTIVE_OPS` kind).  ``keep`` (the send buffers) stays
+    referenced until the wait: the wire may still be reading it."""
+
+    __slots__ = ("kind", "_done", "_keep")
+
+    def __init__(self, kind: str, done, keep=()):
+        self.kind, self._done, self._keep = kind, done, keep
+        _OPEN.append(self)
+
+    def wait(self) -> torch.Tensor:
+        done, self._done = self._done, None
+        if done is None:
+            raise RuntimeError(f"{self.kind}: a pending collective waited "
+                               "twice")
+        _OPEN.remove(self)
+        out = done()
+        self._keep = ()
+        return out
+
+
+def _ready(kind: str, value: torch.Tensor) -> Pending:
+    """A handle with nothing to wait for (the virtual mesh, an empty
+    group)."""
+    return Pending(kind, lambda: value)
+
+
+def open_handles() -> int:
+    """How many handles are issued and not yet waited."""
+    return len(_OPEN)
+
+
+def check_waited(since: int, what: str) -> None:
+    """Raise if handles issued after ``open_handles()`` read ``since`` are
+    still open (each is dropped: the raise ends the run)."""
+    left = _OPEN[since:]
+    if left:
+        del _OPEN[since:]
+        raise RuntimeError(f"{what}: {len(left)} collective(s) issued and "
+                           f"never waited ({', '.join(p.kind for p in left)})")
+
+
 # ---------------------------------------------------------------------- #
 # the process mesh's wire: torch.distributed calls, host-staged on gloo
 # ---------------------------------------------------------------------- #
 class _Wire(Mapping):
     """The process mesh's collectives since the last :func:`reset_wire`:
     ``calls``, ``seconds`` spent in them, payload ``bytes`` sent by this
-    rank, and ``by_kind``, the seconds by :data:`COLLECTIVE_OPS` kind
-    (host control under :data:`CONTROL`).  gloo's seconds are the host
-    clock around each call (staging to the host and back included, after
-    the card has finished the work before it).  NCCL's are CUDA-event
-    times on the card's stream, from the work before the call to the
-    result's arrival: the events are read when this is read (which waits
-    for them), so timing never serialises the loop."""
+    rank, ``by_kind``, the seconds by :data:`COLLECTIVE_OPS` kind (host
+    control under :data:`CONTROL`), and ``exposed`` / ``exposed_by_kind``:
+    the part of those seconds nothing else hid.
+
+    A call's seconds run from its issue to its result's arrival; its
+    exposed seconds from the end of the local work issued between its
+    issue and its wait to the arrival — all of it for a synchronous call
+    (``start(...).wait()``: nothing in between), 0 when the work in
+    between outlasted the wire.  gloo's are the host clock: from issue
+    (staging to the host included, after the card has finished the work
+    before it) to the result back on the card, and around the wait.
+    NCCL's are CUDA events on the card's stream: at issue, at the wait
+    (after the work in between) and after it; they are read when this is
+    read (which waits for them), so timing never serialises the loop.
+    ``exposed <= seconds`` call by call."""
 
     def __init__(self):
         self.reset()
 
-    def _add(self, kind: str, seconds: float) -> None:
+    def _add(self, kind: str, seconds: float, exposed: float) -> None:
         self._d["seconds"] += seconds
-        by = self._d["by_kind"]
-        by[kind] = by.get(kind, 0.0) + seconds
+        self._d["exposed"] += exposed
+        for key, v in (("by_kind", seconds), ("exposed_by_kind", exposed)):
+            by = self._d[key]
+            by[kind] = by.get(kind, 0.0) + v
 
     def _settle(self, done_only: bool = False) -> None:
         while self._events:
-            kind, start, end = self._events[0]
+            kind, start, mid, end = self._events[0]
             if done_only and not end.query():
                 return
             end.synchronize()
-            self._add(kind, start.elapsed_time(end) / 1e3)
+            self._add(kind, start.elapsed_time(end) / 1e3,
+                      mid.elapsed_time(end) / 1e3)
             self._events.popleft()
 
     def __getitem__(self, key):
@@ -194,8 +270,9 @@ class _Wire(Mapping):
         return len(self._d)
 
     def reset(self) -> None:
-        self._d = {"calls": 0, "seconds": 0.0, "bytes": 0, "by_kind": {}}
-        self._events = deque()          # (kind, start, end) not yet read
+        self._d = {"calls": 0, "seconds": 0.0, "bytes": 0, "by_kind": {},
+                   "exposed": 0.0, "exposed_by_kind": {}}
+        self._events = deque()      # (kind, start, mid, end) not yet read
 
 
 #: the process mesh's wire since the last :func:`reset_wire` (a read-only
@@ -211,10 +288,19 @@ def reset_wire() -> None:
     WIRE.reset()
 
 
-def _account(kind: str, seconds: float, nbytes: int = 0) -> None:
+def wire_seconds(snapshot=None) -> tuple[float, float]:
+    """``(seconds, exposed seconds)`` of the collectives in a :data:`WIRE`
+    snapshot (default: :data:`WIRE` now), host control left out."""
+    w = WIRE if snapshot is None else snapshot
+    return (sum(v for k, v in w["by_kind"].items() if k != CONTROL),
+            sum(v for k, v in w["exposed_by_kind"].items() if k != CONTROL))
+
+
+def _account(kind: str, seconds: float, nbytes: int = 0,
+             exposed: float | None = None) -> None:
     WIRE._d["calls"] += 1
     WIRE._d["bytes"] += nbytes
-    WIRE._add(kind, seconds)
+    WIRE._add(kind, seconds, seconds if exposed is None else exposed)
 
 
 #: the :data:`WIRE` kind of a process mesh's host control (an agreed
@@ -240,23 +326,30 @@ def _on_ranks(mesh) -> bool:
 
 
 class _Staged:
-    """One gloo collective: payloads go to the host as raw bytes and come
-    back to ``device`` bit for bit; the block's host time goes to
-    :data:`WIRE`."""
+    """One gloo collective, from its issue (made when this is built) to
+    :meth:`pending`'s wait: payloads go to the host as raw bytes and come
+    back to ``device`` bit for bit; the host's time goes to :data:`WIRE`."""
 
     def __init__(self, device: torch.device, kind: str):
         self.device, self.kind = device, kind
         self.on_card = device.type == "cuda"
-
-    def __enter__(self):
         if self.on_card:                 # the work the payload waits for
             torch.cuda.current_stream(self.device).synchronize()
         self.t0 = time.perf_counter()
-        return self
 
-    def __exit__(self, *exc):
-        _account(self.kind, time.perf_counter() - self.t0)
-        return False
+    def pending(self, works: list, finish, keep=()) -> Pending:
+        """The handle of the call ``works`` issued (``keep``: its send
+        buffers): its wait blocks the host on them, then ``finish()`` (the
+        copy back) gives the result."""
+        def done():
+            t_wait = time.perf_counter()
+            for w in works:
+                w.wait()
+            out = finish()
+            t1 = time.perf_counter()
+            _account(self.kind, t1 - self.t0, exposed=t1 - t_wait)
+            return out
+        return Pending(self.kind, done, keep)
 
     def out(self, t: torch.Tensor) -> torch.Tensor:
         """A contiguous host copy of ``t`` as bytes (gloo moves host
@@ -271,13 +364,14 @@ class _Staged:
         """A receive buffer of ``nbytes`` where the wire delivers."""
         return torch.empty(nbytes, dtype=torch.uint8)
 
-    def gather(self, mine: torch.Tensor, size: int, group) -> list:
-        """Every group member's ``mine``, in group-rank order."""
+    def gather(self, mine: torch.Tensor, size: int, group):
+        """Issue the gather of every group member's ``mine``: ``(works,
+        parts)``, the parts in group-rank order once the works are done."""
         import torch.distributed as dist
 
         parts = [torch.empty_like(mine) for _ in range(size)]
-        dist.all_gather(parts, mine, group=group)
-        return parts
+        return [dist.all_gather(parts, mine, group=group,
+                                async_op=True)], parts
 
     def back(self, b: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
         """Bytes received on the host -> a tensor of ``like``'s dtype,
@@ -295,19 +389,29 @@ def _mark(device: torch.device):
 
 class _OnCard(_Staged):
     """One NCCL collective: payloads stay on the card as raw bytes, and
-    the call is queued on its stream with no host sync; its time is two
-    CUDA events on that stream, read when :data:`WIRE` is."""
+    the call is queued on its process group's stream with no host sync;
+    the wait makes the card's stream wait on it.  Its times are CUDA
+    events on the card's stream (at issue, at the wait, after it), read
+    when :data:`WIRE` is."""
 
-    def __enter__(self):
-        self.start = _mark(self.device)
-        return self
+    def __init__(self, device: torch.device, kind: str):
+        self.device, self.kind = device, kind
+        self.on_card = True
+        self.start = _mark(device)
 
-    def __exit__(self, *exc):
-        WIRE._d["calls"] += 1
-        WIRE._events.append((self.kind, self.start, _mark(self.device)))
-        if len(WIRE._events) > _MAX_EVENTS:
-            WIRE._settle(done_only=True)
-        return False
+    def pending(self, works: list, finish, keep=()) -> Pending:
+        def done():
+            mid = _mark(self.device)
+            for w in works:
+                w.wait()
+            out = finish()
+            WIRE._d["calls"] += 1
+            WIRE._events.append((self.kind, self.start, mid,
+                                 _mark(self.device)))
+            if len(WIRE._events) > _MAX_EVENTS:
+                WIRE._settle(done_only=True)
+            return out
+        return Pending(self.kind, done, keep)
 
     def out(self, t: torch.Tensor) -> torch.Tensor:
         b = t.detach().contiguous().reshape(-1).view(torch.uint8)
@@ -317,12 +421,13 @@ class _OnCard(_Staged):
     def empty(self, nbytes: int) -> torch.Tensor:
         return torch.empty(nbytes, dtype=torch.uint8, device=self.device)
 
-    def gather(self, mine: torch.Tensor, size: int, group) -> list:
+    def gather(self, mine: torch.Tensor, size: int, group):
         import torch.distributed as dist
 
         out = mine.new_empty(size * mine.numel())
-        dist.all_gather_into_tensor(out, mine, group=group)
-        return list(out.chunk(size))
+        work = dist.all_gather_into_tensor(out, mine, group=group,
+                                           async_op=True)
+        return [work], list(out.chunk(size))
 
     def back(self, b: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
         return b.view(like.dtype).reshape(shape)
@@ -334,20 +439,32 @@ def _wire(mesh, device: torch.device, kind: str) -> _Staged:
     return (_OnCard if mesh.backend == "nccl" else _Staged)(device, kind)
 
 
-def _gather_over(x: torch.Tensor, mesh, group, size: int, dim: int,
-                 kind: str = "all-gather") -> torch.Tensor:
-    """Every group member's ``x``, concatenated along ``dim`` in group-rank
-    order (which is node or core order: groups list ranks ascending)."""
+def _gather_start(x: torch.Tensor, mesh, group, size: int, dim: int,
+                  kind: str = "all-gather") -> Pending:
+    """Issue the gather of every group member's ``x``, concatenated along
+    ``dim`` in group-rank order (which is node or core order: groups list
+    ranks ascending)."""
     if size == 1:
-        return x
-    with _wire(mesh, x.device, kind) as st:
-        parts = st.gather(st.out(x), size, group)
-        return torch.cat([st.back(p, x, x.shape) for p in parts], dim=dim)
+        return _ready(kind, x)
+    st = _wire(mesh, x.device, kind)
+    mine = st.out(x)
+    works, parts = st.gather(mine, size, group)
+    return st.pending(works, lambda: torch.cat(
+        [st.back(p, x, x.shape) for p in parts], dim=dim), (mine,))
 
 
 def all_to_all(sent: torch.Tensor, axis: str = "node", *, lead: int = 1,
                core_gathered: bool = False, mesh=None) -> torch.Tensor:
-    """Node-axis ``all_to_all`` of a send table ``(*batch, src, core, dst,
+    """:func:`all_to_all_start`, waited."""
+    return all_to_all_start(sent, axis, lead=lead,
+                            core_gathered=core_gathered, mesh=mesh).wait()
+
+
+def all_to_all_start(sent: torch.Tensor, axis: str = "node", *,
+                     lead: int = 1, core_gathered: bool = False,
+                     mesh=None) -> Pending:
+    """Issue the node-axis ``all_to_all`` of a send table (the handle's
+    ``wait()`` returns the result) ``(*batch, src, core, dst,
     chunk)``: returns ``recv`` ``(*batch, dst, core, src, chunk)`` with
     ``recv[dst, c, src] = sent[src, c, dst]``, a view.  With
     ``core_gathered`` each node's table was first gathered over its cores
@@ -355,26 +472,37 @@ def all_to_all(sent: torch.Tensor, axis: str = "node", *, lead: int = 1,
     process mesh (``src`` and ``dst`` of extent 1 on either side) an
     ``all_to_all_single`` over the node group: chunk ``dst`` of this rank's
     table goes to node ``dst``, and the chunks arrive stacked by ``src``."""
+    kind = "all-to-all"
     if axis != "node":
         raise ValueError(f"all_to_all runs over the node axis, got {axis!r}")
-    _note("all-to-all", axis, sent, lead, core_gathered)
+    _note(kind, axis, sent, lead, core_gathered)
     if not _on_ranks(mesh):
-        return sent.transpose(lead, lead + 2)
+        return _ready(kind, sent.transpose(lead, lead + 2))
     import torch.distributed as dist
 
     if mesh.n_node == 1:
-        return sent
+        return _ready(kind, sent)
     table = sent.movedim(lead + 2, 0)           # (dst, *batch, 1, c, chunk)
-    with _wire(mesh, sent.device, "all-to-all") as st:
-        mine = st.out(table)
-        got = torch.empty_like(mine)
-        dist.all_to_all_single(got, mine, group=mesh.node_group)
-        return st.back(got, sent, table.shape).movedim(0, lead + 2)
+    st = _wire(mesh, sent.device, kind)
+    mine = st.out(table)
+    got = torch.empty_like(mine)
+    work = dist.all_to_all_single(got, mine, group=mesh.node_group,
+                                  async_op=True)
+    return st.pending([work], lambda: st.back(got, sent, table.shape)
+                      .movedim(0, lead + 2), (mine,))
 
 
 def ppermute(chunks: torch.Tensor, axis: str = "node", *, pairs: int,
              lead: int = 1, perm=None, mesh=None) -> torch.Tensor:
-    """Node-axis ``ppermute`` at one offset of ``chunks`` ``(*batch, pair,
+    """:func:`ppermute_start`, waited."""
+    return ppermute_start(chunks, axis, pairs=pairs, lead=lead, perm=perm,
+                          mesh=mesh).wait()
+
+
+def ppermute_start(chunks: torch.Tensor, axis: str = "node", *, pairs: int,
+                   lead: int = 1, perm=None, mesh=None) -> Pending:
+    """Issue the node-axis ``ppermute`` (the handle's ``wait()`` returns
+    the result) at one offset of ``chunks`` ``(*batch, pair,
     core, chunk)``: each pair's chunk as its sender gathered it.  The
     ``take`` gather already laid the chunks out by pair, so the delivery
     returns them as they are; ``pairs`` is the permutation's src != dst
@@ -384,11 +512,12 @@ def ppermute(chunks: torch.Tensor, axis: str = "node", *, pairs: int,
     sends nothing), it goes to ``(dst, core)`` point to point over the
     node group, and the chunk from this rank's ``src`` is returned (pair
     axis 1, or 0 if nothing arrives)."""
+    kind = "collective-permute"
     if axis != "node":
         raise ValueError(f"ppermute runs over the node axis, got {axis!r}")
-    _note("collective-permute", axis, chunks, lead, pairs=pairs)
+    _note(kind, axis, chunks, lead, pairs=pairs)
     if not _on_ranks(mesh):
-        return chunks
+        return _ready(kind, chunks)
     import torch.distributed as dist
 
     if perm is None:
@@ -402,26 +531,33 @@ def ppermute(chunks: torch.Tensor, axis: str = "node", *, pairs: int,
     shape = list(chunks.shape)
     shape[lead] = len(frm)
     if not to and not frm:
-        return chunks.new_empty(shape)
-    with _wire(mesh, chunks.device, "collective-permute") as st:
-        ops = []
-        if to:
-            ops.append(dist.P2POp(dist.isend, st.out(chunks),
-                                  mesh.rank_of(to[0], mesh.core),
-                                  group=mesh.node_group))
-        got = st.empty(math.prod(shape) * chunks.element_size())
-        if frm:
-            ops.append(dist.P2POp(dist.irecv, got,
-                                  mesh.rank_of(frm[0], mesh.core),
-                                  group=mesh.node_group))
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return st.back(got, chunks, shape)
+        return _ready(kind, chunks.new_empty(shape))
+    st = _wire(mesh, chunks.device, kind)
+    ops, mine = [], st.out(chunks) if to else None
+    if to:
+        ops.append(dist.P2POp(dist.isend, mine,
+                              mesh.rank_of(to[0], mesh.core),
+                              group=mesh.node_group))
+    got = st.empty(math.prod(shape) * chunks.element_size())
+    if frm:
+        ops.append(dist.P2POp(dist.irecv, got,
+                              mesh.rank_of(frm[0], mesh.core),
+                              group=mesh.node_group))
+    return st.pending(dist.batch_isend_irecv(ops),
+                      lambda: st.back(got, chunks, shape), (mine,))
 
 
 def all_gather(x: torch.Tensor, axis: str = "core", *, lead: int = 0,
                core_gathered: bool = False, mesh=None) -> torch.Tensor:
-    """``all_gather`` of every shard's operand along ``axis``: ``x``
+    """:func:`all_gather_start`, waited."""
+    return all_gather_start(x, axis, lead=lead, core_gathered=core_gathered,
+                            mesh=mesh).wait()
+
+
+def all_gather_start(x: torch.Tensor, axis: str = "core", *, lead: int = 0,
+                     core_gathered: bool = False, mesh=None) -> Pending:
+    """Issue the ``all_gather`` (the handle's ``wait()`` returns the
+    result) of every shard's operand along ``axis``: ``x``
     ``(*batch, n_node, n_core, *operand)`` itself, which holds each
     shard's stack (its node's row for ``core``, all of it for ``node``).
     ``core_gathered``: ``x`` was already gathered over the cores, so each
@@ -432,10 +568,11 @@ def all_gather(x: torch.Tensor, axis: str = "core", *, lead: int = 0,
     _check_axis(axis)
     _note("all-gather", axis, x, lead, core_gathered)
     if not _on_ranks(mesh):
-        return x
+        return _ready("all-gather", x)
     if axis == "core":
-        return _gather_over(x, mesh, mesh.core_group, mesh.n_core, lead + 1)
-    return _gather_over(x, mesh, mesh.node_group, mesh.n_node, lead)
+        return _gather_start(x, mesh, mesh.core_group, mesh.n_core,
+                             lead + 1)
+    return _gather_start(x, mesh, mesh.node_group, mesh.n_node, lead)
 
 
 def psum(partials: torch.Tensor, axis=AXES, *, mesh=None) -> torch.Tensor:
@@ -448,7 +585,7 @@ def psum(partials: torch.Tensor, axis=AXES, *, mesh=None) -> torch.Tensor:
         raise ValueError(f"psum reduces over {AXES}, got {axis!r}")
     _note("all-reduce", AXES, partials, partials.dim() - 2)
     if _on_ranks(mesh):
-        flat = _gather_over(partials.flatten(-2), mesh, mesh.world,
-                            mesh.world_size, -1, "all-reduce")
+        flat = _gather_start(partials.flatten(-2), mesh, mesh.world,
+                             mesh.world_size, -1, "all-reduce").wait()
         partials = flat.unflatten(-1, (mesh.n_node, mesh.n_core))
     return partials.sum(dim=(-2, -1))

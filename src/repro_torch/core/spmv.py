@@ -13,9 +13,21 @@ every vector leads with ``(n_node, n_core)``, one slice per shard, and the
 collectives become index operations with the same semantics (see
 ``repro_torch.core.transport``).  The core-axis ``all_gather`` that
 assembles each node's ``x`` slice is a view of the node's shards followed
-by the ``x_gather`` index.  The modes ``vector``/``task``/``balanced``
-differ only in the partition here: one stream has no schedule to pin, so
-the ``vector`` mode's barrier has no counterpart.
+by the ``x_gather`` index.
+
+The modes ``vector``/``task``/``balanced`` differ in partition and in
+schedule.  The schedule lives on the **rank-local plan** with a halo,
+where a wire exists: ``vector`` pins the exchange before the local
+product, as the JAX package's ``optimization_barrier`` does (exchange,
+waited; the core gather of ``x``; one fused launch), while ``task`` and
+``balanced`` run the paper's communication thread — issue the exchange,
+gather ``x`` and launch the diag pass while it is in flight, then wait
+for the ghosts and launch the offd pass onto the diag partial.  The two
+launches give the fused kernel's ``y`` bit for bit, so every mode's
+result is the same bits.  The virtual mesh keeps the one fused launch in
+every mode: its collectives are index operations on one stream, with no
+wire to hide, and splitting the launch there would only add one.  A
+halo-free plan has nothing to exchange and keeps its one launch too.
 
 The exchange strategy is pluggable (``repro_torch.core.transport``): the
 plan stamps a transport name (``a2a`` | ``ring`` | ``pairwise`` | ``hier``)
@@ -44,7 +56,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.collectives import all_gather
+from repro_torch.core.collectives import (all_gather, check_waited,
+                                          open_handles)
 from repro_torch.core.halo import HaloPlan, build_halo_plan, pair_traffic
 from repro_torch.core.partition import partition_stats, partition_two_level
 from repro_torch.core.transport import (HaloTransport, get_codec,
@@ -60,6 +73,11 @@ __all__ = ["SpMVPlan", "build_spmv_plan", "plan_from_arrays", "make_spmv",
            "COMMON_FIELDS", "MODES", "PLAN_META"]
 
 MODES = ("vector", "task", "balanced")
+
+#: the modes whose body overlaps the halo exchange with the diag pass on a
+#: rank-local plan (the paper's communication thread); ``vector`` keeps
+#: the reference's barrier
+OVERLAPPED_MODES = ("task", "balanced")
 
 #: local matvec of the shard body: the kernel wrappers or their plain
 #: versions
@@ -642,6 +660,19 @@ def make_shard_body(plan: SpMVPlan,
        card, their plain versions on the CPU) or the plain versions
        everywhere (``backend="plain"``, the yardstick).
 
+    That order, with one fused launch, is the ``vector`` mode's schedule
+    and every mode's on the virtual mesh and on halo-free plans.  On a
+    rank-local plan with a halo, ``task`` and ``balanced`` overlap the
+    exchange with the diag pass: ``start`` the exchange (it needs only
+    this rank's own shard, not the core gather), gather ``x_local``,
+    launch the diag pass, ``finish`` the exchange (waits, decodes,
+    assembles the ghosts), launch the offd pass onto the diag partial
+    (``ShardFormat.matvec_diag`` / ``matvec_offd_onto``).  Its ``y`` is
+    the fused launch's bit for bit.  ``body.schedule`` lists the call's
+    steps in order, ``(verb, what)`` with verb ``issue`` / ``wait`` /
+    ``launch``, fixed when the body is bound; a collective issued in the
+    call and never waited raises.
+
     A batch of right-hand sides, ``x`` ``(nrhs, n_node, n_core, cc_pad)``,
     runs as one: one exchange over the batch, one gather and one launch of
     the batched kernel for all ``nrhs`` columns (the JAX package's body
@@ -663,8 +694,9 @@ def make_shard_body(plan: SpMVPlan,
     rc_pad)``, with the same single-shard launches and the collectives as
     ``torch.distributed`` calls.  The body carries ``body.transport`` and
     ``body.wire_dtype`` (resolved names), ``body.extra`` (the transport's
-    device index tensors) and ``body.inputs(x) -> (x_local, x_ghost)``:
-    steps 1-2 alone, what the local matvec gets.
+    device index tensors), ``body.schedule`` and ``body.inputs(x) ->
+    (x_local, x_ghost)``: steps 1-2 alone (in ``vector``'s order), what
+    the local matvec gets.
     """
     # the node extent the plan's tensors hold: 1 on a rank-local plan
     n_node, rc_pad = plan.shard_shape[0], plan.rc_pad
@@ -696,23 +728,54 @@ def make_shard_body(plan: SpMVPlan,
     # and offset into the node's flattened (n_core * cc_pad) input view
     x_gather = plan.x_gather[:, 0, :].long()
 
-    def inputs(x: torch.Tensor):
-        """Steps 1-2: ``(x_local, x_ghost)`` for the local matvec, each
-        with ``x``'s leading batch axis if it has one."""
-        x_ghost = (tr.exchange(x, F, state=tstate, n_node=n_node,
-                               g_pad=g_pad) if has_halo else None)
-        # the core-axis all_gather of each node's slice
+    def exchange(x: torch.Tensor):
+        return tr.start(x, F, state=tstate, n_node=n_node, g_pad=g_pad)
+
+    def local_x(x: torch.Tensor) -> torch.Tensor:
+        """The core-axis all_gather of each node's slice, then the
+        ``x_gather`` index: ``x_local``."""
         x_bins = all_gather(x, "core", lead=x.dim() - 3, mesh=mesh)
         flat = x_bins.reshape(x.shape[:-3] + (n_node, plan.n_core * cc_pad))
         idx = x_gather.expand(flat.shape[:-2] + x_gather.shape)
-        return torch.gather(flat, flat.dim() - 1, idx), x_ghost
+        return torch.gather(flat, flat.dim() - 1, idx)
+
+    def inputs(x: torch.Tensor):
+        """Steps 1-2: ``(x_local, x_ghost)`` for the local matvec, each
+        with ``x``'s leading batch axis if it has one."""
+        x_ghost = exchange(x).finish() if has_halo else None
+        return local_x(x), x_ghost
+
+    def fused(x: torch.Tensor) -> torch.Tensor:
+        return local_matvec(F, *inputs(x), rc_pad)
+
+    def overlapped(x: torch.Tensor) -> torch.Tensor:
+        pending = exchange(x)
+        y = fmt.matvec_diag(F, local_x(x), rc_pad, backend)
+        return fmt.matvec_offd_onto(F, y, pending.finish(), rc_pad, backend)
+
+    overlap = (has_halo and plan.is_rank_local
+               and plan.mode in OVERLAPPED_MODES)
+    run = overlapped if overlap else fused
+    gather_x = (("issue", "gather x"), ("wait", "gather x"))
+    if overlap:
+        schedule = (("issue", "exchange"), *gather_x, ("launch", "diag"),
+                    ("wait", "exchange"), ("launch", "offd"))
+    elif has_halo:
+        schedule = (("issue", "exchange"), ("wait", "exchange"), *gather_x,
+                    ("launch", "fused"))
+    else:
+        schedule = (*gather_x, ("launch", "diag"))
 
     def body(x: torch.Tensor) -> torch.Tensor:
         if x.dim() == 4 and x.shape[0] == 1:
             return body(x[0])[None]
-        return local_matvec(F, *inputs(x), rc_pad)
+        since = open_handles()
+        y = run(x)
+        check_waited(since, "shard body")
+        return y
 
     body.inputs = inputs
+    body.schedule = schedule
     body.transport = tr.name
     body.wire_dtype = tstate["wire_codec"].name
     body.extra = extra
@@ -731,7 +794,8 @@ def make_spmv(plan: SpMVPlan,
     device, stamps the winner into the plan and returns the winner's SpMV.
     ``wire_dtype`` selects the halo wire codec (``None`` follows
     ``plan.wire_dtype``).  Carries ``spmv.transport`` /
-    ``spmv.wire_dtype`` (the resolved names)."""
+    ``spmv.wire_dtype`` (the resolved names) and the body's
+    ``spmv.schedule``."""
     transport = transport if transport is not None else plan.transport
     if transport == "auto":     # explicit, or a deferred plan stamp
         from repro_torch.core.transport import autotune_transport
@@ -749,4 +813,5 @@ def make_spmv(plan: SpMVPlan,
 
     spmv.transport = body.transport
     spmv.wire_dtype = body.wire_dtype
+    spmv.schedule = body.schedule
     return spmv

@@ -31,8 +31,11 @@ Each rank's ghosts are its row of the virtual mesh's, bit for bit.
 Every transport is a named plugin owning its static host state
 (``plan_state``, derived from the plan's own ``send_own``/``recv_own``),
 the device index tensors its exchange needs (``extra_arrays``, folded
-into the shard body's ``F``), the exchange itself (``exchange(x, F, ...)
--> x_ghost``), a numpy reference of the same dataflow (``host_exchange``)
+into the shard body's ``F``), the exchange itself in two halves
+(``start(x, F, ...) -> pending`` issues the wire traffic that needs only
+this rank's ``x``; ``pending.finish() -> x_ghost`` waits for it, decodes
+and assembles; ``exchange`` is ``start(...).finish()``), a numpy
+reference of the same dataflow (``host_exchange``)
 and its predicted wire cost (``predicted_cost``, per exchange, as if each
 node were its own device).  Four ship:
 
@@ -66,12 +69,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.collectives import all_gather, all_to_all, ppermute
+from repro_torch.core.collectives import (all_gather, all_gather_start,
+                                          all_to_all_start, ppermute_start)
 from repro_torch.core.halo import (ghost_writer_counts, pair_traffic,
                                    populated_offsets)
 from repro_torch.runtime.compression import compress_int8, decompress_int8
 
-__all__ = ["HaloTransport", "A2ATransport", "RingTransport",
+__all__ = ["HaloTransport", "PendingExchange", "A2ATransport", "RingTransport",
            "PairwiseTransport", "HierTransport", "FaultyTransport",
            "register_transport", "unregister_transport", "get_transport",
            "available_transports", "transport_stamp", "resolve_transport",
@@ -80,10 +84,26 @@ __all__ = ["HaloTransport", "A2ATransport", "RingTransport",
            "get_codec", "available_wire_dtypes", "plan_wire_dtype"]
 
 
+class PendingExchange:
+    """An exchange whose wire traffic is issued: :meth:`finish` waits for
+    it and returns the assembled ghost buffer, once."""
+
+    __slots__ = ("_finish",)
+
+    def __init__(self, finish):
+        self._finish = finish
+
+    def finish(self) -> torch.Tensor:
+        finish, self._finish = self._finish, None
+        if finish is None:
+            raise RuntimeError("a halo exchange finished twice")
+        return finish()
+
+
 class HaloTransport:
     """Interface of a halo-exchange transport.
 
-    Subclasses set ``name`` (registry key) and implement ``exchange`` /
+    Subclasses set ``name`` (registry key) and implement ``start`` /
     ``host_exchange`` / ``predicted_cost``; ``plan_state`` and
     ``extra_arrays`` default to "needs nothing".  All static state is
     derived from the plan's own arrays (``send_own``/``recv_own``/
@@ -121,10 +141,23 @@ class HaloTransport:
         ``resolve_transport``, before any exchange runs."""
 
     # -- the exchange --------------------------------------------------- #
+    def start(self, x: torch.Tensor, F: dict, *, state: dict, n_node: int,
+              g_pad: int) -> PendingExchange:
+        """Issue the exchange of ``x``: every collective whose payload
+        needs only this rank's ``x`` goes out now, without waiting.  The
+        returned handle's ``finish()`` waits for them, decodes with the
+        wire codec, scatters and runs the core-axis ghost assembly:
+        :meth:`exchange`'s result.  Local work issued between the two
+        overlaps the wire on a process mesh; on the virtual mesh there is
+        nothing to overlap, and the two halves are the exchange split in
+        two.  Every handle is finished exactly once."""
+        raise NotImplementedError
+
     def exchange(self, x: torch.Tensor, F: dict, *, state: dict,
                  n_node: int, g_pad: int) -> torch.Tensor:
-        """``x`` ``(n_node, n_core, cc_pad)`` (the plan's input layout) ->
-        the assembled ghost buffer of every node, ``(n_node, g_pad + 1)``.
+        """``start(...).finish()``: ``x`` ``(n_node, n_core, cc_pad)``
+        (the plan's input layout) -> the assembled ghost buffer of every
+        node, ``(n_node, g_pad + 1)``.
         ``n_node`` is ``x``'s node extent (1 on a rank of a process mesh,
         whose mesh rides in ``state["mesh"]``).
         Real slots ``< g_pad`` hold exactly the owners' bits, up to the
@@ -132,7 +165,8 @@ class HaloTransport:
         n_node, n_core, cc_pad)`` gives ``(nrhs, n_node, g_pad + 1)``, each
         column exchanged as alone (the codec's chunks stay per column): the
         JAX package's exchange under ``vmap``."""
-        raise NotImplementedError
+        return self.start(x, F, state=state, n_node=n_node,
+                          g_pad=g_pad).finish()
 
     # -- numpy reference of the same dataflow -------------------------- #
     def host_exchange(self, xd: np.ndarray, send_own: np.ndarray,
@@ -418,19 +452,20 @@ def _permute_tables(plan, pairs_by_offset: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def _ppermute_exchange(x, F, perms: dict, n_node: int, g_pad: int,
-                       codec: WireCodec, mesh=None) -> torch.Tensor:
+def _ppermute_start(x, F, perms: dict, n_node: int, g_pad: int,
+                    codec: WireCodec, mesh=None) -> PendingExchange:
     """Shared ring/pairwise dataflow: one independent ``ppermute`` per
     neighbour offset (``perms``: offset -> its ``(src, dst)`` pairs; each
-    chunk encoded to the wire dtype, decoded back on arrival), scattered
-    into the per-core partial ghost buffers, assembled with the core-axis
-    gather + add."""
+    chunk encoded to the wire dtype), all issued at once in offset order;
+    the finish decodes each on arrival, scatters it into the per-core
+    partial ghost buffers and assembles them with the core-axis gather +
+    add."""
     xb = _batch(x)
     k = xb.shape[0]
     flat = xb.reshape(k, -1)
-    part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
+    issued = []
     for d, pairs in perms.items():
-        take, put = F[f"take_{d}"], F[f"put_{d}"]
+        take = F[f"take_{d}"]
         if take.shape[0]:
             # every sender's x[send] for its pair, laid out by pair
             got = torch.gather(flat, 1, _expand(take.reshape(-1), k))
@@ -438,13 +473,20 @@ def _ppermute_exchange(x, F, perms: dict, n_node: int, g_pad: int,
         else:       # a rank that sends nothing at this offset
             wire = codec.encode(x.new_zeros((k, 1) + tuple(take.shape[1:]))
                                 )[:, :0]
-        got = ppermute(wire, pairs=len(pairs), perm=pairs, mesh=mesh)
-        if put.shape[0]:        # (a rank may receive nothing at d)
-            got = codec.decode(got, x.dtype)
-            # duplicate indices only ever hit the dump slot g_pad
-            part.view(k, -1).scatter_(1, _expand(put.reshape(-1), k),
-                                      got.reshape(k, -1))
-    return _unbatch(_gather_add(part, mesh), x)
+        issued.append((F[f"put_{d}"], ppermute_start(
+            wire, pairs=len(pairs), perm=pairs, mesh=mesh)))
+
+    def finish():
+        part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
+        for put, pending in issued:
+            got = pending.wait()
+            if put.shape[0]:        # (a rank may receive nothing at d)
+                got = codec.decode(got, x.dtype)
+                # duplicate indices only ever hit the dump slot g_pad
+                part.view(k, -1).scatter_(1, _expand(put.reshape(-1), k),
+                                          got.reshape(k, -1))
+        return _unbatch(_gather_add(part, mesh), x)
+    return PendingExchange(finish)
 
 
 def _host_send_table(xd, send_own, codec: WireCodec | None):
@@ -490,19 +532,22 @@ class A2ATransport(HaloTransport):
     def extra_arrays(self, plan, state):
         return _owner_tables(plan)
 
-    def exchange(self, x, F, *, state, n_node, g_pad):
+    def start(self, x, F, *, state, n_node, g_pad):
         codec = _wire_codec(state)
         xb = _batch(x)
         k = xb.shape[0]
         mesh = state.get("mesh")
         # all_to_all over node: recv[dst, c, src] = sent[src, c, dst]
-        recv = codec.decode(all_to_all(_send_table(xb, F, codec),
-                                       mesh=mesh), x.dtype)
-        # each core scatters its own slice; duplicates only hit slot g_pad
-        part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
-        part.scatter_(3, _expand(F["recv_idx"], k),
-                      recv.reshape(part.shape[:3] + (-1,)))
-        return _unbatch(_gather_add(part, mesh), x)
+        sent = all_to_all_start(_send_table(xb, F, codec), mesh=mesh)
+
+        def finish():
+            recv = codec.decode(sent.wait(), x.dtype)
+            # each core scatters its own slice; duplicates only hit g_pad
+            part = x.new_zeros((k, n_node, xb.shape[2], g_pad + 1))
+            part.scatter_(3, _expand(F["recv_idx"], k),
+                          recv.reshape(part.shape[:3] + (-1,)))
+            return _unbatch(_gather_add(part, mesh), x)
+        return PendingExchange(finish)
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         return _host_pair_scatter(xd, send_own, recv_own, g_pad,
@@ -538,10 +583,9 @@ class RingTransport(HaloTransport):
     def extra_arrays(self, plan, state):
         return _permute_tables(plan, state["pairs_by_offset"])
 
-    def exchange(self, x, F, *, state, n_node, g_pad):
-        return _ppermute_exchange(x, F, state["pairs_by_offset"], n_node,
-                                  g_pad, _wire_codec(state),
-                                  state.get("mesh"))
+    def start(self, x, F, *, state, n_node, g_pad):
+        return _ppermute_start(x, F, state["pairs_by_offset"], n_node,
+                               g_pad, _wire_codec(state), state.get("mesh"))
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         n_node = send_own.shape[0]
@@ -592,10 +636,9 @@ class PairwiseTransport(HaloTransport):
     def extra_arrays(self, plan, state):
         return _permute_tables(plan, state["pairs_by_offset"])
 
-    def exchange(self, x, F, *, state, n_node, g_pad):
-        return _ppermute_exchange(x, F, state["pairs_by_offset"], n_node,
-                                  g_pad, _wire_codec(state),
-                                  state.get("mesh"))
+    def start(self, x, F, *, state, n_node, g_pad):
+        return _ppermute_start(x, F, state["pairs_by_offset"], n_node,
+                               g_pad, _wire_codec(state), state.get("mesh"))
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         return _host_pair_scatter(xd, send_own, recv_own, g_pad,
@@ -616,6 +659,17 @@ class PairwiseTransport(HaloTransport):
 # --------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class HierTransport(HaloTransport):
+    """The node-leader exchange.  Its node-axis ``all_to_all`` carries the
+    send table gathered over the core axis, so ``start`` waits for that
+    inner gather before it issues the all-to-all: on NCCL a wait of the
+    card's stream on the core group's (no host sync, so nothing is held
+    back), on gloo a host wait (the payload must be on the host before
+    the node-axis call can take it; the gather is one core group's, short
+    beside the node-axis wire it enables).  Waiting in ``finish`` instead
+    would hold the all-to-all back until then, leaving nothing in flight
+    across the diag pass.  ``finish`` waits for the all-to-all and
+    scatters."""
+
     name = "hier"
 
     def validate(self, plan, state):
@@ -635,7 +689,7 @@ class HierTransport(HaloTransport):
         return {"send_idx": _owner_tables(plan)["send_idx"],
                 "recv_all": recv.reshape(recv.shape[0], -1).long()}
 
-    def exchange(self, x, F, *, state, n_node, g_pad):
+    def start(self, x, F, *, state, n_node, g_pad):
         codec = _wire_codec(state)
         xb = _batch(x)
         k = xb.shape[0]
@@ -643,17 +697,19 @@ class HierTransport(HaloTransport):
         # leader (the table already holds every core's), then one
         # all_to_all of the combined per-node payload over nodes
         mesh = state.get("mesh")
-        sendtab = all_gather(_send_table(xb, F, codec), "core", lead=1,
-                             mesh=mesh)
-        recv = codec.decode(all_to_all(sendtab, core_gathered=True,
-                                       mesh=mesh),
-                            x.dtype)              # (k, dst, c, src, hs)
-        # the intra-node scatter through the node's whole receive table
-        # assembles the full ghost buffer — no core-axis sum
-        ghost = x.new_zeros((k, n_node, g_pad + 1))
-        ghost.scatter_(2, _expand(F["recv_all"], k),
-                       recv.reshape(k, n_node, -1))
-        return _unbatch(ghost, x)
+        sendtab = all_gather_start(_send_table(xb, F, codec), "core",
+                                   lead=1, mesh=mesh).wait()
+        sent = all_to_all_start(sendtab, core_gathered=True, mesh=mesh)
+
+        def finish():
+            recv = codec.decode(sent.wait(), x.dtype)  # (k, dst, c, src, hs)
+            # the intra-node scatter through the node's whole receive
+            # table assembles the full ghost buffer — no core-axis sum
+            ghost = x.new_zeros((k, n_node, g_pad + 1))
+            ghost.scatter_(2, _expand(F["recv_all"], k),
+                           recv.reshape(k, n_node, -1))
+            return _unbatch(ghost, x)
+        return PendingExchange(finish)
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         n_node, n_core = send_own.shape[:2]
@@ -716,12 +772,17 @@ class FaultyTransport(HaloTransport):
     def validate(self, plan, state):
         self.base.validate(plan, state)
 
-    def exchange(self, x, F, *, state, n_node, g_pad):
-        ghost = self.base.exchange(x, F, state=state, n_node=n_node,
-                                   g_pad=g_pad)
-        if g_pad == 0:          # halo-free: nothing real to corrupt
-            return ghost
-        return (ghost.view(torch.int32) ^ (1 << self.bit)).view(ghost.dtype)
+    def start(self, x, F, *, state, n_node, g_pad):
+        pending = self.base.start(x, F, state=state, n_node=n_node,
+                                  g_pad=g_pad)
+
+        def finish():
+            ghost = pending.finish()
+            if g_pad == 0:          # halo-free: nothing real to corrupt
+                return ghost
+            return (ghost.view(torch.int32)
+                    ^ (1 << self.bit)).view(ghost.dtype)
+        return PendingExchange(finish)
 
     def host_exchange(self, xd, send_own, recv_own, g_pad, state):
         # uncorrupted on purpose — see the class docstring

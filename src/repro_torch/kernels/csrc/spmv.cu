@@ -172,7 +172,7 @@ __device__ __forceinline__ float warp_segment_sum(
 // or two more than it needs; the owner search costs five shuffles per
 // staged entry.
 // ------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kSeeded>
 __global__ void __launch_bounds__(kThreads)
 ell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
            const int32_t* __restrict__ dlens, int wd,
@@ -193,8 +193,8 @@ ell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
   int len = 0;
   if (live) len = min(max(dlens[row], 0), wd);
   float acc = warp_segment_sum<T, false>(
-      0.0f, dvals, dcols, x_local + node * xl_stride, row * wd, len,
-      s_v[warp], s_x[warp]);
+      (kSeeded && live) ? y[row] : 0.0f, dvals, dcols,
+      x_local + node * xl_stride, row * wd, len, s_v[warp], s_x[warp]);
   if (wo > 0) {
     len = 0;
     if (live) len = min(max(olens[row], 0), wo);
@@ -230,7 +230,7 @@ ell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
 // and read back by one lane, and each x gather waits on its column's
 // load, so a lane has only kUnroll gathers in flight.
 // ------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kSeeded>
 __global__ void __launch_bounds__(kThreads)
 sell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
             const int32_t* __restrict__ dstart,
@@ -259,9 +259,11 @@ sell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
     len = dwidth[d];
     seg = dstart[d] + static_cast<int64_t>(j) * len;
   }
+  const int64_t out = static_cast<int64_t>(s) * rc_pad + q;
   float acc = warp_segment_sum<T, true>(
-      0.0f, dvals + s * d_len, dcols + s * d_len,
-      x_local + node * xl_stride, seg, len, s_v[warp], s_x[warp]);
+      (kSeeded && q < rc_pad) ? y[out] : 0.0f, dvals + s * d_len,
+      dcols + s * d_len, x_local + node * xl_stride, seg, len, s_v[warp],
+      s_x[warp]);
   if (has_offd) {
     len = 0;
     seg = 0;
@@ -273,7 +275,7 @@ sell_kernel(const T* __restrict__ dvals, const int32_t* __restrict__ dcols,
         acc, ovals + s * o_len, ocols + s * o_len,
         x_ghost + node * xg_stride, seg, len, s_v[warp], s_x[warp]);
   }
-  if (q < rc_pad) y[static_cast<int64_t>(s) * rc_pad + q] = acc;
+  if (q < rc_pad) y[out] = acc;
 }
 
 // ------------------------------------------------------------------------
@@ -433,7 +435,7 @@ __device__ __forceinline__ void warp_window_sum(
 
 // xl / xg: the interleaved x_local / x_ghost (float4 rows of KT / 4), with
 // node strides xl_node / xg_node in float4s.
-template <typename T, int KT>
+template <typename T, int KT, bool kSeeded>
 __global__ void __launch_bounds__(kBThreads)
 ell_batched_kernel(const T* __restrict__ dvals,
                    const int32_t* __restrict__ dcols,
@@ -456,7 +458,10 @@ ell_batched_kernel(const T* __restrict__ dvals,
 
   float acc[KT];
 #pragma unroll
-  for (int j = 0; j < KT; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < KT; ++j)
+    acc[j] = (kSeeded && live && j < nrhs)
+                 ? y[(static_cast<int64_t>(j) * n_shards + s) * rows + r]
+                 : 0.0f;
   int len = 0;
   if (live) len = min(max(dlens[row], 0), wd);
   warp_window_sum<T, KT>(acc, dvals, dcols, xl + node * xl_node, nrhs,
@@ -475,7 +480,7 @@ ell_batched_kernel(const T* __restrict__ dvals,
   }
 }
 
-template <typename T, int KT>
+template <typename T, int KT, bool kSeeded>
 __global__ void __launch_bounds__(kBThreads)
 sell_batched_kernel(const T* __restrict__ dvals,
                     const int32_t* __restrict__ dcols,
@@ -503,7 +508,10 @@ sell_batched_kernel(const T* __restrict__ dvals,
 
   float acc[KT];
 #pragma unroll
-  for (int j = 0; j < KT; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < KT; ++j)
+    acc[j] = (kSeeded && q < rc_pad && j < nrhs)
+                 ? y[(static_cast<int64_t>(j) * n_shards + s) * rc_pad + q]
+                 : 0.0f;
   int len = 0;
   int64_t seg = 0;
   if (present) {
@@ -600,12 +608,12 @@ int repro_ell_spmv(int vals_bf16, const void* dvals, const int32_t* dcols,
   const dim3 grid((rows + kThreads - 1) / kThreads, n_shards);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16) {
-    ell_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+    ell_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(dvals), dcols, dlens, wd,
         static_cast<const __nv_bfloat16*>(ovals), ocols, olens, wo, x_local,
         xl_stride, x_ghost, xg_stride, y, rows, n_core);
   } else {
-    ell_kernel<float><<<grid, kThreads, 0, st>>>(
+    ell_kernel<float, false><<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(dvals), dcols, dlens, wd,
         static_cast<const float*>(ovals), ocols, olens, wo, x_local,
         xl_stride, x_ghost, xg_stride, y, rows, n_core);
@@ -629,13 +637,13 @@ int repro_sell_spmv(int vals_bf16, const void* dvals, const int32_t* dcols,
   const dim3 grid((rc_pad + kThreads - 1) / kThreads, n_shards);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vals_bf16) {
-    sell_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+    sell_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(dvals), dcols, dstart, dwidth,
         d_len, static_cast<const __nv_bfloat16*>(ovals), ocols, ostart,
         owidth, o_len, has_offd, n_slices, slice_height, x_local, xl_stride,
         x_ghost, xg_stride, y, rc_pad, n_core);
   } else {
-    sell_kernel<float><<<grid, kThreads, 0, st>>>(
+    sell_kernel<float, false><<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(dvals), dcols, dstart, dwidth, d_len,
         static_cast<const float*>(ovals), ocols, ostart, owidth, o_len,
         has_offd, n_slices, slice_height, x_local, xl_stride, x_ghost,
@@ -675,7 +683,7 @@ int repro_ell_spmv_batched(int vals_bf16, const void* dvals,
   const float4* xl = reinterpret_cast<const float4*>(x_local);
   const float4* xg = reinterpret_cast<const float4*>(x_ghost);
 #define REPRO_LAUNCH_T(T, KT)                                           \
-  ell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(                \
+  ell_batched_kernel<T, KT, false><<<grid, kBThreads, 0, st>>>(         \
       static_cast<const T*>(dvals), dcols, dlens, wd,                   \
       static_cast<const T*>(ovals), ocols, olens, wo, xl,               \
       xl_width * (KT / 4), xg, xg_width * (KT / 4), y, rows, n_core,    \
@@ -711,11 +719,141 @@ int repro_sell_spmv_batched(int vals_bf16, const void* dvals,
   const float4* xl = reinterpret_cast<const float4*>(x_local);
   const float4* xg = reinterpret_cast<const float4*>(x_ghost);
 #define REPRO_LAUNCH_T(T, KT)                                           \
-  sell_batched_kernel<T, KT><<<grid, kBThreads, 0, st>>>(               \
+  sell_batched_kernel<T, KT, false><<<grid, kBThreads, 0, st>>>(        \
       static_cast<const T*>(dvals), dcols, dstart, dwidth, d_len,       \
       static_cast<const T*>(ovals), ocols, ostart, owidth, o_len,       \
       has_offd, n_slices, slice_height, xl, xl_width * (KT / 4), xg,    \
       xg_width * (KT / 4), y, rc_pad, n_core, n_shards, nrhs)
+  if (vals_bf16) {
+#define REPRO_LAUNCH(KT) REPRO_LAUNCH_T(__nv_bfloat16, KT)
+    REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  } else {
+#define REPRO_LAUNCH(KT) REPRO_LAUNCH_T(float, KT)
+    REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+#undef REPRO_LAUNCH_T
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------------
+// The offd pass onto a diagonal partial: the second launch of the split
+// two-phase SpMV that task/balanced run on a process mesh, where the halo
+// exchange is in flight while the diag pass (ell with wo == 0, sell with
+// no offd: B3's and B4's launches) runs.  PETSc's MatMult_MPIAIJ does the
+// same: A_d * x_local, then y += A_o * x_ghost once the scatter ends.
+//
+//   y[s, r] += sum_{k < olen[s, r]} ovals[s, r, k] * x_ghost[node(s), ocols[s, r, k]]
+//
+// It is the same kernel (kSeeded = true) with the offd stream in the
+// diag stream's place and no second stream, each lane's accumulator
+// seeded with its y (the partial the diag pass wrote) instead of 0.  The
+// fused kernel keeps the diag partial in that register and continues the
+// fmaf chain over the offd entries; here the chain stops at the f32 store
+// of y and resumes from its load, so each row's sum is the fused kernel's
+// bit for bit.  In place: each lane reads its own y through the one y
+// pointer before it writes it, so y stays __restrict__, and the unseeded
+// instantiations compile as before.
+//
+// Bound: device-memory bytes, the offd stream as the fused kernel reads
+// it plus y twice (read, then written).
+// ------------------------------------------------------------------------
+int repro_ell_spmv_onto(int vals_bf16, const void* ovals,
+                        const int32_t* ocols, const int32_t* olens, int wo,
+                        const float* x_ghost, int64_t xg_stride, float* y,
+                        int n_shards, int n_core, int rows, void* stream) {
+  if (rows <= 0 || n_shards <= 0 || wo <= 0) return 0;
+  const dim3 grid((rows + kThreads - 1) / kThreads, n_shards);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vals_bf16) {
+    ell_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(ovals), ocols, olens, wo, nullptr,
+        nullptr, nullptr, 0, x_ghost, xg_stride, nullptr, 0, y, rows,
+        n_core);
+  } else {
+    ell_kernel<float, true><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(ovals), ocols, olens, wo, nullptr, nullptr,
+        nullptr, 0, x_ghost, xg_stride, nullptr, 0, y, rows, n_core);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int repro_sell_spmv_onto(int vals_bf16, const void* ovals,
+                         const int32_t* ocols, const int32_t* ostart,
+                         const int32_t* owidth, int64_t o_len, int n_slices,
+                         int slice_height, const float* x_ghost,
+                         int64_t xg_stride, float* y, int n_shards,
+                         int n_core, int rc_pad, void* stream) {
+  if (rc_pad <= 0 || n_shards <= 0) return 0;
+  const dim3 grid((rc_pad + kThreads - 1) / kThreads, n_shards);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vals_bf16) {
+    sell_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(ovals), ocols, ostart, owidth,
+        o_len, nullptr, nullptr, nullptr, nullptr, 0, 0, n_slices,
+        slice_height, x_ghost, xg_stride, nullptr, 0, y, rc_pad, n_core);
+  } else {
+    sell_kernel<float, true><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(ovals), ocols, ostart, owidth, o_len,
+        nullptr, nullptr, nullptr, nullptr, 0, 0, n_slices, slice_height,
+        x_ghost, xg_stride, nullptr, 0, y, rc_pad, n_core);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched offd passes: x_ghost column-interleaved as the batched entry
+// points take it, y (nrhs, n_shards, rows | rc_pad) the batched diag
+// pass's output, added onto in place.
+int repro_ell_spmv_onto_batched(int vals_bf16, const void* ovals,
+                                const int32_t* ocols, const int32_t* olens,
+                                int wo, const float* x_ghost,
+                                int64_t xg_width, float* y, int n_shards,
+                                int n_core, int rows, int nrhs,
+                                void* stream) {
+  if (nrhs < 1 || nrhs > kMaxRhs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || n_shards <= 0 || wo <= 0) return 0;
+  const dim3 grid((rows + kBThreads - 1) / kBThreads, n_shards);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* xg = reinterpret_cast<const float4*>(x_ghost);
+#define REPRO_LAUNCH_T(T, KT)                                           \
+  ell_batched_kernel<T, KT, true><<<grid, kBThreads, 0, st>>>(          \
+      static_cast<const T*>(ovals), ocols, olens, wo, nullptr, nullptr, \
+      nullptr, 0, xg, xg_width * (KT / 4), nullptr, 0, y, rows, n_core, \
+      n_shards, nrhs)
+  if (vals_bf16) {
+#define REPRO_LAUNCH(KT) REPRO_LAUNCH_T(__nv_bfloat16, KT)
+    REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  } else {
+#define REPRO_LAUNCH(KT) REPRO_LAUNCH_T(float, KT)
+    REPRO_BY_TILE(nrhs, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+#undef REPRO_LAUNCH_T
+  return static_cast<int>(cudaGetLastError());
+}
+
+int repro_sell_spmv_onto_batched(int vals_bf16, const void* ovals,
+                                 const int32_t* ocols, const int32_t* ostart,
+                                 const int32_t* owidth, int64_t o_len,
+                                 int n_slices, int slice_height,
+                                 const float* x_ghost, int64_t xg_width,
+                                 float* y, int n_shards, int n_core,
+                                 int rc_pad, int nrhs, void* stream) {
+  if (nrhs < 1 || nrhs > kMaxRhs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rc_pad <= 0 || n_shards <= 0) return 0;
+  const dim3 grid((rc_pad + kBThreads - 1) / kBThreads, n_shards);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* xg = reinterpret_cast<const float4*>(x_ghost);
+#define REPRO_LAUNCH_T(T, KT)                                           \
+  sell_batched_kernel<T, KT, true><<<grid, kBThreads, 0, st>>>(         \
+      static_cast<const T*>(ovals), ocols, ostart, owidth, o_len,       \
+      nullptr, nullptr, nullptr, nullptr, 0, 0, n_slices, slice_height, \
+      xg, xg_width * (KT / 4), nullptr, 0, y, rc_pad, n_core, n_shards, \
+      nrhs)
   if (vals_bf16) {
 #define REPRO_LAUNCH(KT) REPRO_LAUNCH_T(__nv_bfloat16, KT)
     REPRO_BY_TILE(nrhs, REPRO_LAUNCH)

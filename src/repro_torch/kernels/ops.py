@@ -26,6 +26,14 @@ batched kernel for all columns, counted under the kernel's name with
 the wrapper copies each batched ``x`` into :func:`interleave_rhs`'s
 ``(n_node, n, KT)`` layout first, so a batched ``x`` may have any strides
 (a slice of a larger batch, a transposed view).
+
+The split two-phase SpMV (the ``task``/``balanced`` schedule on a process
+mesh, ``core/spmv.py``): the diag pass is the halo-free launch
+(``ell_spmv`` / ``fused_sell_spmv(x_ghost=None)`` on the diag stream),
+and ``ell_spmv_onto`` / ``sell_spmv_onto`` add the offd stream × the
+ghosts onto its output in place, once the exchange has arrived.  The two
+launches give the fused kernel's ``y`` bit for bit, single-column and
+batched (``*_onto_batched``).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 from repro_torch.kernels import ref
 
 __all__ = ["ell_spmv", "fused_ell_spmv", "fused_sell_spmv", "balanced_spmv",
+           "ell_spmv_onto", "sell_spmv_onto",
            "check_sell_layout", "interleave_rhs", "rhs_tile", "LAUNCHES",
            "MAX_NRHS", "RHS_TILES", "reset_launches"]
 
@@ -44,7 +53,10 @@ LAUNCHES: dict[str, int] = {"fused_ell_spmv": 0, "ell_spmv": 0,
                             "fused_ell_spmv_batched": 0,
                             "ell_spmv_batched": 0,
                             "fused_sell_spmv_batched": 0,
-                            "sell_spmv_batched": 0}
+                            "sell_spmv_batched": 0,
+                            "ell_spmv_onto": 0, "sell_spmv_onto": 0,
+                            "ell_spmv_onto_batched": 0,
+                            "sell_spmv_onto_batched": 0}
 
 #: the most right-hand sides one batched launch takes (``kMaxRhs`` in
 #: ``csrc/spmv.cu``)
@@ -371,6 +383,121 @@ def fused_sell_spmv(dvals: torch.Tensor, dcols: torch.Tensor,
             name = f"{name}_batched"
             err = library().repro_sell_spmv_batched(*args, k,
                                                     _stream(dvals.device))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return y
+
+
+def _partial(name: str, y: torch.Tensor, device, shape: tuple, k) -> None:
+    """The diag partial an offd pass adds onto in place: float32,
+    contiguous, on ``device``, ``shape`` (with the batch ``k`` leading, if
+    batched)."""
+    want = shape if k is None else (k, *shape)
+    if y.device != device:
+        raise ValueError(f"{name}: the partial y on {y.device}, not "
+                         f"{device}")
+    if (y.dtype != torch.float32 or not y.is_contiguous()
+            or tuple(y.shape) != tuple(want)):
+        raise ValueError(f"{name}: the partial y must be a contiguous "
+                         f"float32 {tuple(want)}, got {y.dtype} "
+                         f"{tuple(y.shape)}")
+
+
+def ell_spmv_onto(y: torch.Tensor, ovals: torch.Tensor, ocols: torch.Tensor,
+                  x_ghost: torch.Tensor,
+                  olens: torch.Tensor | None = None) -> torch.Tensor:
+    """The offd pass of the split two-phase ELL SpMV: ``y + offd ×
+    x_ghost``, ``y`` the diag pass's output (``ell_spmv`` on the diag
+    stream, ``(n_node, n_core, rows)`` or batched ``(nrhs, ...)`` with
+    ``x_ghost`` ``(nrhs, n_node, g_pad + 1)``).  On the card it adds in
+    place and returns ``y``; the two passes are ``fused_ell_spmv`` bit for
+    bit.  ``olens`` as ``fused_ell_spmv``'s.  An offd stream of width 0
+    adds nothing and launches nothing."""
+    name = "ell_spmv_onto"
+    if _on_cpu(ovals):
+        _nrhs(name, x_ghost, None, ovals.shape[0])
+        return ref.ell_spmv_onto_ref(y, ovals, ocols, x_ghost)
+    from repro_torch.kernels.spmv_cuda import library
+
+    n_node, n_core, rows, wo = ovals.shape
+    k = _nrhs(name, x_ghost, None, n_node)
+    if ocols.shape != ovals.shape or x_ghost.shape[-2] != n_node:
+        raise ValueError(f"{name}: shapes {tuple(ovals.shape)} "
+                         f"{tuple(ocols.shape)} x {tuple(x_ghost.shape)}")
+    if n_node * n_core > 65535:
+        raise ValueError(f"{name}: {n_node * n_core} shards > 65535")
+    olens = _lens(name, olens, ovals)
+    code = _check(name, ovals.device, [ovals], [ocols, olens], [x_ghost])
+    _partial(name, y, ovals.device, (n_node, n_core, rows), k)
+    if wo == 0:
+        return y
+    if k is not None:
+        x_ghost = interleave_rhs(x_ghost)
+    args = (code, ovals.data_ptr(), ocols.data_ptr(), olens.data_ptr(), wo,
+            x_ghost.data_ptr(), x_ghost.shape[1], y.data_ptr(),
+            n_node * n_core, n_core, rows)
+    with torch.cuda.device(ovals.device):
+        if k is None:
+            err = library().repro_ell_spmv_onto(*args, _stream(ovals.device))
+        else:
+            name = f"{name}_batched"
+            err = library().repro_ell_spmv_onto_batched(
+                *args, k, _stream(ovals.device))
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return y
+
+
+def sell_spmv_onto(y: torch.Tensor, ovals: torch.Tensor, ocols: torch.Tensor,
+                   ostart: torch.Tensor, owidth: torch.Tensor,
+                   x_ghost: torch.Tensor, rc_pad: int, slice_height: int = 8,
+                   owmax: int | None = None) -> torch.Tensor:
+    """The offd pass of the split two-phase SELL SpMV: ``y +`` the offd
+    stream × ``x_ghost``, ``y`` the diag-only ``fused_sell_spmv``'s output
+    ``(n_node, n_core, rc_pad)`` (batched: ``(nrhs, ...)``).  On the card
+    in place, returning ``y``; the two passes are ``fused_sell_spmv`` bit
+    for bit.  The stream's slices must lie back to back
+    (:func:`check_sell_layout`); ``owmax`` is the plain version's pad on
+    the CPU (``fused_sell_spmv``'s ``plain_pad[1]``).  An empty offd
+    stream adds nothing and launches nothing."""
+    name = "sell_spmv_onto"
+    if _on_cpu(ovals):
+        _nrhs(name, x_ghost, None, ovals.shape[0])
+        return ref.sell_spmv_onto_ref(y, ovals, ocols, ostart, owidth,
+                                      x_ghost, rc_pad, slice_height, owmax)
+    from repro_torch.kernels.spmv_cuda import library
+
+    n_node, n_core, o_len = ovals.shape
+    k = _nrhs(name, x_ghost, None, n_node)
+    n_slices = ostart.shape[-1]
+    if (ocols.shape != ovals.shape or ostart.shape != owidth.shape
+            or ostart.shape[:2] != (n_node, n_core)
+            or n_slices * slice_height < rc_pad
+            or x_ghost.shape[-2] != n_node):
+        raise ValueError(f"{name}: shapes {tuple(ovals.shape)} "
+                         f"{tuple(ostart.shape)} x {tuple(x_ghost.shape)} "
+                         f"for rc_pad {rc_pad}")
+    if n_node * n_core > 65535:
+        raise ValueError(f"{name}: {n_node * n_core} shards > 65535")
+    code = _check(name, ovals.device, [ovals], [ocols, ostart, owidth],
+                  [x_ghost])
+    _partial(name, y, ovals.device, (n_node, n_core, rc_pad), k)
+    if o_len == 0:
+        return y
+    if k is not None:
+        x_ghost = interleave_rhs(x_ghost)
+    args = (code, ovals.data_ptr(), ocols.data_ptr(), ostart.data_ptr(),
+            owidth.data_ptr(), o_len, n_slices, slice_height,
+            x_ghost.data_ptr(), x_ghost.shape[1], y.data_ptr(),
+            n_node * n_core, n_core, rc_pad)
+    with torch.cuda.device(ovals.device):
+        if k is None:
+            err = library().repro_sell_spmv_onto(*args,
+                                                 _stream(ovals.device))
+        else:
+            name = f"{name}_batched"
+            err = library().repro_sell_spmv_onto_batched(
+                *args, k, _stream(ovals.device))
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return y

@@ -20,8 +20,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ell_spmv_ref", "fused_ell_spmv_ref", "sell_spmv_ref",
-           "fused_sell_spmv_ref", "binned_matvec_ref", "balanced_spmv_ref"]
+__all__ = ["ell_spmv_ref", "fused_ell_spmv_ref", "ell_spmv_onto_ref",
+           "sell_spmv_ref", "fused_sell_spmv_ref", "sell_spmv_onto_ref",
+           "binned_matvec_ref", "balanced_spmv_ref"]
 
 
 def _take_per_node(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -64,6 +65,14 @@ def fused_ell_spmv_ref(dvals, dcols, ovals, ocols, x_local, x_ghost):
             dvals, dcols, ovals, ocols, xl, xg), x_local, x_ghost)
     return (ell_spmv_ref(dvals, dcols, x_local)
             + ell_spmv_ref(ovals, ocols, x_ghost))
+
+
+def ell_spmv_onto_ref(y, ovals, ocols, x_ghost):
+    """The offd pass onto a diag partial ``y``: ``y + `` offd ELL ×
+    ``x_ghost`` (a new tensor).  ``ell_spmv_ref(diag)`` then this is
+    ``fused_ell_spmv_ref`` bit for bit, which sums the two streams apart
+    and adds them."""
+    return y + ell_spmv_ref(ovals, ocols, x_ghost)
 
 
 def sell_spmv_ref(vals: torch.Tensor, cols: torch.Tensor,
@@ -119,6 +128,20 @@ def fused_sell_spmv_ref(dvals, dcols, dstart, dwidth, ovals, ocols, ostart,
                       slice_height, dwmax)
     if x_ghost is None:
         return y
+    return y + sell_spmv_ref(ovals, ocols, ostart, owidth, x_ghost, rc_pad,
+                             slice_height, owmax)
+
+
+def sell_spmv_onto_ref(y, ovals, ocols, ostart, owidth, x_ghost,
+                       rc_pad: int, slice_height: int = 8,
+                       owmax: int | None = None):
+    """The offd pass onto a diag partial ``y``: ``y +`` the offd SELL
+    stream × ``x_ghost`` (a new tensor); the diag-only
+    ``fused_sell_spmv_ref`` then this is the fused version bit for bit."""
+    if x_ghost.dim() == 3:
+        return y + _per_column(lambda xg: sell_spmv_ref(
+            ovals, ocols, ostart, owidth, xg, rc_pad, slice_height, owmax),
+            x_ghost)
     return y + sell_spmv_ref(ovals, ocols, ostart, owidth, x_ghost, rc_pad,
                              slice_height, owmax)
 

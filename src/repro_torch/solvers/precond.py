@@ -187,15 +187,45 @@ def _core_block_inverses(layout: dict, A, only=None):
             yield i, c, (blo, bhi), np.linalg.inv(block)
 
 
+#: rows of the matrix per slice of ``row_products``
+_ROWS_PER_SLICE = 256
+
+
+def row_products(m, v):
+    """``z[..., j] = Σ_k m[..., j, k]·v[..., k]`` (leading dims broadcast)
+    in an order that is torch's own reduction, not a BLAS's.
+
+    The CPU's dense products on a compared count's path go through this:
+    MKL picks its GEMM/GEMV code path by CPU model, and on the f32
+    plateau that choice moves a cg count by up to 10 iterations.  The
+    product's temporary is ``_ROWS_PER_SLICE`` rows of ``m`` at a time, so
+    it stays small at any width; each ``z`` element is one row's sum
+    whatever the slicing, so the slicing does not move its bits.
+    """
+    vk = v.unsqueeze(-2)
+    return torch.cat([(m[..., j:j + _ROWS_PER_SLICE, :] * vk).sum(-1)
+                      for j in range(0, m.shape[-2], _ROWS_PER_SLICE)],
+                     dim=-1)
+
+
 class BlockJacobiPrecond(Preconditioner):
     """Shard-local dense inverse of each core's diagonal block (PCBJACOBI).
 
     ``build`` stores ``binv`` as ``(n_node, n_core, rc_pad, rc_pad)`` in the
     plan's slot ordering (format row permutations folded in via
     ``layout["global_row_of"]``), rounded once from f64 to f32; padding
-    rows and columns are zero, so padding slots stay exactly 0.  The apply
-    is one batched dense product over the shards.  A rank-local plan
-    builds and holds its own block alone, ``(1, 1, rc_pad, rc_pad)``.
+    rows and columns are zero, so padding slots stay exactly 0.  A
+    rank-local plan builds and holds its own block alone, ``(1, 1,
+    rc_pad, rc_pad)``.
+
+    The apply, ``z[..., j] = Σ_k binv[..., j, k]·r[..., k]``, takes its
+    summation order from where it runs.  On the card it is one batched
+    cuBLAS product (the order is the card's, the same on every run).  On
+    the CPU a batched ``einsum`` would go to MKL's GEMM, whose code path
+    follows the CPU model; there the apply is ``row_products``, which
+    keeps the product's temporary to a slice of ``binv`` (a full
+    ``(nrhs, …, rc_pad, rc_pad)`` one is ~0.5 GB a column at the card's
+    32,000 rows).
     """
 
     name = "block_jacobi"
@@ -213,7 +243,10 @@ class BlockJacobiPrecond(Preconditioner):
         return {"binv": to_device(binv, plan.device)}
 
     def apply(self, P, r):
-        return torch.einsum("icjk,nick->nicj", P["binv"], r)
+        binv = P["binv"]
+        if binv.is_cuda:
+            return torch.einsum("icjk,nick->nicj", binv, r)
+        return row_products(binv, r)
 
     def host_apply(self, plan, layout, A):
         blocks = [(rows, inv)
@@ -386,8 +419,11 @@ class TwoLevelPrecond(Preconditioner):
             ainv = P["ainv_c"][0, 0]
             # the redundant solve; each column's product reads only its own
             # residual, so the other columns do not move its bits
-            y_c = (torch.mv(ainv, r_c[0])[None] if k == 1
-                   else r_c @ ainv.T)
+            if not ainv.is_cuda:
+                y_c = row_products(ainv, r_c)
+            else:
+                y_c = (torch.mv(ainv, r_c[0])[None] if k == 1
+                       else r_c @ ainv.T)
             y_ext = torch.cat([y_c, y_c.new_zeros(k, 1)], dim=1)
             return body_P(y_ext[:, P["p_col_map"]])  # (k, n_node, n_core, rc)
 

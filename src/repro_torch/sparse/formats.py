@@ -154,6 +154,23 @@ class ShardFormat:
         batched as :meth:`matvec_plain`, in one launch."""
         raise NotImplementedError
 
+    # -- the two phases apart (the overlapped schedule, core/spmv.py) ---- #
+    def matvec_diag(self, F: dict[str, torch.Tensor], x_local: torch.Tensor,
+                    rc_pad: int, backend: str = "kernel") -> torch.Tensor:
+        """The diag phase alone: the halo-free matvec on the diag stream,
+        through the kernel wrappers (``backend="kernel"``) or the plain
+        versions."""
+        mv = self.matvec_kernel if backend == "kernel" else self.matvec_plain
+        return mv(F, x_local, None, rc_pad)
+
+    def matvec_offd_onto(self, F: dict[str, torch.Tensor], y: torch.Tensor,
+                         x_ghost: torch.Tensor, rc_pad: int,
+                         backend: str = "kernel") -> torch.Tensor:
+        """The offd phase added onto :meth:`matvec_diag`'s ``y`` (in place
+        on the card): the two give the fused matvec's ``y`` bit for bit,
+        under either backend."""
+        raise NotImplementedError
+
 
 def _max_width(blocks: list[CSRMatrix]) -> int:
     """Largest row nnz over the blocks — 0 when every block is empty (no
@@ -231,6 +248,14 @@ class ELLFormat(ShardFormat):
                               F["offd_vals"], F["offd_cols"],
                               x_local, x_ghost, dlens=F["diag_len"],
                               olens=F["offd_len"])
+
+    def matvec_offd_onto(self, F, y, x_ghost, rc_pad, backend="kernel"):
+        from repro_torch.kernels.ops import ell_spmv_onto
+        from repro_torch.kernels.ref import ell_spmv_onto_ref
+        if backend == "kernel":
+            return ell_spmv_onto(y, F["offd_vals"], F["offd_cols"], x_ghost,
+                                 olens=F["offd_len"])
+        return ell_spmv_onto_ref(y, F["offd_vals"], F["offd_cols"], x_ghost)
 
 
 # --------------------------------------------------------------------- #
@@ -405,6 +430,16 @@ class SELLFormat(ShardFormat):
         args, x_ghost = self._args(F, x_ghost)
         return fused_sell_spmv(*args, x_local, x_ghost, rc_pad,
                                self.slice_height, plain_pad=self._pad(F))
+
+    def matvec_offd_onto(self, F, y, x_ghost, rc_pad, backend="kernel"):
+        from repro_torch.kernels.ops import sell_spmv_onto
+        from repro_torch.kernels.ref import sell_spmv_onto_ref
+        if F["sell_ovals"].shape[-1] == 0:      # no offd stream (``_args``)
+            return y
+        onto = sell_spmv_onto if backend == "kernel" else sell_spmv_onto_ref
+        return onto(y, F["sell_ovals"], F["sell_ocols"], F["sell_ostart"],
+                    F["sell_owidth"], x_ghost, rc_pad, self.slice_height,
+                    self._pad(F)[1])
 
     @staticmethod
     def _pad(F):

@@ -16,7 +16,13 @@ What the numbers are: one device holds the whole ``n_node x n_core`` grid
 as a virtual mesh, so there is no wire.  ``--mesh process`` times the same
 calls on every rank of a process mesh instead (``--dist-backend`` gloo,
 or nccl with one rank per card: the wire between cards), each on its own
-shard; the dict is rank 0's plus each timing by rank (``..._by_rank``).  The times are of the card's
+shard; the dict is rank 0's plus each timing by rank (``..._by_rank``).
+There each SpMV entry also carries the shard body's ``schedule`` (its
+issue / wait / launch steps, which ``--mode`` sets: ``vector`` waits for
+the exchange before its one launch, ``task`` / ``balanced`` launch the
+diag pass while it is in flight) and ``wire_us_per_spmv`` /
+``exposed_us_per_spmv``: µs of collectives per SpMV, and of them the
+part no local work hid (``WIRE``).  The times are of the card's
 gathers, scatters and kernels (CUDA events on the card, after
 ``--warmup`` calls, median and min over ``--reps`` repetitions of
 ``--iters`` calls); on the CPU they are host-clock times of the plain
@@ -202,7 +208,8 @@ def main(argv=None) -> int:
     out.update(ranks[0])
     out.update(mesh="process", dist_backend=backend, ranks=len(ranks),
                **{f"{k}_by_rank": [r[k] for r in ranks]
-                  for k in ("us_per_spmv", "us_per_iter") if k in ranks[0]})
+                  for k in ("us_per_spmv", "us_per_iter", "wire_us_per_spmv",
+                            "exposed_us_per_spmv") if k in ranks[0]})
     print(json.dumps(out))
     return 0
 
@@ -315,7 +322,8 @@ def spmv_sweep(args, A, plan, x, device) -> dict:
     predicted cost, the recorded census and wire bytes of one SpMV."""
     from repro_torch.analysis.trace_pass import derived_wire_bytes
     from repro_torch.core import make_spmv, transport_census
-    from repro_torch.core.collectives import census, record_collectives
+    from repro_torch.core.collectives import (census, record_collectives,
+                                              reset_wire, wire_seconds)
     from repro_torch.core.transport import autotune_transport
 
     names = args.transport.split(",")
@@ -343,6 +351,13 @@ def spmv_sweep(args, A, plan, x, device) -> dict:
                 spmv(x)
             rep_us = [timed(lambda: spmv(x), device, args.iters)[0]
                       / args.iters * 1e6 for _ in range(max(args.reps, 1))]
+            if plan.is_rank_local:
+                reset_wire()
+                timed(lambda: spmv(x), device, args.iters)
+                wire, exposed = wire_seconds()
+                res.update(schedule=[" ".join(s) for s in spmv.schedule],
+                           wire_us_per_spmv=wire / args.iters * 1e6,
+                           exposed_us_per_spmv=exposed / args.iters * 1e6)
             res["us_per_spmv"] = float(np.median(rep_us))
             res["us_per_spmv_min"] = float(np.min(rep_us))
             res["reps_us"] = [round(v, 1) for v in rep_us]
@@ -365,6 +380,9 @@ def spmv_sweep(args, A, plan, x, device) -> dict:
            "us_per_spmv": first["us_per_spmv"],
            "us_per_spmv_min": first["us_per_spmv_min"],
            "gflops": first["gflops"]}
+    for key in ("schedule", "wire_us_per_spmv", "exposed_us_per_spmv"):
+        if key in first:
+            out[key] = first[key]
     if len(wire_dtypes) > 1:
         out["wire"] = wire_sweep
     if "collectives" in first:

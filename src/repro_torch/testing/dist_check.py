@@ -30,10 +30,22 @@ a jacobi-cg solve's iterations against the virtual mesh's (±1).
 driver on the ranks, each ``RESILIENT`` line from rank 0's whole ``x``.
 ``--inject-fault preempt@N`` kills every rank: the run prints a ``KILLED``
 line with the ranks' exit codes and exits 137.
+
+On a process mesh each mode also prints its schedule (``SCHEDULE <mode>``,
+the shard body's issue / wait / launch steps: ``vector`` waits for the
+exchange before its one launch, ``task`` and ``balanced`` launch the diag
+pass while it is in flight) and its wire per SpMV (``WIRE <mode>``: ms of
+collectives and ms of them exposed, the largest over the ranks, after
+``SPMV_REPS`` calls).  ``--modes vector,task`` alternates the modes in
+one run on the one rows partition they share (vector, task, vector,
+task): each mode's ``y`` and every jacobi-cg iterate (``x`` after each
+iteration up to convergence) must be bit for bit the first mode's
+(the ``MODES`` line).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import tempfile
 
@@ -96,9 +108,25 @@ def main(argv=None) -> int:
                     choices=["virtual", "process"],
                     help="virtual: the grid on one device; process: one "
                          "spawned rank per shard")
+    ap.add_argument("--modes", default=None,
+                    help="with --mesh process: a comma list of modes that "
+                         "share one partition (vector,task), alternated in "
+                         "one run and held bit for bit to each other")
     add_dist_backend(ap)
     args = ap.parse_args(argv)
     dist_backend(ap, args, args.n_node * args.n_core)
+    if args.modes is not None:
+        from repro_torch.core.spmv import MODES
+
+        if args.mesh != "process":
+            ap.error("--modes needs --mesh process")
+        modes = args.modes.split(",")
+        if not set(modes) <= set(MODES) or len(set(modes)) != len(modes):
+            ap.error(f"--modes takes distinct names of {MODES}")
+        if len(modes) > 1 and "balanced" in modes:
+            ap.error("--modes: balanced partitions by non-zeros; it shares "
+                     "no partition with vector or task")
+        args.mode = modes[0]
     if args.mesh == "process":
         return process_main(args)
 
@@ -159,6 +187,8 @@ def main(argv=None) -> int:
 # (~1e-4 true residual): below it iteration counts are reduction-order
 # noise
 CG_TOL = SOLVER_TOL = 1e-5
+#: SpMV calls a ``WIRE <mode>`` line averages over
+SPMV_REPS = 10
 #: f32 attainable true-residual / solution-error floors per solver:
 #: pipelined CG trades ~1 digit of attainable accuracy for the overlap,
 #: Chebyshev stops on its a-priori error bound
@@ -386,7 +416,82 @@ def _rank(mesh, plan_dir: str, job: dict) -> dict:
     xd, it, _ = make_solver(plan, **route)(_row(job["b_mesh"], mesh),
                                            tol=CG_TOL, maxiter=2000)
     out["mesh_cg"] = int(it)
+    out["modes"] = _rank_modes(mesh, plan, job, route)
     return out
+
+
+def _rank_modes(mesh, plan, job: dict, route: dict) -> list:
+    """Each of ``job["modes"]`` on this rank, alternated (every mode, then
+    every mode again): the plan under that mode's schedule, its ``y``, its
+    schedule and wire per SpMV; in the first round also jacobi-cg's every
+    iterate (:func:`cg_iterates`).  One entry per run, in run order."""
+    from repro_torch.core import make_spmv
+    from repro_torch.core.collectives import reset_wire, wire_seconds
+    from repro_torch.solvers import make_solver
+
+    x, b = _row(job["x"], mesh), _row(job["b_mesh"], mesh)
+    runs = []
+    for rnd in range(2):
+        for mode in job["modes"]:
+            pm = dataclasses.replace(plan, mode=mode)
+            spmv = make_spmv(pm, **route)
+            run = {"mode": mode, "schedule": spmv.schedule,
+                   "y": _np(spmv(x))}
+            mesh.barrier()
+            reset_wire()
+            for _ in range(SPMV_REPS):
+                spmv(x)
+            run["wire_ms"] = [v * 1e3 / SPMV_REPS for v in wire_seconds()]
+            if rnd == 0:
+                run["iterates"] = cg_iterates(make_solver(pm, **route), b,
+                                              CG_TOL, 2000)
+            runs.append(run)
+    return runs
+
+
+def cg_iterates(solve, b, tol: float, maxiter: int) -> list:
+    """Every iterate of ``solve`` (a ``make_solver`` solve) on ``b``: its
+    loop, one body at a time, ``x`` read after each iteration until no
+    right-hand side is active."""
+    sol, ctx, bb, tol_t, maxiter_t = solve.parts(b, tol, maxiter)
+    aux, state = sol.loop_setup(ctx, bb, tol_t, maxiter_t)
+    xs = []
+    while bool(sol.loop_cond(ctx, aux, state)):
+        state = sol.loop_body(ctx, aux, state)
+        xs.append(_np(state["x"]))
+    return xs
+
+
+def modes_lines(ranks, modes) -> bool:
+    """The ``SCHEDULE`` and ``WIRE`` lines of each mode and, for more than
+    one mode, the ``MODES`` line: every run's ``y`` and every iterate bit
+    for bit the first mode's, on every rank."""
+    ok = True
+    runs = [r["modes"] for r in ranks]
+    for i, mode in enumerate(modes):
+        steps = " > ".join(" ".join(s) for s in runs[0][i]["schedule"])
+        print(f"SCHEDULE {mode} {steps}")
+        wire = [r[j]["wire_ms"] for r in runs
+                for j in range(len(r)) if r[j]["mode"] == mode]
+        print(f"WIRE {mode} PER_SPMV_MS {max(w[0] for w in wire):.4f} "
+              f"EXPOSED_MS {max(w[1] for w in wire):.4f}")
+        ok = ok and all(w[1] <= w[0] for w in wire)
+    if len(modes) > 1:
+        def bits(a, b):
+            return np.array_equal(a.view(np.int32), b.view(np.int32))
+
+        y_ok = all(bits(run["y"], r[0]["y"]) for r in runs for run in r)
+        n_its = [len(r[i]["iterates"]) for r in runs
+                 for i in range(len(modes))]
+        x_ok = _agree(n_its) and all(
+            bits(a, b) for r in runs for i in range(1, len(modes))
+            for a, b in zip(r[i]["iterates"], r[0]["iterates"]))
+        m_ok = y_ok and x_ok
+        print(f"MODES {','.join(modes)} RUNS {len(runs[0])} SPMV_BITWISE "
+              f"{'ok' if y_ok else 'BAD'} ITERATES {n_its[0]} BITWISE "
+              f"{'ok' if x_ok else 'BAD'} {'ok' if m_ok else 'BAD'}")
+        ok = ok and m_ok
+    return ok
 
 
 def _rank_resilient(plan, name: str, job: dict, route: dict) -> dict:
@@ -461,7 +566,8 @@ def process_main(args) -> int:
            "options": options, "x": dist(x), "b": dist(b),
            "b_solver": dist(b_solver), "b_mesh": dist(b_mesh),
            "b_solver_global": b_solver,
-           "B": None if B is None else _np(to_dist_batch(B, layout, plan))}
+           "B": None if B is None else _np(to_dist_batch(B, layout, plan)),
+           "modes": args.modes.split(",") if args.modes else [args.mode]}
     with tempfile.TemporaryDirectory(prefix="dist_check_") as d:
         write_plan(plan, d)
         try:
@@ -528,7 +634,7 @@ def process_main(args) -> int:
           f"SPMV_BITWISE "
           f"{'ok' if y_bits else 'BAD'} CG_ITERS {its[0]} VIRTUAL "
           f"{int(itv)} {'ok' if m_ok else 'BAD'}")
-    ok = ok and m_ok
+    ok = modes_lines(ranks, job["modes"]) and ok and m_ok
     print("OK" if ok else "FAIL")
     return 0 if ok else 1
 

@@ -27,7 +27,10 @@ four NCCL ranks (2x2) give the virtual mesh's ghosts and ``y`` bit for
 bit, for every transport x wire dtype, and cg iterations equal on every
 rank (±1 of the virtual mesh's); on two NCCL ranks, 32 more cg
 iterations add only their two gated convergence checks' device-to-host
-copies.
+copies.  The offd pass onto the diag pass's ``y`` is the fused kernel
+bit for bit (single-column and batched, f32 and bf16), and on four NCCL
+ranks ``vector`` and ``task`` alternated give the same ``y`` and cg
+iterates bit for bit.
 """
 import dataclasses
 import json
@@ -600,6 +603,45 @@ def test_precond_cg_on_the_card(fmt, golden):
         assert abs(iters["cuda", pname] - iters["cpu", pname]) <= 1
 
 
+@pytest.mark.parametrize("k", [None, 3, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ell/4x2", "sell/4x2"])
+def test_offd_pass_onto_the_diag_pass_is_the_fused_kernel(case, dtype, k,
+                                                          golden):
+    """The split two-phase SpMV: the diag launch (B3's / B4's kernel on
+    the diag stream), then the offd launch seeded from its ``y``, in
+    place: the fused kernel's ``y`` bit for bit (each row's fmaf chain
+    resumes from the stored partial), single-column and batched, within
+    2e-5·max|y| of the plain version, each launch counted once under its
+    own name."""
+    A, _, _ = golden
+    plan, layout = _plan(case, A)
+    F = {kk: (v.to(dtype) if v.is_floating_point() else v)
+         for kk, v in plan.fmt_data.items()}
+    fmt = get_format(plan.format)
+    if k is None:
+        xl, xg = make_shard_body(plan).inputs(
+            to_dist(np.random.default_rng(3).standard_normal(plan.n),
+                    layout, plan))
+    else:
+        xl, xg = _batched_inputs(plan, layout, k, seed=k)
+    fused = fmt.matvec_kernel(F, xl, xg, plan.rc_pad)
+    reset_launches()
+    y = fmt.matvec_diag(F, xl, plan.rc_pad)
+    got = fmt.matvec_offd_onto(F, y, xg, plan.rc_pad)
+    torch.cuda.synchronize()
+    tag = "" if k is None else "_batched"
+    diag = {"ell": "ell_spmv", "sell": "sell_spmv"}[plan.format]
+    assert LAUNCHES == {kk: int(kk in (f"{diag}{tag}",
+                                       f"{plan.format}_spmv_onto{tag}"))
+                        for kk in LAUNCHES}
+    assert got.data_ptr() == y.data_ptr()           # in place
+    assert torch.equal(got.view(torch.int32), fused.view(torch.int32))
+    want = fmt.matvec_plain(F, xl, xg, plan.rc_pad)
+    assert float((got - want).abs().max()) <= 2e-5 * max(
+        1.0, float(want.abs().max()))
+
+
 # --------------------------------------------------------------------- #
 # the batched kernels (B1-B4 under vmap) and the engine on the card
 # --------------------------------------------------------------------- #
@@ -996,6 +1038,19 @@ def test_nccl_2x2_mesh_is_the_virtual_mesh(golden):
                                   ghost[node, core, :g].view(np.int32))
             assert np.array_equal(r[fmt][1][0, 0].view(np.int32),
                                   y[node, core].view(np.int32))
+
+
+def test_nccl_modes_alternated_are_bit_for_bit():
+    """``dist_check --mesh process --dist-backend nccl --modes vector,task``
+    at 2x2: the overlapped schedule (async all-to-all in flight across the
+    diag pass) gives the barrier's ``y`` and every cg iterate bit for bit,
+    and each mode's exposed wire is at most its wire."""
+    from repro_torch.testing import dist_check
+
+    _cards(4)
+    assert dist_check.main(
+        ["--mesh", "process", "--dist-backend", "nccl", "--device", "cuda",
+         "--n-node", "2", "--n-core", "2", "--modes", "vector,task"]) == 0
 
 
 def test_nccl_transport_sweep_is_the_virtual_mesh():

@@ -249,3 +249,50 @@ def test_both_match_host_csr(n, nnz_per_row, nbins, seed):
         b = BalancedCOO.from_csr(A, BOUNDS[kind](A, nbins), device="cpu")
         np.testing.assert_allclose(balanced_spmv(b, xt).numpy(), want,
                                    atol=tol, rtol=0)
+
+
+# ---------------------------------------------------------------------- #
+# the split two-phase SpMV: the offd pass onto the diag partial
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("nrhs", [None, 3], ids=["single", "batched"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("fmt", ["ell", "sell"])
+def test_offd_pass_onto_the_diag_partial_is_the_fused_plain_version(
+        fmt, dt, nrhs):
+    """The diag pass (the halo-free matvec), then the offd pass onto its
+    ``y``: the plain fused version bit for bit, through the format's two
+    passes and through the wrappers (the plain versions on the CPU)."""
+    from repro_torch.core import build_spmv_plan, make_shard_body, to_dist
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import get_format, graded_extruded_mesh_matrix
+
+    A = graded_extruded_mesh_matrix(48, 6, seed=0)
+    plan, layout = build_spmv_plan(A, 4, 2, format=fmt, device="cpu")
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(nrhs or 1, A.n_rows))
+    xd = torch.stack([to_dist(x, layout, plan) for x in X])
+    xl, xg = make_shard_body(plan).inputs(xd if nrhs else xd[0])
+    storage = DTYPES[dt][0]
+    F = {k: (v.to(storage) if v.is_floating_point() else v)
+         for k, v in plan.fmt_data.items()}
+    f = get_format(fmt)
+    want = f.matvec_plain(F, xl, xg, plan.rc_pad)
+    for backend in ("plain", "kernel"):
+        y = f.matvec_diag(F, xl, plan.rc_pad, backend)
+        got = f.matvec_offd_onto(F, y, xg, plan.rc_pad, backend)
+        assert got.shape == want.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if fmt == "ell":
+        y = ops.ell_spmv(F["diag_vals"], F["diag_cols"], xl,
+                         lens=F["diag_len"])
+        got = ops.ell_spmv_onto(y, F["offd_vals"], F["offd_cols"], xg,
+                                olens=F["offd_len"])
+    else:
+        y = ops.fused_sell_spmv(*(F[f"sell_d{k}"] for k in
+                                  ("vals", "cols", "start", "width")),
+                                None, None, None, None, xl, None,
+                                plan.rc_pad)
+        got = ops.sell_spmv_onto(y, *(F[f"sell_o{k}"] for k in
+                                      ("vals", "cols", "start", "width")),
+                                 xg, plan.rc_pad)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

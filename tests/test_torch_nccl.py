@@ -16,6 +16,13 @@ This machine has no card, so each half is held here on gloo ranks:
   wire's, with the same ``WIRE`` calls, bytes and kinds.  Its CUDA-event
   marks are host clocks here.
 
+The same holds for the wire's issue-now, wait-later form
+(``all_to_all_start`` / ``ppermute_start`` / ``all_gather_start``, the
+overlapped schedule's calls), on both wires: a pending handle, waited
+after local work, delivers the synchronous call's bytes; ``WIRE``'s
+``exposed`` stays within each call's seconds; and a shard body that
+leaves a handle unwaited raises at its end.
+
 ``WIRE`` itself (events read when it is read) is held without a spawn.
 The card half, NCCL between real cards, is ``tests/test_torch_cuda.py``'s
 (marked ``cuda``).  One spawn of 4 ranks (2x2); the children get no jax
@@ -100,6 +107,84 @@ def _solve(mesh, plan_dirs, job) -> dict:
     return out
 
 
+class _Leaky:
+    """An a2a transport that issues one more all-to-all and never waits
+    for it (built on the ranks: the class is the transport module's)."""
+
+    @staticmethod
+    def make():
+        from repro_torch.core.collectives import all_to_all_start
+        from repro_torch.core.transport import A2ATransport
+
+        class Leaky(A2ATransport):
+            name = "leaky"
+
+            def start(self, x, F, *, state, n_node, g_pad):
+                all_to_all_start(x.new_zeros((1, 1, 1, state["mesh"].n_node,
+                                              2)), mesh=state["mesh"])
+                return super().start(x, F, state=state, n_node=n_node,
+                                     g_pad=g_pad)
+        return Leaky()
+
+
+def _async(mesh, plan_dirs, job) -> dict:
+    """Each collective issued, local work queued, then waited: its result
+    against the synchronous call's bytes, and ``WIRE``'s seconds and
+    exposed seconds of the pending call; then a shard body that leaves a
+    handle unwaited."""
+    from repro_torch.core import make_shard_body
+    from repro_torch.core.collectives import (WIRE, all_gather,
+                                              all_gather_start, all_to_all,
+                                              all_to_all_start, open_handles,
+                                              ppermute, ppermute_start,
+                                              reset_wire)
+    from repro_torch.launch.mesh import read_plan
+
+    n = mesh.n_node
+    base = torch.arange(n * 6, dtype=torch.float32) + 100.0 * mesh.rank
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    calls = {
+        "all-to-all": (lambda: all_to_all(base.reshape(1, 1, 1, n, 6),
+                                          mesh=mesh),
+                       lambda: all_to_all_start(base.reshape(1, 1, 1, n, 6),
+                                                mesh=mesh)),
+        "all-gather": (lambda: all_gather(base.reshape(1, 1, -1), "core",
+                                          mesh=mesh),
+                       lambda: all_gather_start(base.reshape(1, 1, -1),
+                                                "core", mesh=mesh)),
+        "collective-permute": (
+            lambda: ppermute(base[:6].reshape(1, 1, 1, 6), pairs=n,
+                             perm=perm, mesh=mesh),
+            lambda: ppermute_start(base[:6].reshape(1, 1, 1, 6), pairs=n,
+                                   perm=perm, mesh=mesh))}
+    out = {}
+    for kind, (sync, start) in calls.items():
+        want = sync()
+        reset_wire()
+        pending = start()
+        work = sum(float((base * k).sum()) for k in range(200))  # local work
+        got = pending.wait()
+        wire = dict(WIRE)
+        out[kind] = (np.array_equal(got.numpy().view(np.int32),
+                                     want.numpy().view(np.int32)),
+                     wire["calls"], wire["seconds"], wire["exposed"],
+                     dict(wire["by_kind"]), dict(wire["exposed_by_kind"]),
+                     work)
+    plan = read_plan(plan_dirs["ell"], mesh)
+    x = torch.from_numpy(np.array(job["ell"]["x"][
+        mesh.node:mesh.node + 1, mesh.core:mesh.core + 1]))
+    body = make_shard_body(plan, transport=_Leaky.make())
+    before = open_handles()
+    try:
+        body(x)
+        out["leak"] = None
+    except RuntimeError as e:
+        out["leak"] = str(e)
+    out["open_after"] = open_handles() - before
+    mesh.barrier()
+    return out
+
+
 def _rank(mesh, plan_dirs, job) -> dict:
     import torch.distributed as dist
 
@@ -122,11 +207,13 @@ def _rank(mesh, plan_dirs, job) -> dict:
     out["side_groups"] = [(fn, g is side.control) for fn, g in seen]
     # the on-card wire over the same groups, on host tensors
     out["gloo"] = _solve(mesh, plan_dirs, job)
+    out["gloo_async"] = _async(mesh, plan_dirs, job)
     marks = []
     collectives._mark = lambda device: marks.append(device) or _HostMark()
-    out["nccl"] = _solve(dataclasses.replace(mesh, backend="nccl"),
-                         plan_dirs, job)
+    nccl = dataclasses.replace(mesh, backend="nccl")
+    out["nccl"] = _solve(nccl, plan_dirs, job)
     out["marks"] = len(marks)
+    out["nccl_async"] = _async(nccl, plan_dirs, job)
     return out
 
 
@@ -215,6 +302,30 @@ def test_cg_over_the_on_card_wire_is_the_gloo_wires(fmt, ranks):
                                            gx.view(np.int32))
 
 
+ASYNC_KINDS = ("all-to-all", "all-gather", "collective-permute")
+
+
+@pytest.mark.parametrize("kind", ASYNC_KINDS)
+@pytest.mark.parametrize("wire", ["gloo", "nccl"])
+def test_a_pending_handle_delivers_the_synchronous_calls_bytes(wire, kind,
+                                                               ranks):
+    for res in ranks[0]:
+        same, calls, seconds, exposed, by_kind, exposed_by_kind, _ = res[
+            f"{wire}_async"][kind]
+        assert same and calls == 1
+        assert set(by_kind) == set(exposed_by_kind) == {kind}
+        assert 0.0 <= exposed <= seconds
+
+
+@pytest.mark.parametrize("wire", ["gloo", "nccl"])
+def test_a_handle_left_unwaited_at_the_end_of_a_body_raises(wire, ranks):
+    for res in ranks[0]:
+        out = res[f"{wire}_async"]
+        assert out["leak"] is not None
+        assert "never waited" in out["leak"] and "all-to-all" in out["leak"]
+        assert out["open_after"] == 0
+
+
 def test_the_spawn_finishes_well_inside_its_timeout(ranks):
     assert ranks[1] < SPAWN_TIMEOUT / 2
 
@@ -241,8 +352,11 @@ def wire():
 
 
 def test_wire_reads_its_events_when_it_is_read(wire):
-    wire._events += [("all-to-all", _Pending(0.0), _Pending(2.0)),
-                     ("all-reduce", _Pending(5.0), _Pending(5.5, False))]
+    # (kind, issue, wait, arrival): the all-to-all hid 1.5 of its 2 ms
+    wire._events += [("all-to-all", _Pending(0.0), _Pending(1.5),
+                      _Pending(2.0)),
+                     ("all-reduce", _Pending(5.0), _Pending(5.0),
+                      _Pending(5.5, False))]
     collectives._account("control", 0.25)
     snap = dict(wire)
     assert not wire._events
@@ -250,18 +364,25 @@ def test_wire_reads_its_events_when_it_is_read(wire):
                                              "all-reduce": 0.0005,
                                              "control": 0.25})
     assert snap["seconds"] == pytest.approx(0.2525)
+    assert snap["exposed_by_kind"] == pytest.approx({"all-to-all": 0.0005,
+                                                     "all-reduce": 0.0005,
+                                                     "control": 0.25})
+    assert snap["exposed"] == pytest.approx(0.251)
     assert snap["calls"] == 1           # the events' calls count at issue
     collectives.reset_wire()
     assert dict(wire) == {"calls": 0, "seconds": 0.0, "bytes": 0,
-                          "by_kind": {}}
+                          "by_kind": {}, "exposed": 0.0,
+                          "exposed_by_kind": {}}
     assert snap["by_kind"]              # a snapshot outlives a reset
 
 
 def test_wire_settles_only_finished_events_while_it_grows(wire):
     late = _Pending(3.0, False)
-    wire._events += [("all-gather", _Pending(0.0), _Pending(1.0)),
-                     ("all-gather", _Pending(1.0), late),
-                     ("all-gather", _Pending(3.0), _Pending(4.0))]
+    wire._events += [("all-gather", _Pending(0.0), _Pending(0.5),
+                      _Pending(1.0)),
+                     ("all-gather", _Pending(1.0), _Pending(2.0), late),
+                     ("all-gather", _Pending(3.0), _Pending(3.5),
+                      _Pending(4.0))]
     wire._settle(done_only=True)
     assert len(wire._events) == 2 and not late.waited
     assert wire._d["by_kind"] == pytest.approx({"all-gather": 0.001})

@@ -196,9 +196,17 @@ def test_wrappers_refuse_other_devices_and_types():
                     bin_nnz=(0,) * 8)
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.balanced_spmv(b, x[0])
+    y = torch.zeros((1, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.ell_spmv_onto(y, v, c, x)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.sell_spmv_onto(y, v[..., 0], c[..., 0], c[..., 0, :1],
+                           c[..., 0, :1], x, 8)
     assert set(ops.LAUNCHES) == {"fused_ell_spmv", "ell_spmv",
                                  "fused_sell_spmv", "sell_spmv",
                                  "balanced_spmv", "fused_ell_spmv_batched",
                                  "ell_spmv_batched",
                                  "fused_sell_spmv_batched",
-                                 "sell_spmv_batched"}
+                                 "sell_spmv_batched", "ell_spmv_onto",
+                                 "sell_spmv_onto", "ell_spmv_onto_batched",
+                                 "sell_spmv_onto_batched"}

@@ -8,6 +8,7 @@ Usage:  python tests/torch_reference.py OUT.npz [CASE ...]
         python tests/torch_reference.py OUT.npz --rect
         python tests/torch_reference.py OUT.npz --precond
         python tests/torch_reference.py OUT.npz --serve PORT_CKPT REF_CKPT
+        python tests/torch_reference.py OUT.npz --modes
 
 A case is ``FORMAT/N_NODExN_CORE`` (default: ``ell/4x2 sell/4x2 ell/1x4
 sell/1x4``) on ``graded_extruded_mesh_matrix(48, 6, seed=0)`` — the golden
@@ -85,6 +86,12 @@ chunk and checkpoints to ``REF_CKPT``; fresh sell engines restore
 drain: ``resume_ref/...`` and ``resume_port/...`` (``rids``, ``iters``,
 ``x``, ``residual``).
 
+``--modes`` dumps, on the golden matrix and ``x`` at 2×2 and 4×1, ell
+and sell, ``make_spmv`` (jnp) of ``x`` in distributed layout for each
+mode's own plan (``vector``/``task`` on equal rows, ``balanced`` on
+non-zeros, the default node partition), under
+``"modes/<format>/<n_node>x<n_core>/<mode>/y"``.
+
 ``--resilient PORT_CKPT REF_CKPT`` works on ``resilience_check``'s system
 (``graded_extruded_mesh_matrix(48, 6)``, RHS ``default_rng(1)``, jacobi,
 tol 1e-5, check_every 10).  Under ``"<solver>/<name>"``, a clean chunked
@@ -116,6 +123,8 @@ PLAN_META = ("n", "n_node", "n_core", "rc_pad", "nl_pad", "g_pad", "hs",
 SCALING_TOLS = (1e-6, 3e-6, 1e-5)
 #: --serve's per-request tolerances, cycled over the queue
 SERVE_TOLS = (1e-5, 3e-5, 1e-4)
+#: --modes' grids: hybrid and pure "MPI" on four devices
+MODE_GRIDS = ((2, 2), (4, 1))
 
 
 def dump_case(case: str, A, x, b) -> dict:
@@ -267,6 +276,21 @@ def dump_solvers(A, b) -> dict:
                             layout=layout)
         out[f"example/{name}/iters"] = np.asarray(
             solve(to_dist(be, layout, plan), tol=1e-5, maxiter=10_000)[1])
+    return out
+
+
+def dump_modes(A, x) -> dict:
+    from repro.core import build_spmv_plan, make_spmv, to_dist
+
+    out = {}
+    for n_node, n_core in MODE_GRIDS:
+        mesh = _mesh(n_node, n_core)
+        for fmt in ("ell", "sell"):
+            for mode in ("vector", "task", "balanced"):
+                plan, layout = build_spmv_plan(A, n_node, n_core, mode=mode,
+                                               format=fmt)
+                out[f"modes/{fmt}/{n_node}x{n_core}/{mode}/y"] = np.asarray(
+                    make_spmv(plan, mesh)(to_dist(x, layout, plan)))
     return out
 
 
@@ -455,6 +479,9 @@ def main() -> int:
     b = rng.standard_normal(A.n_rows).astype(np.float32)
     if cases == ["--solvers"]:
         np.savez(path, **dump_solvers(A, b))
+        return 0
+    if cases == ["--modes"]:
+        np.savez(path, **dump_modes(A, x))
         return 0
     arrays = {}
     for case in cases:
