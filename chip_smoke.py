@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--only nccl]
+    python3 chip_smoke.py [--only nccl|lm]
 
 Run from the root of a checkout; needs a CUDA card and ``nvcc``, and
 exits non-zero otherwise.  Every phase prints one JSON line; any failed
 check raises, so the exit code is not 0.  With no arguments every phase
 runs and one card suffices; ``--only nccl`` runs phases 1, 2, the matrix
 and 6m, then the kernels of 6m's path (at its shapes, against their plain
-versions) and the last lines, for a run on several cards.
+versions) and the last lines, for a run on several cards; ``--only lm``
+runs phases 1 and 6n, then the ``nvidia-smi`` line and the last line.
 
 1. device   the card's name and power limit (``nvidia-smi``) and the
             rates the bounds use (3.35 TB/s and 67 TFLOP/s f32 for H100
@@ -307,6 +308,37 @@ versions) and the last lines, for a run on several cards.
             and the service (phase ``procmesh``'s 5 requests: iterations
             ±1 of the virtual 2x2 service's, ``recompiles`` 0).  Nothing
             falls back to gloo: a failed NCCL start fails the phase;
+6n. lm      the LM serving path (``repro_torch.models``), which runs no
+            kernel of the port: its products are ``torch.matmul`` /
+            ``einsum``.  qwen2.5-3b at full width (36 layers, d 2048, 16/2
+            heads, QKV bias, tied embeddings, vocab 151,936 padded to
+            153,600; f32 weights, bf16 compute and cache): ``get_config``
+            → ``init_params`` (a seeded generator on the card; its
+            parameter count beside ``cfg.n_params()``) → ``init_cache``
+            (4 × 576) → ``prefill`` of 4 seeded prompts of 512 tokens →
+            32 greedy ``decode_step``s with a ``(B,)`` ``pos``.  Gates:
+            prefill's last logits bit for bit ``forward_train``'s last
+            position, else within 1e-5; the first step, once with the
+            ``(B,)`` ``pos`` and once with the scalar, bit for bit (logits
+            and cache) and within 2e-2·max(1, max|ref|) of
+            ``forward_train`` on the 513 tokens; every logit finite.
+            Printed: prefill ms (median of 3, CUDA events) and tokens/s;
+            decode ms per step (median of the 32, CUDA events), wall and
+            device ms per step, its bound (the parameters as stored plus
+            the KV cache read, over phase 1's memory rate), launches per
+            step and the top five device ops (``torch.profiler``, one
+            step), ``max_memory_allocated``, the card's name and power
+            limit.  Then each attention-family arch at ``reduced()`` (B 2,
+            S 32), one seeded weight set made on the CPU and copied to the
+            card: ``forward_train``, ``prefill`` and ``decode_step`` (from
+            the CPU's prefill cache) on the card within 1e-4·max(1,
+            max|ref|) of the CPU's at f32 compute (TF32 off) with MoE
+            routing equal, and within 2e-2 at bf16 (MoE at capacity
+            factor 64), where a routing swap must be a near-tie (log-ratio
+            of the k-th and (k+1)-th probabilities ≤ 2^-7) and each row is
+            held up to its first swapped token; the bf16 caches within the
+            bound or one bf16 step.  No port kernel may launch in the
+            phase.  Its tensors are freed before phase 6l's ranks spawn;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
@@ -2233,6 +2265,326 @@ def phase_cli(full_rows) -> None:
         check(launches[name] > 0, f"{name} never launched in phase cli")
 
 
+#: phase lm: the full-width model it serves and the requests
+LM_ARCH = "qwen2.5-3b"
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 512, 576, 32
+#: phase lm's reduced-size parity, card against CPU: the attention
+#: families (the recurrent two are not ported) and their request shape
+LM_REDUCED = ("yi-34b", "stablelm-1.6b", "qwen2.5-3b", "granite-3-8b",
+              "chameleon-34b", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+              "whisper-large-v3")
+LM_B, LM_S = 2, 32
+LM_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def lm_close(got, want, rel: float, what: str) -> float:
+    """``max|got - want|`` over ``rel·max(1, max|want|)`` (host float32
+    copies), raising when above 1."""
+    got, want = got.float().cpu(), want.float().cpu()
+    check(got.shape == want.shape, f"{what}: {got.shape} != {want.shape}")
+    check(finite(got), f"{what}: non-finite values")
+    scale = rel * max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max()) / scale
+    check(err <= 1.0, f"{what}: error {err * scale} > {scale}")
+    return err
+
+
+def finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def lm_close_cache(got: dict, want: dict, rel: float, what: str) -> int:
+    """Every bf16 cache tensor within one bf16 step at its largest
+    magnitude (2^-8·max|want|, the storage's resolution: a rounding flip
+    in an early layer's written slot moves later layers' keys and values
+    by ~1e-4 of their size), and at most 1e-3 of its elements past
+    ``rel·max(1, max|want|)``.  Returns the elements past it."""
+    flips = 0
+    for key in want:
+        if isinstance(want[key], dict):
+            flips += lm_close_cache(got[key], want[key], rel,
+                                    f"{what}.{key}")
+            continue
+        g, w = got[key].float().cpu(), want[key].float().cpu()
+        check(g.shape == w.shape, f"{what}.{key}: shape")
+        if not w.numel():
+            continue
+        top = float(w.abs().max())
+        bound = rel * max(1.0, top)
+        diff = (g - w).abs()
+        n = int((diff > bound).sum())
+        check(float(diff.max()) <= max(bound, top / 256), f"{what}.{key}: "
+              f"max {float(diff.max())} past one bf16 step of {top}")
+        check(n <= 1e-3 * w.numel(), f"{what}.{key}: {n} elements past "
+              f"{bound}")
+        flips += n
+    return flips
+
+
+def lm_run(model, cfg, toks, nxt, frames, cache=None) -> dict:
+    """forward_train, prefill and decode_step (scalar ``pos`` = S) on the
+    model's device, each with its routing; the decode starts from
+    ``cache`` when given (a prefill cache of the other device), else from
+    this run's prefill."""
+    from repro_torch.models import model as lm
+    from repro_torch.models.moe import record_routing
+
+    dev = next(model.parameters()).device
+    t, n = toks.to(dev), nxt.to(dev)
+    f = None if frames is None else frames.to(dev)
+    out = {}
+    with record_routing() as log:
+        out["forward"] = lm.forward_train(model, cfg, t, frames=f)
+    out["forward_routes"] = log
+    with record_routing() as log:
+        pre, last = lm.prefill(model, cfg, t, lm.init_cache(
+            cfg, LM_B, LM_S + 8, device=dev), frames=f)
+    out["prefill"], out["prefill_routes"] = (pre, last), log
+    start = pre if cache is None else cache
+    start = {k: ({kk: vv.to(dev).clone() for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dev).clone())
+             for k, v in start.items()}
+    with record_routing() as log:
+        out["decode"] = lm.decode_step(model, cfg, n, start, LM_S)
+    out["decode_routes"] = log
+    return out
+
+
+def lm_parity(name: str, compute: str, seed: int) -> dict:
+    """One reduced arch at one compute dtype, card against CPU on one
+    seeded weight set (made on the CPU, copied to the card)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+    from repro_torch.models.moe import NEAR_TIE, first_divergence, top_k_gap
+
+    cfg = dataclasses.replace(get_config(name).reduced(),
+                              compute_dtype=compute)
+    if cfg.moe is not None and compute == "bfloat16":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=64.0))
+    host = lm.init_params(cfg, torch.Generator().manual_seed(seed),
+                          device="cpu")
+    card = copy.deepcopy(host).to(DEVICE)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_B, LM_S)))
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_B, 1)))
+    frames = (torch.from_numpy(rng.standard_normal(
+        (LM_B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+        if cfg.is_encdec else None)
+    want = lm_run(host, cfg, toks, nxt, frames)
+    got = lm_run(card, cfg, toks, nxt, frames, cache=want["prefill"][0])
+    rel = LM_BOUND[compute]
+    row = {"arch": name, "compute": compute}
+    # where the routing parts (bf16 only), each row is held up to its
+    # first swapped token, and the swap must be a near-tie
+    keep = {}
+    for which in ("forward", "prefill", "decode"):
+        first = [None] * LM_B
+        if cfg.moe is not None:
+            K = cfg.moe.top_k
+            w = [r.gate_idx.reshape(LM_B, -1, K).cpu().numpy()
+                 for r in want[f"{which}_routes"]]
+            g = [r.gate_idx.reshape(LM_B, -1, K).cpu().numpy()
+                 for r in got[f"{which}_routes"]]
+            first = first_divergence(w, g)
+            for b, hit in enumerate(first):
+                if hit is None:
+                    continue
+                check(compute == "bfloat16", f"lm {name} {compute} "
+                      f"{which}: routing differs at row {b}, {hit}")
+                tok, layer = hit
+                probs = want[f"{which}_routes"][layer].probs
+                gap = float(top_k_gap(probs.reshape(LM_B, -1, probs.shape[-1])
+                                      [b, tok].cpu(), K))
+                check(gap <= NEAR_TIE, f"lm {name} {which}: routing "
+                      f"swap at row {b} {hit} with gap {gap}")
+            row[f"{which}_swaps"] = [h for h in first if h is not None]
+        keep[which] = [LM_S if h is None else h[0] for h in first]
+    errs = {}
+    (lg, aux), (lw, auxw) = got["forward"], want["forward"]
+    check(all(keep["forward"]), f"lm {name} {compute}: a row's first "
+          "token routed differently")
+    errs["forward"] = max(lm_close(lg[b, :e], lw[b, :e], rel,
+                                   f"lm {name} {compute} forward row {b}")
+                          for b, e in enumerate(keep["forward"]))
+    if not any(row.get("forward_swaps", ())):
+        for k in auxw:
+            lm_close(aux[k], auxw[k], rel, f"lm {name} {compute} {k}")
+    (cg, lastg), (cw, lastw) = got["prefill"], want["prefill"]
+    own = "self" if cfg.is_encdec else "kv"
+    flips = 0
+    for b, e in enumerate(keep["prefill"]):
+        if e == LM_S:
+            errs["prefill"] = max(errs.get("prefill", 0.0), lm_close(
+                lastg[b], lastw[b], rel, f"lm {name} {compute} prefill"))
+        flips += lm_close_cache(
+            {k: v[:, b, :e] for k, v in cg[own].items()},
+            {k: v[:, b, :e] for k, v in cw[own].items()},
+            rel, f"lm {name} {compute} prefill cache")
+    if cfg.is_encdec:
+        flips += lm_close_cache({k: cg[k] for k in ("cross_k", "cross_v")},
+                                {k: cw[k] for k in ("cross_k", "cross_v")},
+                                rel, f"lm {name} {compute} cross cache")
+    (dg, dcg), (dw, dcw) = got["decode"], want["decode"]
+    rows = [b for b, e in enumerate(keep["decode"]) if e == LM_S]
+    check(bool(rows), f"lm {name} {compute}: every decode row swapped")
+    errs["decode"] = max(lm_close(dg[b], dw[b], rel,
+                                  f"lm {name} {compute} decode")
+                         for b in rows)
+    # the cache the step wrote into, row by row
+    flips += lm_close_cache({k: v[:, rows] for k, v in dcg[own].items()},
+                            {k: v[:, rows] for k, v in dcw[own].items()},
+                            rel, f"lm {name} {compute} decode cache")
+    row.update(errors=errs, cache_flips=flips, bound=rel)
+    return row
+
+
+def phase_lm(bw: float, smi: str) -> None:
+    """6n: the attention-family LM serving path.  qwen2.5-3b at full
+    width through ``init_params`` → ``init_cache`` → ``prefill`` → greedy
+    ``decode_step``, with its gates; then every attention-family arch at
+    ``reduced()``, card against CPU.  Frees its tensors before returning
+    (phase procmesh spawns ranks on this card next)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import model as lm
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the f32 parity must run in f32")
+    reset_launches()
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=DEVICE)
+                            .manual_seed(SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    emit("lm", what="init", arch=LM_ARCH, params=n_params,
+         n_params_cfg=cfg.n_params(), param_bytes=param_bytes,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         seconds=round(time.perf_counter() - t0, 3))
+
+    B, P = LM_BATCH, LM_PROMPT
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P))).to(DEVICE)
+    cache = lm.init_cache(cfg, B, LM_MAX_LEN, device=DEVICE)
+    cache_bytes = nbytes(*cache["kv"].values())
+    prefill_ms = time_ms(lambda: lm.prefill(params, cfg, toks, cache),
+                         reps=3, warmup=1)
+    by_name, pre_launches = device_profile(
+        lambda: lm.prefill(params, cfg, toks, cache))
+    pre_top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    cache, last = lm.prefill(params, cfg, toks, cache)
+    full, _ = lm.forward_train(params, cfg, toks)
+    check(finite(last) and finite(full),
+          "lm: non-finite prefill / forward logits")
+    same = torch.equal(last[:, 0], full[:, -1])
+    diff = float((last[:, 0].float() - full[:, -1].float()).abs().max())
+    emit("lm", what="prefill", batch=B, prompt=P, max_len=LM_MAX_LEN,
+         ms=prefill_ms, tokens_per_s=B * P / (prefill_ms / 1e3),
+         device_ms=sum(by_name.values()), launches=pre_launches,
+         top5_device_ms={k[:80]: v for k, v in pre_top},
+         last_equals_forward_bits=same, last_vs_forward_max_abs=diff)
+    check(same or diff <= 1e-5, f"lm: prefill's last logits differ from "
+          f"forward_train's by {diff} (> 1e-5)")
+    del full
+
+    # the first greedy step twice, (B,) pos and scalar pos, same bits
+    nt = last[:, 0, :cfg.vocab].argmax(-1, keepdim=True)
+    pos = torch.full((B,), P, dtype=torch.int32, device=DEVICE)
+    other = {"kv": {k: v.clone() for k, v in cache["kv"].items()}}
+    first, cache = lm.decode_step(params, cfg, nt, cache, pos)
+    first_s, other = lm.decode_step(params, cfg, nt, other, P)
+    same = (torch.equal(first, first_s)
+            and all(torch.equal(cache["kv"][k], other["kv"][k])
+                    for k in ("k", "v")))
+    del other
+    ext, _ = lm.forward_train(params, cfg, torch.cat([toks, nt], 1))
+    ref = ext[:, -1].float()
+    del ext
+    err = float((first.float() - ref).abs().max())
+    bound = 2e-2 * max(1.0, float(ref.abs().max()))
+    emit("lm", what="first_step", scalar_pos_equals_vector_bits=same,
+         vs_forward_max_abs=err, bound=bound)
+    check(same, "lm: scalar-pos decode differs from (B,)-pos decode")
+    check(finite(first) and err <= bound,
+          f"lm: first decode step vs forward_train {err} > {bound}")
+
+    # the rest of the 32 greedy steps, each between two CUDA events
+    events, logits = [], first
+    ok = torch.isfinite(first).all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM_STEPS - 1):
+        nt = logits[:, :cfg.vocab].argmax(-1, keepdim=True)
+        pos = pos + 1
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        logits, cache = lm.decode_step(params, cfg, nt, cache, pos)
+        ev[1].record()
+        events.append(ev)
+        ok &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = [s.elapsed_time(e) for s, e in events]
+    check(bool(ok), "lm: non-finite decode logits")
+    nt = logits[:, :cfg.vocab].argmax(-1, keepdim=True)
+    by_name, launches = device_profile(
+        lambda: lm.decode_step(params, cfg, nt, cache, pos + 1))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    decode_ms = statistics.median(steps)
+    device_ms = sum(by_name.values())
+    bound_ms = (param_bytes + cache_bytes) / bw * 1e3
+    emit("lm", what="decode", steps=LM_STEPS, ms_per_step=decode_ms,
+         ms_min=min(steps), ms_max=max(steps),
+         wall_ms_per_step=wall / (LM_STEPS - 1) * 1e3,
+         device_ms_per_step=device_ms,
+         tokens_per_s=B / (decode_ms / 1e3), bound_ms=bound_ms,
+         bound_bytes=param_bytes + cache_bytes, bound_by="bytes",
+         of_bound=decode_ms / bound_ms, launches_per_step=launches,
+         top5_device_ms={k[:80]: v for k, v in top},
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         nvidia_smi=smi)
+    del params, cache, logits, first, last
+    torch.cuda.empty_cache()
+
+    # every arch runs; the phase fails after the last if any failed
+    failed = []
+    for name in LM_REDUCED:
+        for compute in ("float32", "bfloat16"):
+            try:
+                emit("lm_reduced", **lm_parity(name, compute, SEED))
+            except RuntimeError as e:
+                emit("lm_reduced", arch=name, compute=compute,
+                     failed=str(e))
+                failed.append(str(e))
+    torch.cuda.empty_cache()
+    check(not failed, f"lm: {len(failed)} reduced runs failed: {failed}")
+    port = {k: v for k, v in LAUNCHES.items() if v}
+    emit("lm", what="port_kernels", launched=port,
+         seconds=round(time.perf_counter() - t_phase, 3),
+         statement="the LM path launches none of the port's CUDA kernels: "
+                   "its products are torch.matmul / einsum (cuBLAS) and "
+                   "its elementwise work PyTorch's own kernels")
+    check(not port, f"lm: the port's SpMV kernels launched: {port}")
+
+
 #: phase procmesh's plans, run on 8 ranks of one card
 PROCMESH_PLANS = ("ell/4x2", "sell/4x2")
 PROCMESH_HALOFREE = ("ell/1x8", "sell/1x8")
@@ -3357,9 +3709,12 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["nccl"], default=None,
+    ap.add_argument("--only", choices=["nccl", "lm"], default=None,
                     help="nccl: the device, build and matrix phases, phase "
-                         "nccl, then the kernels and ok lines")
+                         "nccl, then the kernels and ok lines; lm: the "
+                         "device phase and phase lm, then the nvidia-smi "
+                         "and ok lines (the LM path has no kernel of its "
+                         "own)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3375,6 +3730,10 @@ def main(argv=None) -> int:
     from repro_torch.sparse import graded_extruded_mesh_matrix
 
     smi, bw, f32_peak = phase_device()
+    if args.only == "lm":
+        phase_lm(bw, smi)
+        last_lines(smi)
+        return 0
     phase_build()
     t0 = time.perf_counter()
     A = graded_extruded_mesh_matrix(N_SURFACE, LAYERS, seed=SEED)
@@ -3406,6 +3765,7 @@ def main(argv=None) -> int:
                                                       f32_peak)
     phase_analyze(plans)
     phase_cli(rows)
+    phase_lm(bw, smi)
     mesh_launches = phase_procmesh(A, plans, x, b, smi, two_level, service)
     phase_nccl(A, x, b, smi)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
@@ -3435,8 +3795,6 @@ def finish(entries: list, lib: float, smi: str) -> None:
     """The ``kernels`` line (``entries``: name, the TPU kernel it replaces,
     launches on the main path, its measured row), the ``nvidia-smi`` line
     and the last line."""
-    import torch
-
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": replaces, "launches": n,
@@ -3445,6 +3803,13 @@ def finish(entries: list, lib: float, smi: str) -> None:
          "library_ms": row.get("library_ms", lib)}
         for name, replaces, n, row in entries]}),
           flush=True)
+    last_lines(smi)
+
+
+def last_lines(smi: str) -> None:
+    """The ``nvidia-smi`` line and the last line."""
+    import torch
+
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,214 @@
+"""Shared model components: norms, RoPE, initialisers, blockwise attention.
+
+The port of ``src/repro/models/common.py``.  The math is plain functions on
+tensors; parameters live in the ``nn.Module``s of ``mlp``, ``attention``,
+``moe`` and ``model``.  Each function keeps the reference's casts, so the
+port rounds where the reference rounds: norms and RoPE in float32 and back,
+attention scores and ``P·V`` accumulated in float32 from tiles kept in the
+storage dtype.
+
+The reference's ``constrain_batch`` has no counterpart here: it pins an
+activation's batch dimension to an ambient JAX mesh and is the identity
+without one.  Sharding arrives with ``runtime/sharding.py`` in a later
+slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+__all__ = ["rms_norm", "layer_norm", "rope", "dense_init", "new_param",
+           "flash_attention", "decode_attention", "cdtype"]
+
+
+def cdtype(cfg) -> torch.dtype:
+    """The compute dtype a config names (``"bfloat16"`` → ``torch.bfloat16``)."""
+    return getattr(torch, cfg.compute_dtype)
+
+
+def dense_init(generator: torch.Generator, shape, scale: float | None = None,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """Truncated-normal fan-in init: a standard normal cut to ±2, times
+    ``scale`` (default ``1/sqrt(shape[0])``), drawn from ``generator`` on
+    its own device and placed on ``device`` (the generator's when
+    ``None``)."""
+    fan_in = shape[0]
+    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * s).to(device=device, dtype=dtype)
+
+
+def new_param(shape, device, generator: torch.Generator | None = None,
+              init: str | float | None = None) -> nn.Parameter:
+    """A float32 parameter of ``shape`` on ``device``: left empty without
+    a ``generator`` (``params_from_reference`` fills it), else ``init``
+    ``"ones"``, ``"zeros"``, or ``dense_init`` with ``init`` as its scale
+    (``None``: the fan-in scale).  Serving needs no gradient, so none is
+    kept."""
+    if generator is None or init == "ones" or init == "zeros":
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        if generator is not None:
+            t.fill_(1.0 if init == "ones" else 0.0)
+    else:
+        t = dense_init(generator, shape, scale=init, device=device)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.float() + b.float()).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary embedding.  x: (..., S, H, dh); positions: (..., S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device),
+                      -torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs            # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# blockwise (flash) attention, forward only: O(S * chunk) memory
+# --------------------------------------------------------------------- #
+def _tile_state(i, j, cq, ck, q_offset, causal):
+    """Static causal classification of a (q-chunk i, kv-chunk j) tile:
+    'skip' (fully masked), 'full' (no mask needed), or 'edge'."""
+    if not causal:
+        return "full"
+    q_lo = q_offset + i * cq
+    q_hi = q_lo + cq - 1
+    k_lo = j * ck
+    k_hi = k_lo + ck - 1
+    if q_hi < k_lo:
+        return "skip"
+    if q_lo >= k_hi:
+        return "full"
+    return "edge"
+
+
+def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` of two tiles in their storage dtype with a float32
+    result, as the reference's ``preferred_element_type=float32``: the
+    widening is exact, so each product is the tile's and the sum is
+    float32's."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def _flash_fwd_impl(q, k, v, causal, q_offset, cq, ck):
+    """The tile loops of the reference, unrolled in Python with the fully
+    masked causal tiles skipped.  Returns ``(out, lse)``."""
+    B, Sq, H, dh = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    nq, nk = Sq // cq, Sk // ck
+    scale = dh ** -0.5
+    neg = -1e30
+    dev = q.device
+    qs = q.reshape(B, nq, cq, KV, G, dh)
+    ks = k.reshape(B, nk, ck, KV, dh)
+    vs = v.reshape(B, nk, ck, KV, dh)
+
+    outs, lses = [], []
+    for i in range(nq):
+        # the scale is rounded to the storage dtype and the tile scaled there
+        qi = qs[:, i] * torch.tensor(scale, dtype=qs.dtype, device=dev)
+        qpos = q_offset + i * cq + torch.arange(cq, device=dev)
+        m = torch.full((B, KV, G, cq), neg, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KV, G, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, cq, dh), dtype=torch.float32,
+                          device=dev)
+        for j in range(nk):
+            state = _tile_state(i, j, cq, ck, q_offset, causal)
+            if state == "skip":
+                continue
+            kj = ks[:, j]                                  # (B,ck,KV,dh)
+            vj = vs[:, j]
+            s = _f32_einsum("bqvgd,bkvd->bvgqk", qi, kj)
+            if state == "edge":
+                kpos = j * ck + torch.arange(ck, device=dev)
+                mask = qpos[:, None] >= kpos[None, :]
+                s = torch.where(mask[None, None, None], s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + _f32_einsum(
+                "bvgqk,bkvd->bvgqd", p.to(vj.dtype), vj)
+            m = m_new
+        l = torch.clamp_min(l, 1e-30)
+        outs.append((acc / l[..., None]).permute(0, 3, 1, 2, 4))
+        lses.append(m + torch.log(l))
+    out = torch.cat(outs, dim=1).reshape(B, Sq, H, dh)
+    lse = torch.cat(lses, dim=-1)                          # (B,KV,G,Sq)
+    return out.to(q.dtype), lse
+
+
+def _pick_chunk(S: int, want: int) -> int:
+    """The chunk for a length-``S`` axis: the largest divisor of ``S`` at
+    or below ``min(max(want, S // 8), S)`` (513 → 171, whisper's 1500 →
+    500), so the tile count stays near 8 × 8 at any length."""
+    want = min(max(want, S // 8), S)
+    for c in range(want, 0, -1):
+        if S % c == 0:
+            return c
+    return S
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    chunk_q: int = 512, chunk_k: int = 1024) -> torch.Tensor:
+    """Chunked softmax attention with running max/sum renormalisation.
+
+    q: (B, Sq, H, dh);  k, v: (B, Sk, KV, dh) with H % KV == 0 (GQA).
+    Never materialises the (Sq, Sk) score matrix, only (chunk_q, chunk_k)
+    tiles.  Forward only: the backward (the reference's ``_flash_bwd``)
+    comes with training.
+    """
+    cq = _pick_chunk(q.shape[1], chunk_q)
+    ck = _pick_chunk(k.shape[1], chunk_k)
+    return _flash_fwd_impl(q, k, v, causal, int(q_offset), cq, ck)[0]
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     soft_cap: float | None = None) -> torch.Tensor:
+    """Single-step attention against a (B, S, KV, dh) cache, read whole in
+    float32.  ``pos``: (B,) current lengths; keys at index >= pos are
+    masked with -1e30."""
+    B, one, H, dh = q.shape
+    _, S, KV, _ = k_cache.shape
+    G = H // KV
+    scale = dh ** -0.5
+    qf = q.reshape(B, KV, G, dh).float() * scale
+    kf = k_cache.float()
+    s = torch.einsum("bvgd,bsvd->bvgs", qf, kf)           # (B,KV,G,S)
+    if soft_cap is not None:
+        s = soft_cap * torch.tanh(s / soft_cap)
+    mask = torch.arange(S, device=q.device)[None] < pos[:, None]   # (B,S)
+    s = torch.where(mask[:, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bvgs,bsvd->bvgd", p, v_cache.float())
+    return out.reshape(B, 1, H, dh).to(q.dtype)

@@ -40,8 +40,9 @@ def _imports(tree):
 
 def test_scan_covers_every_module_of_the_port():
     """The scans below walk the whole package: the verifier, the
-    collectives, the preconditioners, the test CLIs, the process mesh and
-    the layers above the solvers that run on it among them."""
+    collectives, the preconditioners, the test CLIs, the process mesh, the
+    layers above the solvers that run on it, the config registry and the
+    LM model code among them."""
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"analysis/__init__.py", "analysis/report.py",
             "analysis/plan_check.py", "analysis/kernel_check.py",
@@ -54,7 +55,9 @@ def test_scan_covers_every_module_of_the_port():
             "solvers/base.py", "solvers/__init__.py",
             "solvers/resilient.py", "serve/engine.py", "serve/plans.py",
             "serve/service.py", "launch/serve.py",
-            "testing/resilience_check.py", "testing/serve_check.py"} \
+            "testing/resilience_check.py", "testing/serve_check.py",
+            "configs/base.py", "configs/fluidity_cg.py", "models/model.py",
+            "models/attention.py", "models/moe.py"} \
         <= names
 
 
