@@ -309,10 +309,16 @@ runs phases 1 and 6n, then the ``nvidia-smi`` line and the last line.
             ±1 of the virtual 2x2 service's, ``recompiles`` 0).  Nothing
             falls back to gloo: a failed NCCL start fails the phase;
 6n. lm      the LM serving path (``repro_torch.models``), which runs no
-            kernel of the port: its products are ``torch.matmul`` /
-            ``einsum``.  qwen2.5-3b at full width (36 layers, d 2048, 16/2
+            kernel of the port: its products are ``torch.matmul``, its
+            scans and elementwise work PyTorch's own kernels.  Three
+            archs at full width and depth, one after the other, each
+            freed before the next: qwen2.5-3b (36 layers, d 2048, 16/2
             heads, QKV bias, tied embeddings, vocab 151,936 padded to
-            153,600; f32 weights, bf16 compute and cache): ``get_config``
+            153,600), xlstm-350m (21 mLSTM + 3 sLSTM blocks, d 1024, 4
+            heads of 512, no FFN) and zamba2-1.2b (32 Mamba2 blocks of 64
+            heads × 64, state 64, and one shared attention + SwiGLU block
+            applied 6 times, d 2048); f32 weights, bf16 compute, bf16 KV
+            and conv caches, f32 recurrent states.  Each: ``get_config``
             → ``init_params`` (a seeded generator on the card; its
             parameter count beside ``cfg.n_params()``) → ``init_cache``
             (4 × 576) → ``prefill`` of 4 seeded prompts of 512 tokens →
@@ -320,25 +326,33 @@ runs phases 1 and 6n, then the ``nvidia-smi`` line and the last line.
             prefill's last logits bit for bit ``forward_train``'s last
             position, else within 1e-5; the first step, once with the
             ``(B,)`` ``pos`` and once with the scalar, bit for bit (logits
-            and cache) and within 2e-2·max(1, max|ref|) of
-            ``forward_train`` on the 513 tokens; every logit finite.
-            Printed: prefill ms (median of 3, CUDA events) and tokens/s;
-            decode ms per step (median of the 32, CUDA events), wall and
-            device ms per step, its bound (the parameters as stored plus
-            the KV cache read, over phase 1's memory rate), launches per
-            step and the top five device ops (``torch.profiler``, one
-            step), ``max_memory_allocated``, the card's name and power
-            limit.  Then each attention-family arch at ``reduced()`` (B 2,
-            S 32), one seeded weight set made on the CPU and copied to the
-            card: ``forward_train``, ``prefill`` and ``decode_step`` (from
-            the CPU's prefill cache) on the card within 1e-4·max(1,
+            and every cache tensor) and within 2e-2·max(1, max|ref|) of
+            ``forward_train`` on the 513 tokens (xlstm, zamba: a fixed
+            1e-1, ``LM_BF16_RECURRENT``); the same step at f32 compute
+            with every cache tensor in f32, prefill and one step, within
+            1e-4·max(1, max|ref|) of the f32 ``forward_train``; every
+            logit finite.
+            Printed: prefill ms (median of 3, CUDA events) and tokens/s,
+            its device ms, launches and top five device ops; decode ms per
+            step (median of the 32, CUDA events, with min and max), wall
+            and device ms per step, its bound (the parameters as stored,
+            the KV caches read and the recurrent states read and written,
+            over phase 1's memory rate), launches per step and the top
+            five device ops (``torch.profiler``, one step),
+            ``max_memory_allocated``, the card's name and power limit.
+            Then every arch at ``reduced()`` (B 2, S 32), one seeded
+            weight set made on the CPU and copied to the card:
+            ``forward_train``, ``prefill`` and ``decode_step`` (from the
+            CPU's prefill cache) on the card within 1e-4·max(1,
             max|ref|) of the CPU's at f32 compute (TF32 off) with MoE
-            routing equal, and within 2e-2 at bf16 (MoE at capacity
-            factor 64), where a routing swap must be a near-tie (log-ratio
-            of the k-th and (k+1)-th probabilities ≤ 2^-7) and each row is
-            held up to its first swapped token; the bf16 caches within the
-            bound or one bf16 step.  No port kernel may launch in the
-            phase.  Its tensors are freed before phase 6l's ranks spawn;
+            routing equal, and within 2e-2 at bf16 (xlstm, zamba 1e-1;
+            MoE at capacity factor 64), where a routing swap must be a
+            near-tie (log-ratio of the k-th and (k+1)-th probabilities
+            ≤ 2^-7) and each row is held up to its first swapped token;
+            the recurrent states
+            (float32) at that bound, the bf16 caches (KV, conv) within it
+            or one bf16 step.  No port kernel may launch in the phase.
+            Its tensors are freed before phase 6l's ranks spawn;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
@@ -2265,28 +2279,50 @@ def phase_cli(full_rows) -> None:
         check(launches[name] > 0, f"{name} never launched in phase cli")
 
 
-#: phase lm: the full-width model it serves and the requests
-LM_ARCH = "qwen2.5-3b"
+#: phase lm: the full-width models it serves, one after the other, and
+#: the requests each gets
+LM_ARCHS = ("qwen2.5-3b", "xlstm-350m", "zamba2-1.2b")
 LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 512, 576, 32
-#: phase lm's reduced-size parity, card against CPU: the attention
-#: families (the recurrent two are not ported) and their request shape
+#: phase lm's reduced-size parity, card against CPU: every arch the
+#: port serves, and the request shape
 LM_REDUCED = ("yi-34b", "stablelm-1.6b", "qwen2.5-3b", "granite-3-8b",
               "chameleon-34b", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
-              "whisper-large-v3")
+              "whisper-large-v3", "xlstm-350m", "zamba2-1.2b")
 LM_B, LM_S = 2, 32
 LM_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the bf16-compute bound of the recurrent stacks (xlstm, zamba), card
+#: against CPU at reduced() and the first step against forward_train at
+#: full width: about twice the largest reading (4.7e-2, zamba's first
+#: step at full width on an H100; 4.2e-2, xlstm's forward against the
+#: reference's on the CPU; 2.7e-2, xlstm's forward card against CPU).
+#: Two bf16 runs of a deep recurrence on random weights drift a few %
+#: apart; the f32 checks beside each (1e-4) are what a wrong step fails
+LM_BF16_RECURRENT = 1e-1
+#: the cache groups that hold recurrent states (read and written whole at
+#: every step); every other cache tensor is a KV cache (read)
+LM_STATES = ("mlstm", "slstm", "mamba")
 
 
-def lm_close(got, want, rel: float, what: str) -> float:
-    """``max|got - want|`` over ``rel·max(1, max|want|)`` (host float32
-    copies), raising when above 1."""
+def lm_bound(cfg, compute: str) -> float:
+    """The relative bound of an arch's outputs at one compute dtype."""
+    if compute == "bfloat16" and cfg.block_pattern in ("xlstm", "zamba"):
+        return LM_BF16_RECURRENT
+    return LM_BOUND[compute]
+
+
+def lm_err(got, want, what: str) -> float:
+    """``max|got - want| / max(1, max|want|)`` on host float32 copies."""
     got, want = got.float().cpu(), want.float().cpu()
     check(got.shape == want.shape, f"{what}: {got.shape} != {want.shape}")
     check(finite(got), f"{what}: non-finite values")
-    scale = rel * max(1.0, float(want.abs().max()))
-    err = float((got - want).abs().max()) / scale
-    check(err <= 1.0, f"{what}: error {err * scale} > {scale}")
-    return err
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def lm_close(got, want, rel: float, what: str) -> float:
+    """``lm_err`` over ``rel``, raising when above 1."""
+    err = lm_err(got, want, what)
+    check(err <= rel, f"{what}: relative error {err} > {rel}")
+    return err / rel
 
 
 def finite(t) -> bool:
@@ -2295,30 +2331,65 @@ def finite(t) -> bool:
     return bool(torch.isfinite(t).all())
 
 
+def lm_leaves(cache: dict, path: tuple = ()):
+    """``(path, tensor)`` for every tensor of a (nested) cache."""
+    for key, v in cache.items():
+        if isinstance(v, dict):
+            yield from lm_leaves(v, path + (key,))
+        else:
+            yield path + (key,), v
+
+
+def lm_clone(cache: dict, device=None, dtype=None) -> dict:
+    """A copy of every tensor of a (nested) cache, on ``device`` and in
+    ``dtype`` (each tensor's own when None)."""
+    return {k: (lm_clone(v, device, dtype) if isinstance(v, dict)
+                else v.to(device=device, dtype=dtype).clone())
+            for k, v in cache.items()}
+
+
+def lm_rows(cache: dict, rows: list, end: int | None = None) -> dict:
+    """Batch rows ``rows`` of every cache group (layer dim first, batch
+    second): a KV tensor up to position ``end`` (whole when None), a
+    recurrent state whole.  Whisper's cross caches (top-level tensors) are
+    left out."""
+    return {g: {k: (v[:, rows] if g in LM_STATES or end is None
+                    else v[:, rows, :end]) for k, v in group.items()}
+            for g, group in cache.items() if isinstance(group, dict)}
+
+
 def lm_close_cache(got: dict, want: dict, rel: float, what: str) -> int:
-    """Every bf16 cache tensor within one bf16 step at its largest
-    magnitude (2^-8·max|want|, the storage's resolution: a rounding flip
-    in an early layer's written slot moves later layers' keys and values
-    by ~1e-4 of their size), and at most 1e-3 of its elements past
-    ``rel·max(1, max|want|)``.  Returns the elements past it."""
+    """Every float32 cache tensor (a recurrent state) within
+    ``rel·max(1, max|want|)``.  Every bf16 one (KV caches, the mamba conv
+    state) within one bf16 step at its largest magnitude (the storage's
+    resolution: a rounding flip in an early layer's written slot moves
+    later layers' keys and values by ~1e-4 of their size), and at most
+    1e-3 of its elements past ``rel·max(1, max|want|)``.  Returns the
+    bf16 elements past the bound."""
+    import torch
+
+    from repro_torch.testing.tolerance import bf16_step
+
+    gl, wl = list(lm_leaves(got)), list(lm_leaves(want))
+    check([p for p, _ in gl] == [p for p, _ in wl], f"{what}: layout")
     flips = 0
-    for key in want:
-        if isinstance(want[key], dict):
-            flips += lm_close_cache(got[key], want[key], rel,
-                                    f"{what}.{key}")
+    for (path, g), (_, w) in zip(gl, wl):
+        name = ".".join((what, *path))
+        check(g.dtype == w.dtype, f"{name}: dtype")
+        if w.dtype == torch.float32:
+            lm_close(g, w, rel, name)
             continue
-        g, w = got[key].float().cpu(), want[key].float().cpu()
-        check(g.shape == w.shape, f"{what}.{key}: shape")
+        g, w = g.float().cpu(), w.float().cpu()
+        check(g.shape == w.shape, f"{name}: shape")
         if not w.numel():
             continue
         top = float(w.abs().max())
         bound = rel * max(1.0, top)
         diff = (g - w).abs()
         n = int((diff > bound).sum())
-        check(float(diff.max()) <= max(bound, top / 256), f"{what}.{key}: "
-              f"max {float(diff.max())} past one bf16 step of {top}")
-        check(n <= 1e-3 * w.numel(), f"{what}.{key}: {n} elements past "
-              f"{bound}")
+        check(float(diff.max()) <= max(bound, bf16_step(top)),
+              f"{name}: max {float(diff.max())} past one bf16 step at {top}")
+        check(n <= 1e-3 * w.numel(), f"{name}: {n} elements past {bound}")
         flips += n
     return flips
 
@@ -2342,10 +2413,7 @@ def lm_run(model, cfg, toks, nxt, frames, cache=None) -> dict:
         pre, last = lm.prefill(model, cfg, t, lm.init_cache(
             cfg, LM_B, LM_S + 8, device=dev), frames=f)
     out["prefill"], out["prefill_routes"] = (pre, last), log
-    start = pre if cache is None else cache
-    start = {k: ({kk: vv.to(dev).clone() for kk, vv in v.items()}
-                 if isinstance(v, dict) else v.to(dev).clone())
-             for k, v in start.items()}
+    start = lm_clone(pre if cache is None else cache, dev)
     with record_routing() as log:
         out["decode"] = lm.decode_step(model, cfg, n, start, LM_S)
     out["decode_routes"] = log
@@ -2381,7 +2449,7 @@ def lm_parity(name: str, compute: str, seed: int) -> dict:
         if cfg.is_encdec else None)
     want = lm_run(host, cfg, toks, nxt, frames)
     got = lm_run(card, cfg, toks, nxt, frames, cache=want["prefill"][0])
-    rel = LM_BOUND[compute]
+    rel = lm_bound(cfg, compute)
     row = {"arch": name, "compute": compute}
     # where the routing parts (bf16 only), each row is held up to its
     # first swapped token, and the swap must be a near-tie
@@ -2412,59 +2480,50 @@ def lm_parity(name: str, compute: str, seed: int) -> dict:
     (lg, aux), (lw, auxw) = got["forward"], want["forward"]
     check(all(keep["forward"]), f"lm {name} {compute}: a row's first "
           "token routed differently")
-    errs["forward"] = max(lm_close(lg[b, :e], lw[b, :e], rel,
-                                   f"lm {name} {compute} forward row {b}")
-                          for b, e in enumerate(keep["forward"]))
     if not any(row.get("forward_swaps", ())):
         for k in auxw:
             lm_close(aux[k], auxw[k], rel, f"lm {name} {compute} {k}")
     (cg, lastg), (cw, lastw) = got["prefill"], want["prefill"]
-    own = "self" if cfg.is_encdec else "kv"
+    (dg, dcg), (dw, dcw) = got["decode"], want["decode"]
+    what = f"lm {name} {compute}"
+    errs["forward"] = max(lm_close(lg[b, :e], lw[b, :e], rel,
+                                   f"{what} forward row {b}")
+                          for b, e in enumerate(keep["forward"]))
     flips = 0
     for b, e in enumerate(keep["prefill"]):
         if e == LM_S:
             errs["prefill"] = max(errs.get("prefill", 0.0), lm_close(
-                lastg[b], lastw[b], rel, f"lm {name} {compute} prefill"))
-        flips += lm_close_cache(
-            {k: v[:, b, :e] for k, v in cg[own].items()},
-            {k: v[:, b, :e] for k, v in cw[own].items()},
-            rel, f"lm {name} {compute} prefill cache")
+                lastg[b], lastw[b], rel, f"{what} prefill"))
+        flips += lm_close_cache(lm_rows(cg, [b], e), lm_rows(cw, [b], e),
+                                rel, f"{what} prefill cache")
     if cfg.is_encdec:
         flips += lm_close_cache({k: cg[k] for k in ("cross_k", "cross_v")},
                                 {k: cw[k] for k in ("cross_k", "cross_v")},
-                                rel, f"lm {name} {compute} cross cache")
-    (dg, dcg), (dw, dcw) = got["decode"], want["decode"]
+                                rel, f"{what} cross cache")
     rows = [b for b, e in enumerate(keep["decode"]) if e == LM_S]
-    check(bool(rows), f"lm {name} {compute}: every decode row swapped")
-    errs["decode"] = max(lm_close(dg[b], dw[b], rel,
-                                  f"lm {name} {compute} decode")
+    check(bool(rows), f"{what}: every decode row swapped")
+    errs["decode"] = max(lm_close(dg[b], dw[b], rel, f"{what} decode")
                          for b in rows)
     # the cache the step wrote into, row by row
-    flips += lm_close_cache({k: v[:, rows] for k, v in dcg[own].items()},
-                            {k: v[:, rows] for k, v in dcw[own].items()},
-                            rel, f"lm {name} {compute} decode cache")
+    flips += lm_close_cache(lm_rows(dcg, rows), lm_rows(dcw, rows), rel,
+                            f"{what} decode cache")
     row.update(errors=errs, cache_flips=flips, bound=rel)
     return row
 
 
-def phase_lm(bw: float, smi: str) -> None:
-    """6n: the attention-family LM serving path.  qwen2.5-3b at full
-    width through ``init_params`` → ``init_cache`` → ``prefill`` → greedy
-    ``decode_step``, with its gates; then every attention-family arch at
-    ``reduced()``, card against CPU.  Frees its tensors before returning
-    (phase procmesh spawns ranks on this card next)."""
+def lm_full(name: str, bw: float, smi: str) -> None:
+    """One arch at full width and depth through ``init_params`` →
+    ``init_cache`` → ``prefill`` → greedy ``decode_step``, with its gates
+    and lines; frees its tensors before returning."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import model as lm
 
-    check(not torch.backends.cuda.matmul.allow_tf32,
-          "TF32 matmuls are on: the f32 parity must run in f32")
-    reset_launches()
-    t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(name)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2474,7 +2533,7 @@ def phase_lm(bw: float, smi: str) -> None:
     n_params = sum(p.numel() for p in params.parameters())
     param_bytes = sum(p.numel() * p.element_size()
                       for p in params.parameters())
-    emit("lm", what="init", arch=LM_ARCH, params=n_params,
+    emit("lm", what="init", arch=name, params=n_params,
          n_params_cfg=cfg.n_params(), param_bytes=param_bytes,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
          seconds=round(time.perf_counter() - t0, 3))
@@ -2483,7 +2542,10 @@ def phase_lm(bw: float, smi: str) -> None:
     rng = np.random.default_rng(SEED + 7)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P))).to(DEVICE)
     cache = lm.init_cache(cfg, B, LM_MAX_LEN, device=DEVICE)
-    cache_bytes = nbytes(*cache["kv"].values())
+    state_bytes = nbytes(*(t for path, t in lm_leaves(cache)
+                           if path[0] in LM_STATES))
+    kv_bytes = nbytes(*(t for path, t in lm_leaves(cache)
+                        if path[0] not in LM_STATES))
     prefill_ms = time_ms(lambda: lm.prefill(params, cfg, toks, cache),
                          reps=3, warmup=1)
     by_name, pre_launches = device_profile(
@@ -2492,40 +2554,62 @@ def phase_lm(bw: float, smi: str) -> None:
     cache, last = lm.prefill(params, cfg, toks, cache)
     full, _ = lm.forward_train(params, cfg, toks)
     check(finite(last) and finite(full),
-          "lm: non-finite prefill / forward logits")
+          f"lm {name}: non-finite prefill / forward logits")
     same = torch.equal(last[:, 0], full[:, -1])
     diff = float((last[:, 0].float() - full[:, -1].float()).abs().max())
-    emit("lm", what="prefill", batch=B, prompt=P, max_len=LM_MAX_LEN,
-         ms=prefill_ms, tokens_per_s=B * P / (prefill_ms / 1e3),
+    emit("lm", what="prefill", arch=name, batch=B, prompt=P,
+         max_len=LM_MAX_LEN, ms=prefill_ms,
+         tokens_per_s=B * P / (prefill_ms / 1e3),
          device_ms=sum(by_name.values()), launches=pre_launches,
          top5_device_ms={k[:80]: v for k, v in pre_top},
          last_equals_forward_bits=same, last_vs_forward_max_abs=diff)
-    check(same or diff <= 1e-5, f"lm: prefill's last logits differ from "
-          f"forward_train's by {diff} (> 1e-5)")
+    check(same or diff <= 1e-5, f"lm {name}: prefill's last logits differ "
+          f"from forward_train's by {diff} (> 1e-5)")
     del full
 
     # the first greedy step twice, (B,) pos and scalar pos, same bits
     nt = last[:, 0, :cfg.vocab].argmax(-1, keepdim=True)
     pos = torch.full((B,), P, dtype=torch.int32, device=DEVICE)
-    other = {"kv": {k: v.clone() for k, v in cache["kv"].items()}}
+    other = lm_clone(cache)
     first, cache = lm.decode_step(params, cfg, nt, cache, pos)
     first_s, other = lm.decode_step(params, cfg, nt, other, P)
     same = (torch.equal(first, first_s)
-            and all(torch.equal(cache["kv"][k], other["kv"][k])
-                    for k in ("k", "v")))
+            and all(torch.equal(a, b) for (_, a), (_, b)
+                    in zip(lm_leaves(cache), lm_leaves(other))))
     del other
-    ext, _ = lm.forward_train(params, cfg, torch.cat([toks, nt], 1))
-    ref = ext[:, -1].float()
-    del ext
-    err = float((first.float() - ref).abs().max())
-    bound = 2e-2 * max(1.0, float(ref.abs().max()))
-    emit("lm", what="first_step", scalar_pos_equals_vector_bits=same,
-         vs_forward_max_abs=err, bound=bound)
-    check(same, "lm: scalar-pos decode differs from (B,)-pos decode")
-    check(finite(first) and err <= bound,
-          f"lm: first decode step vs forward_train {err} > {bound}")
+    ext = torch.cat([toks, nt], 1)
+    full, _ = lm.forward_train(params, cfg, ext)
+    err = lm_err(first, full[:, -1], f"lm {name} first step")
+    rel = lm_bound(cfg, cfg.compute_dtype)
+    del full
+    # the peak memory of serving: the f32 check below is left out of it
+    peak = torch.cuda.max_memory_allocated()
+    # the same step at f32 compute with every cache tensor in f32 (the KV
+    # caches and the conv state serve in bf16): prefill and one step
+    # against forward_train on the 513 tokens, all at f32, where the two
+    # forms of the model agree to f32 rounding
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    c32, _ = lm.prefill(params, cfg32, toks, lm_clone(
+        lm.init_cache(cfg, B, LM_MAX_LEN, device=DEVICE),
+        dtype=torch.float32))
+    step32, _ = lm.decode_step(params, cfg32, nt, c32, pos)
+    del c32
+    full, _ = lm.forward_train(params, cfg32, ext)
+    err32 = lm_err(step32, full[:, -1], f"lm {name} f32 first step")
+    rel32 = LM_BOUND["float32"]
+    del full, step32
+    torch.cuda.reset_peak_memory_stats()
+    emit("lm", what="first_step", arch=name,
+         scalar_pos_equals_vector_bits=same, vs_forward_rel=err, bound=rel,
+         f32_vs_forward_rel=err32, f32_bound=rel32)
+    check(same, f"lm {name}: scalar-pos decode differs from (B,)-pos "
+          "decode")
+    check(finite(first) and err <= rel,
+          f"lm {name}: first decode step vs forward_train {err} > {rel}")
+    check(err32 <= rel32, f"lm {name}: f32 first decode step vs "
+          f"forward_train {err32} > {rel32}")
 
-    # the rest of the 32 greedy steps, each between two CUDA events
+    # the rest of the greedy steps, each between two CUDA events
     events, logits = [], first
     ok = torch.isfinite(first).all()
     torch.cuda.synchronize()
@@ -2543,26 +2627,48 @@ def phase_lm(bw: float, smi: str) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = [s.elapsed_time(e) for s, e in events]
-    check(bool(ok), "lm: non-finite decode logits")
+    check(bool(ok), f"lm {name}: non-finite decode logits")
     nt = logits[:, :cfg.vocab].argmax(-1, keepdim=True)
     by_name, launches = device_profile(
         lambda: lm.decode_step(params, cfg, nt, cache, pos + 1))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     decode_ms = statistics.median(steps)
     device_ms = sum(by_name.values())
-    bound_ms = (param_bytes + cache_bytes) / bw * 1e3
-    emit("lm", what="decode", steps=LM_STEPS, ms_per_step=decode_ms,
-         ms_min=min(steps), ms_max=max(steps),
+    # a step reads the parameters as stored and the KV caches, and reads
+    # and writes every recurrent state
+    bound_bytes = param_bytes + 2 * state_bytes + kv_bytes
+    bound_ms = bound_bytes / bw * 1e3
+    emit("lm", what="decode", arch=name, steps=LM_STEPS,
+         ms_per_step=decode_ms, ms_min=min(steps), ms_max=max(steps),
          wall_ms_per_step=wall / (LM_STEPS - 1) * 1e3,
          device_ms_per_step=device_ms,
          tokens_per_s=B / (decode_ms / 1e3), bound_ms=bound_ms,
-         bound_bytes=param_bytes + cache_bytes, bound_by="bytes",
+         bound_bytes=bound_bytes, state_bytes=state_bytes,
+         kv_bytes=kv_bytes, bound_by="bytes",
          of_bound=decode_ms / bound_ms, launches_per_step=launches,
          top5_device_ms={k[:80]: v for k, v in top},
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         max_memory_allocated=max(peak, torch.cuda.max_memory_allocated()),
          nvidia_smi=smi)
     del params, cache, logits, first, last
     torch.cuda.empty_cache()
+
+
+def phase_lm(bw: float, smi: str) -> None:
+    """6n: the LM serving path.  Each of ``LM_ARCHS`` at full width in
+    turn (``lm_full``); then every arch at ``reduced()``, card against
+    CPU.  Frees its tensors before returning (phase procmesh spawns ranks
+    on this card next)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the f32 parity (and the sLSTM's f32 "
+          "recurrent product) must run in f32")
+    reset_launches()
+    t_phase = time.perf_counter()
+    for name in LM_ARCHS:
+        lm_full(name, bw, smi)
 
     # every arch runs; the phase fails after the last if any failed
     failed = []
@@ -2580,8 +2686,8 @@ def phase_lm(bw: float, smi: str) -> None:
     emit("lm", what="port_kernels", launched=port,
          seconds=round(time.perf_counter() - t_phase, 3),
          statement="the LM path launches none of the port's CUDA kernels: "
-                   "its products are torch.matmul / einsum (cuBLAS) and "
-                   "its elementwise work PyTorch's own kernels")
+                   "its products are torch.matmul (cuBLAS) and its "
+                   "elementwise work and scans PyTorch's own kernels")
     check(not port, f"lm: the port's SpMV kernels launched: {port}")
 
 

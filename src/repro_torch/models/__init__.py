@@ -1,4 +1,3 @@
-"""The language-model code of the port, on its serving path: the attention
-families (dense, GQA, MoE, VLM, enc-dec) of ``repro_torch.configs``, from
-init to prefill and decode.  The recurrent families (xLSTM, Zamba) are not
-ported yet and raise ``NotImplementedError``."""
+"""The language-model code of the port, on its serving path: every family
+of ``repro_torch.configs`` (dense, GQA, MoE, VLM, enc-dec, and the
+recurrent xLSTM and Zamba stacks), from init to prefill and decode."""

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 __all__ = ["rms_norm", "layer_norm", "rope", "dense_init", "new_param",
-           "flash_attention", "decode_attention", "cdtype"]
+           "flash_attention", "decode_attention", "cdtype", "pad_seq"]
 
 
 def cdtype(cfg) -> torch.dtype:
@@ -42,19 +42,31 @@ def dense_init(generator: torch.Generator, shape, scale: float | None = None,
 
 
 def new_param(shape, device, generator: torch.Generator | None = None,
-              init: str | float | None = None) -> nn.Parameter:
+              init: str | float | torch.Tensor | None = None
+              ) -> nn.Parameter:
     """A float32 parameter of ``shape`` on ``device``: left empty without
     a ``generator`` (``params_from_reference`` fills it), else ``init``
-    ``"ones"``, ``"zeros"``, or ``dense_init`` with ``init`` as its scale
-    (``None``: the fan-in scale).  Serving needs no gradient, so none is
-    kept."""
-    if generator is None or init == "ones" or init == "zeros":
+    ``"ones"``, ``"zeros"``, a tensor of fixed values (the recurrent
+    blocks' gate biases and decay rates), or ``dense_init`` with ``init``
+    as its scale (``None``: the fan-in scale).  Serving needs no gradient,
+    so none is kept."""
+    if isinstance(init, torch.Tensor) and generator is not None:
+        assert tuple(init.shape) == tuple(shape), (init.shape, shape)
+        t = init.to(device=device, dtype=torch.float32)
+    elif generator is None or init == "ones" or init == "zeros":
         t = torch.empty(shape, dtype=torch.float32, device=device)
         if generator is not None:
             t.fill_(1.0 if init == "ones" else 0.0)
     else:
         t = dense_init(generator, shape, scale=init, device=device)
     return nn.Parameter(t, requires_grad=False)
+
+
+def pad_seq(t: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
+    """``t`` with ``pad`` steps of ``value`` appended along dim 1 (the
+    recurrent scans pad a sequence to a whole number of chunks)."""
+    return torch.cat([t, t.new_full((t.shape[0], pad, *t.shape[2:]),
+                                    value)], 1)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):

@@ -1,21 +1,24 @@
-"""Model assembly: init / train forward / loss / prefill / decode for the
-attention families.
+"""Model assembly: init / train forward / loss / prefill / decode for every
+family.
 
-The port of ``src/repro/models/model.py`` for two of its families:
+The port of ``src/repro/models/model.py``:
 
 ``attn``   uniform decoder-only stacks (dense, VLM, MoE);
+``xlstm``  period-8 pattern: 7 mLSTM blocks + 1 sLSTM block per period;
+``zamba``  Mamba2 backbone with one *shared* attention block (and its
+           SwiGLU) applied after every 5 mamba blocks, each application
+           with its own KV-cache layer, then a mamba tail;
 ``encdec`` whisper: encoder (bidirectional, stub audio frames in) + decoder
            (causal self-attn + cross-attn).
-
-The recurrent families (``xlstm``, ``zamba``) raise ``NotImplementedError``:
-they are ROADMAP's next item, A14b-2.
 
 Parameters are ``nn.Module``s named as the reference's nested dicts name
 them; a layer stack is an ``nn.ModuleList`` walked by a Python loop where
 the reference scans over a leading ``L`` dim.  The reference's ``_remat``
 belongs to training and has no counterpart yet.  Caches are dicts of
 tensors laid out as the reference's (a leading ``L`` dim); ``prefill`` and
-``decode_step`` write them in place and return them.
+``decode_step`` write them in place and return them.  The recurrent
+families' prefill is their training forward that also writes each
+layer's final state, so the two run the same arithmetic.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import xlstm as xl
 from repro_torch.models.common import cdtype, layer_norm, new_param, rms_norm
 from repro_torch.models.mlp import (gelu_mlp, init_gelu_mlp, init_swiglu,
                                     swiglu)
@@ -35,14 +40,6 @@ from repro_torch.util import resolve_device
 
 __all__ = ["Model", "init_params", "params_from_reference", "forward_train",
            "loss_fn", "init_cache", "prefill", "decode_step"]
-
-
-def _require_attention(cfg: ArchConfig) -> None:
-    if not cfg.is_encdec and cfg.block_pattern != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: block pattern {cfg.block_pattern!r} is not ported "
-            "yet (ROADMAP A14b-2: models/xlstm.py, models/mamba2.py and the "
-            "xlstm / zamba branches of model.py)")
 
 
 # --------------------------------------------------------------------- #
@@ -112,6 +109,100 @@ def _attn_block_decode(p: AttnBlock, cfg, x, cache, pos):
 
 
 # --------------------------------------------------------------------- #
+# the recurrent families: blocks and their order
+# --------------------------------------------------------------------- #
+class MixBlock(nn.Module):
+    """``ln`` and ``mix``: a recurrent mixer (``MLSTM``, ``SLSTM`` or
+    ``Mamba2``) behind its pre-norm, with a residual around both."""
+
+    def __init__(self, cfg, init_mix, device=None, generator=None):
+        super().__init__()
+        self.ln = new_param((cfg.d_model,), device, generator, "ones")
+        self.mix = init_mix(generator, cfg, device)
+
+
+def _xlstm_counts(cfg):
+    n_s = sum(1 for i in range(cfg.n_layers) if cfg.block_kind(i) == "slstm")
+    return cfg.n_layers - n_s, n_s
+
+
+def _zamba_counts(cfg):
+    n_attn = sum(1 for i in range(cfg.n_layers)
+                 if cfg.block_kind(i) == "attn_shared")
+    return cfg.n_layers - n_attn, n_attn
+
+
+#: zamba: mamba blocks per shared-attention application
+_ZAMBA_PER = 5
+
+
+def _recurrent_order(cfg):
+    """The layers in the reference's order, as ``(kind, index)``: index
+    ``i`` of ``<kind>_blocks`` and of the cache's ``kind`` group, or the
+    ``i``-th application of the shared attention (``"attn"``, KV layer
+    ``i``)."""
+    if cfg.block_pattern == "xlstm":
+        n_m, n_s = _xlstm_counts(cfg)
+        per = n_m // n_s if n_s else n_m
+        for j in range(max(n_s, 1)):
+            yield from (("mlstm", i) for i in range(j * per, (j + 1) * per))
+            if n_s:
+                yield "slstm", j
+    else:
+        n_m, n_a = _zamba_counts(cfg)
+        for j in range(n_a):
+            yield from (("mamba", i) for i in range(j * _ZAMBA_PER,
+                                                    (j + 1) * _ZAMBA_PER))
+            yield "attn", j
+        yield from (("mamba", i) for i in range(_ZAMBA_PER * n_a, n_m))
+
+
+#: kind -> (whole sequence, returning the final state; one-token step)
+_MIXERS = {
+    "mlstm": (xl.mlstm_prefill, xl.mlstm_decode),
+    "slstm": (xl.slstm_prefill, xl.slstm_decode),
+    "mamba": (m2.mamba2_prefill, m2.mamba2_decode),
+}
+
+
+def _recurrent_seq(params: "Model", cfg, x, cache: dict | None = None):
+    """The xlstm / zamba stack over a whole sequence: ``forward_train``,
+    and ``prefill`` with ``cache``, where each layer's final state (and
+    each shared-attention application's KV layer) is written."""
+    for kind, i in _recurrent_order(cfg):
+        if kind == "attn":
+            if cache is None:
+                x = _attn_block_train(params.shared_attn, cfg, x)[0]
+            else:
+                x, _ = _attn_block_prefill(params.shared_attn, cfg, x,
+                                           _layer(cache["attn_kv"], i))
+            continue
+        bp = getattr(params, f"{kind}_blocks")[i]
+        y, st = _MIXERS[kind][0](bp.mix, cfg,
+                                 rms_norm(x, bp.ln, cfg.norm_eps))
+        x = x + y
+        if cache is not None:
+            for key, t in st.items():
+                cache[kind][key][i].copy_(t)
+    return x
+
+
+def _recurrent_decode(params: "Model", cfg, x, cache: dict, pos):
+    """One token through the xlstm / zamba stack, each layer's state
+    written in place; ``pos`` reaches only the shared attention."""
+    for kind, i in _recurrent_order(cfg):
+        if kind == "attn":
+            x, _ = _attn_block_decode(params.shared_attn, cfg, x,
+                                      _layer(cache["attn_kv"], i), pos)
+            continue
+        bp = getattr(params, f"{kind}_blocks")[i]
+        y, _ = _MIXERS[kind][1](bp.mix, cfg, rms_norm(x, bp.ln, cfg.norm_eps),
+                                _layer(cache[kind], i))
+        x = x + y
+    return x
+
+
+# --------------------------------------------------------------------- #
 # whisper blocks (LayerNorm + biases, GELU MLP; learned positions on the
 # encoder, RoPE in the decoder's self-attention as in the reference)
 # --------------------------------------------------------------------- #
@@ -174,13 +265,15 @@ def _whisper_dec_block_train(bp: WhisperDecBlock, cfg, x, enc_out):
 class Model(nn.Module):
     """``embed`` (vocab_padded, d), ``final_norm``, ``lm_head`` (d,
     vocab_padded) unless embeddings are tied; ``blocks`` for the ``attn``
-    pattern; for whisper ``enc_pos``, ``enc_blocks``, ``enc_norm_w``/
-    ``_b``, ``dec_blocks`` and ``final_norm_b``.  Without a ``generator``
-    every parameter is left empty (``params_from_reference`` fills it)."""
+    pattern; ``mlstm_blocks`` and ``slstm_blocks`` for ``xlstm``;
+    ``mamba_blocks`` and the one ``shared_attn`` (an ``AttnBlock`` with
+    its FFN) for ``zamba``; for whisper ``enc_pos``, ``enc_blocks``,
+    ``enc_norm_w``/``_b``, ``dec_blocks`` and ``final_norm_b``.  Without
+    a ``generator`` every parameter is left empty
+    (``params_from_reference`` fills it)."""
 
     def __init__(self, cfg: ArchConfig, device=None, generator=None):
         super().__init__()
-        _require_attention(cfg)
         d, vp, L = cfg.d_model, cfg.vocab_padded, cfg.n_layers
         # fan-in scaled so tied-embedding heads produce O(1) logits
         self.embed = new_param((vp, d), device, generator, d ** -0.5)
@@ -197,10 +290,26 @@ class Model(nn.Module):
             self.dec_blocks = nn.ModuleList(
                 WhisperDecBlock(cfg, device, generator) for _ in range(L))
             self.final_norm_b = new_param((d,), device, generator, "zeros")
-        else:
+        elif cfg.block_pattern == "attn":
             self.blocks = nn.ModuleList(
                 _init_attn_block(generator, cfg, device=device)
                 for _ in range(L))
+        elif cfg.block_pattern == "xlstm":
+            n_m, n_s = _xlstm_counts(cfg)
+            self.mlstm_blocks = nn.ModuleList(
+                MixBlock(cfg, xl.init_mlstm, device, generator)
+                for _ in range(n_m))
+            self.slstm_blocks = nn.ModuleList(
+                MixBlock(cfg, xl.init_slstm, device, generator)
+                for _ in range(n_s))
+        elif cfg.block_pattern == "zamba":
+            n_m, _ = _zamba_counts(cfg)
+            self.mamba_blocks = nn.ModuleList(
+                MixBlock(cfg, m2.init_mamba2, device, generator)
+                for _ in range(n_m))
+            self.shared_attn = _init_attn_block(generator, cfg, device=device)
+        else:
+            raise ValueError(cfg.block_pattern)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -212,7 +321,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 #: the reference's layer-stacked subtrees and the port's module lists
-_STACKS = ("blocks", "enc_blocks", "dec_blocks")
+_STACKS = ("blocks", "enc_blocks", "dec_blocks", "mlstm_blocks",
+           "slstm_blocks", "mamba_blocks")
 
 
 def _flatten(tree: dict, prefix: str = ""):
@@ -226,11 +336,12 @@ def _flatten(tree: dict, prefix: str = ""):
 def params_from_reference(cfg: ArchConfig, tree: dict,
                           device=None) -> Model:
     """The port's model holding the numbers of the JAX package's
-    ``init_params`` tree (nested dicts of numpy arrays; a leaf under
-    ``blocks``/``enc_blocks``/``dec_blocks`` carries a leading ``L`` dim,
-    layer ``i`` going to ``<stack>.<i>.<rest>``).  Every leaf must map onto
-    one port parameter of the same shape and every port parameter must be
-    filled: anything left over on either side raises."""
+    ``init_params`` tree (nested dicts of numpy arrays; a leaf under one
+    of ``_STACKS`` carries a leading ``L`` dim, layer ``i`` going to
+    ``<stack>.<i>.<rest>``; zamba's ``shared_attn`` is one block).  Every
+    leaf must map onto one port parameter of the same shape and every
+    port parameter must be filled: anything left over on either side
+    raises."""
     model = Model(cfg, resolve_device(device))
     params = dict(model.named_parameters())
     filled: set[str] = set()
@@ -282,8 +393,8 @@ def _zero(x) -> torch.Tensor:
 
 def forward_train(params: Model, cfg: ArchConfig, tokens, frames=None):
     """tokens: (B, S) int -> logits (B, S, vocab_padded) in the compute
-    dtype; plus the MoE aux losses averaged over the layers."""
-    _require_attention(cfg)
+    dtype; plus the MoE aux losses averaged over the layers (zero
+    without MoE)."""
     x = _embed(params, cfg, tokens)
     if cfg.is_encdec:
         enc_out = _whisper_encode(params, cfg, frames)
@@ -292,6 +403,9 @@ def forward_train(params: Model, cfg: ArchConfig, tokens, frames=None):
         return _unembed(params, cfg, x), {"load_balance_loss": _zero(x),
                                           "router_z_loss": _zero(x)}
     lb, rz = _zero(x), _zero(x)
+    if cfg.block_pattern != "attn":
+        return _unembed(params, cfg, _recurrent_seq(params, cfg, x)), {
+            "load_balance_loss": lb, "router_z_loss": rz}
     for bp in params.blocks:
         x, aux = _attn_block_train(bp, cfg, x)
         if aux:
@@ -333,18 +447,35 @@ def loss_fn(params: Model, cfg: ArchConfig, batch: dict,
 # --------------------------------------------------------------------- #
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                kv_dtype=torch.bfloat16, device=None) -> dict:
-    """Zeroed caches in ``kv_dtype`` (bfloat16 whatever the compute
-    dtype, as in the reference): ``{"kv": {"k", "v"}}`` of (L, B, max_len,
-    KV, dh), or for whisper ``{"self": ..., "cross_k", "cross_v"}`` with
-    the cross pair over ``n_audio_frames``."""
-    _require_attention(cfg)
+    """Zeroed caches, the KV pairs in ``kv_dtype`` (bfloat16 whatever the
+    compute dtype, as in the reference): ``{"kv": {"k", "v"}}`` of (L, B,
+    max_len, KV, dh); for whisper ``{"self": ..., "cross_k", "cross_v"}``
+    with the cross pair over ``n_audio_frames``; for xlstm ``{"mlstm":
+    {"C", "n", "m"}, "slstm": {"c", "n", "m", "h"}}`` in float32; for
+    zamba ``{"mamba": {"h" float32, "conv" bfloat16}, "attn_kv": {"k",
+    "v"}}`` with one KV layer per shared-attention application.  Every
+    state carries a leading layer dim."""
     device = resolve_device(device)
 
     def zeros(n, s):
         return torch.zeros((n, batch, s, cfg.n_kv_heads, cfg.d_head),
                            dtype=kv_dtype, device=device)
 
+    def stacked(n, init_state):
+        # a layer's shapes and dtypes, read off a state on the meta device
+        return {k: torch.zeros((n, *t.shape), dtype=t.dtype, device=device)
+                for k, t in init_state(cfg, batch, "meta").items()}
+
     L = cfg.n_layers
+    if cfg.block_pattern == "xlstm":
+        n_m, n_s = _xlstm_counts(cfg)
+        return {"mlstm": stacked(n_m, xl.init_mlstm_state),
+                "slstm": stacked(n_s, xl.init_slstm_state)}
+    if cfg.block_pattern == "zamba":
+        n_m, n_a = _zamba_counts(cfg)
+        return {"mamba": stacked(n_m, m2.init_mamba2_state),
+                "attn_kv": {"k": zeros(n_a, max_len),
+                            "v": zeros(n_a, max_len)}}
     if cfg.is_encdec:
         return {"self": {"k": zeros(L, max_len), "v": zeros(L, max_len)},
                 "cross_k": zeros(L, cfg.n_audio_frames),
@@ -352,15 +483,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return {"kv": {"k": zeros(L, max_len), "v": zeros(L, max_len)}}
 
 
-def _layer(kv: dict, i: int) -> dict:
-    """Layer ``i``'s views of a stacked ``{"k", "v"}`` cache."""
-    return {"k": kv["k"][i], "v": kv["v"][i]}
+def _layer(group: dict, i: int) -> dict:
+    """Layer ``i``'s views of a stacked cache group (``{"k", "v"}`` or a
+    recurrent state)."""
+    return {k: t[i] for k, t in group.items()}
 
 
 def prefill(params: Model, cfg: ArchConfig, tokens, cache, frames=None):
     """Run the full prompt, writing the caches in place.  Returns
     ``(cache, last_logits)`` with last_logits (B, 1, vocab_padded)."""
-    _require_attention(cfg)
     x = _embed(params, cfg, tokens)
     if cfg.is_encdec:
         enc_out = _whisper_encode(params, cfg, frames)
@@ -384,6 +515,9 @@ def prefill(params: Model, cfg: ArchConfig, tokens, cache, frames=None):
                 cache[name][i] = (enc_out @ w.to(dt)).reshape(
                     B, Sk, cfg.n_kv_heads, cfg.d_head).to(cache[name].dtype)
         return cache, _unembed(params, cfg, x[:, -1:])
+    if cfg.block_pattern != "attn":
+        x = _recurrent_seq(params, cfg, x, cache)
+        return cache, _unembed(params, cfg, x[:, -1:])
     for i, bp in enumerate(params.blocks):
         x, _ = _attn_block_prefill(bp, cfg, x, _layer(cache["kv"], i))
     return cache, _unembed(params, cfg, x[:, -1:])
@@ -392,9 +526,8 @@ def prefill(params: Model, cfg: ArchConfig, tokens, cache, frames=None):
 def decode_step(params: Model, cfg: ArchConfig, tokens, cache, pos):
     """One-token step.  tokens: (B, 1) int; pos: the write position, an
     int or 0-d tensor for every row, or a (B,) tensor per row (the two give
-    the same bits).  Writes the caches in place; returns (logits (B,
-    vocab_padded), cache)."""
-    _require_attention(cfg)
+    the same bits; xlstm has no position and ignores it).  Writes the
+    caches in place; returns (logits (B, vocab_padded), cache)."""
     x = _embed(params, cfg, tokens)
     if cfg.is_encdec:
         for i, bp in enumerate(params.dec_blocks):
@@ -411,6 +544,9 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache, pos):
             h = h + y2
             x = h + gelu_mlp(bp.ffn, layer_norm(h, bp.ln3_w, bp.ln3_b,
                                                 cfg.norm_eps))
+        return _unembed(params, cfg, x)[:, 0], cache
+    if cfg.block_pattern != "attn":
+        x = _recurrent_decode(params, cfg, x, cache, pos)
         return _unembed(params, cfg, x)[:, 0], cache
     for i, bp in enumerate(params.blocks):
         x, _ = _attn_block_decode(bp, cfg, x, _layer(cache["kv"], i), pos)

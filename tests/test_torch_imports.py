@@ -42,7 +42,7 @@ def test_scan_covers_every_module_of_the_port():
     """The scans below walk the whole package: the verifier, the
     collectives, the preconditioners, the test CLIs, the process mesh, the
     layers above the solvers that run on it, the config registry and the
-    LM model code among them."""
+    LM model code (the recurrent mixers too) among them."""
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"analysis/__init__.py", "analysis/report.py",
             "analysis/plan_check.py", "analysis/kernel_check.py",
@@ -57,7 +57,8 @@ def test_scan_covers_every_module_of_the_port():
             "serve/service.py", "launch/serve.py",
             "testing/resilience_check.py", "testing/serve_check.py",
             "configs/base.py", "configs/fluidity_cg.py", "models/model.py",
-            "models/attention.py", "models/moe.py"} \
+            "models/attention.py", "models/moe.py", "models/mamba2.py",
+            "models/xlstm.py"} \
         <= names
 
 

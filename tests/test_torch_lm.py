@@ -40,7 +40,8 @@ The port's own properties: prefill's last logits equal ``forward_train``'s
 last position within the reference test's ``atol 1e-5`` (float32), and a
 scalar ``pos`` (int or 0-d tensor) and the same ``(B,)`` ``pos`` give the
 same bits, logits and caches.  ``init_params`` gives the reference's tree,
-leaf for leaf, and draws its distribution.
+leaf for leaf, and draws its distribution, for the recurrent archs too
+(whose serving path ``tests/test_torch_recurrent_lm.py`` holds).
 """
 import dataclasses
 
@@ -64,17 +65,21 @@ ATTN_ARCHS = ["yi-34b", "stablelm-1.6b", "qwen2.5-3b", "granite-3-8b",
 BF16_ARCHS = ["qwen2.5-3b", "whisper-large-v3"]
 BF16_MOE = "qwen3-moe-30b-a3b"
 RECURRENT = ["xlstm-350m", "zamba2-1.2b"]
+#: the reference's layer-stacked subtrees
+STACKS = ("blocks", "enc_blocks", "dec_blocks", "mlstm_blocks",
+          "slstm_blocks", "mamba_blocks")
 B, S, EXTRA = 2, 32, 8
 RAGGED = np.array([S, S - 5], np.int32)
 BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
-def _cfgs(name: str, compute: str):
-    """(port, reference) reduced configs at ``compute``; MoE at bf16 with
-    capacity factor 64."""
+def _cfgs(name: str, compute: str, **changes):
+    """(port, reference) reduced configs at ``compute`` with ``changes``;
+    MoE at bf16 with capacity factor 64."""
     cfgs = []
     for get in (get_config, ref_config):
-        cfg = dataclasses.replace(get(name).reduced(), compute_dtype=compute)
+        cfg = dataclasses.replace(get(name).reduced(), compute_dtype=compute,
+                                  **changes)
         if cfg.moe is not None and compute == "bfloat16":
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=64.0))
@@ -131,9 +136,9 @@ class Case:
     """One arch at one compute dtype: the reference's results and the
     port's, on the same weights and inputs."""
 
-    def __init__(self, name: str, compute: str, seed: int = 0):
+    def __init__(self, name: str, compute: str, seed: int = 0, **changes):
         self.name, self.compute = name, compute
-        cfg, cfg_r = _cfgs(name, compute)
+        cfg, cfg_r = _cfgs(name, compute, **changes)
         self.cfg = cfg
         rng = np.random.default_rng(seed)
         tree = _weights(cfg_r, compute, rng)
@@ -464,7 +469,7 @@ def test_scalar_and_vector_pos_same_bits(f32):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("name", ATTN_ARCHS)
+@pytest.mark.parametrize("name", ATTN_ARCHS + RECURRENT)
 def test_init_params_tree(name):
     """``init_params`` on the CPU has the reference's tree: each leaf
     (a stacked leaf per layer) is one port parameter of its shape, none
@@ -475,7 +480,7 @@ def test_init_params_tree(name):
     want = {}
     for path, s in jax.tree_util.tree_flatten_with_path(shapes)[0]:
         head, *rest = [str(p.key) for p in path]
-        if head in ("blocks", "enc_blocks", "dec_blocks"):
+        if head in STACKS:
             for i in range(s.shape[0]):
                 want[".".join([head, str(i), *rest])] = tuple(s.shape[1:])
         else:
@@ -496,12 +501,16 @@ def test_init_params_tree(name):
         pm.params_from_reference(cfg, extra, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "whisper-large-v3"])
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "whisper-large-v3",
+                                  *RECURRENT])
 def test_init_params_distribution(name):
     """The port draws each leaf as the reference does: ones and zeros
-    exactly, and each weight with the reference's spread (std) within 5%
-    and its bound (max |w|, two scales: the normal is cut at ±2) within 2%
-    (leaves of at least 4,096 entries)."""
+    exactly, every other fixed vector (the recurrent blocks' gate biases
+    -2 / +3 and ``b_gates`` blocks, the decay logs ``log(linspace(1,
+    16))``) within one float32 step (the two linspaces round apart on
+    some heads), and each weight with the reference's spread (std) within
+    5% and its bound (max |w|, two scales: the normal is cut at ±2) within
+    2% (leaves of at least 4,096 entries)."""
     cfg, cfg_r = _cfgs(name, "float32")
     ref = _tree_np(jax.jit(lambda k: rm.init_params(k, cfg_r))(
         jax.random.PRNGKey(0)))
@@ -510,38 +519,28 @@ def test_init_params_distribution(name):
     params = dict(model.named_parameters())
     for path, w in jax.tree_util.tree_flatten_with_path(ref)[0]:
         head, *rest = [str(p.key) for p in path]
-        if head in ("blocks", "enc_blocks", "dec_blocks"):
+        stacked = head in STACKS
+        if stacked:
             g = torch.stack([params[".".join([head, str(i), *rest])]
                              for i in range(w.shape[0])]).numpy()
         else:
             g = params[".".join([head, *rest])].numpy()
         if np.all(w == w.flat[0]):
             np.testing.assert_array_equal(g, w)
+        elif w.ndim - stacked == 1:
+            np.testing.assert_allclose(g, w, rtol=2 ** -23, atol=0)
         elif w.size >= 4096:
             assert abs(g.std() / w.std() - 1) < 0.05, path
             assert abs(np.abs(g).max() / np.abs(w).max() - 1) < 0.02, path
 
 
-@pytest.mark.parametrize("name", RECURRENT)
-def test_recurrent_families_raise(name):
-    cfg = get_config(name).reduced()
-    gen = torch.Generator().manual_seed(0)
-    calls = [lambda: pm.init_params(cfg, gen, device="cpu"),
-             lambda: pm.params_from_reference(cfg, {}, device="cpu"),
-             lambda: pm.init_cache(cfg, 1, 4, device="cpu"),
-             lambda: pm.forward_train(None, cfg, torch.zeros((1, 4), dtype=torch.long)),
-             lambda: pm.prefill(None, cfg, torch.zeros((1, 4), dtype=torch.long), {}),
-             lambda: pm.decode_step(None, cfg, torch.zeros((1, 1), dtype=torch.long), {}, 0)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A14b-2"):
-            call()
-
-
 def test_entry_points_default_to_the_card():
     """Without ``device`` the entry points place tensors on ``cuda``: on
-    this CPU-only machine they fail rather than fall back."""
-    cfg = get_config("qwen2.5-3b").reduced()
-    for call in (lambda: pm.init_cache(cfg, 1, 4),
-                 lambda: pm.init_params(cfg, torch.Generator())):
-        with pytest.raises((AssertionError, RuntimeError)):
-            call()
+    this CPU-only machine they fail rather than fall back (an attention
+    arch and both recurrent ones, whose caches are their states)."""
+    for name in ("qwen2.5-3b", *RECURRENT):
+        cfg = get_config(name).reduced()
+        for call in (lambda: pm.init_cache(cfg, 1, 4),
+                     lambda: pm.init_params(cfg, torch.Generator())):
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
