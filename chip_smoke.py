@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--only nccl|lm]
+    python3 chip_smoke.py [--only nccl|lm|train]
 
 Run from the root of a checkout; needs a CUDA card and ``nvcc``, and
 exits non-zero otherwise.  Every phase prints one JSON line; any failed
@@ -9,7 +9,8 @@ check raises, so the exit code is not 0.  With no arguments every phase
 runs and one card suffices; ``--only nccl`` runs phases 1, 2, the matrix
 and 6m, then the kernels of 6m's path (at its shapes, against their plain
 versions) and the last lines, for a run on several cards; ``--only lm``
-runs phases 1 and 6n, then the ``nvidia-smi`` line and the last line.
+(``--only train``) runs phases 1 and 6n (6o), then the ``nvidia-smi``
+line and the last line.
 
 1. device   the card's name and power limit (``nvidia-smi``) and the
             rates the bounds use (3.35 TB/s and 67 TFLOP/s f32 for H100
@@ -322,7 +323,7 @@ runs phases 1 and 6n, then the ``nvidia-smi`` line and the last line.
             → ``init_params`` (a seeded generator on the card; its
             parameter count beside ``cfg.n_params()``) → ``init_cache``
             (4 × 576) → ``prefill`` of 4 seeded prompts of 512 tokens →
-            32 greedy ``decode_step``s with a ``(B,)`` ``pos``.  Gates:
+            16 greedy ``decode_step``s with a ``(B,)`` ``pos``.  Gates:
             prefill's last logits bit for bit ``forward_train``'s last
             position, else within 1e-5; the first step, once with the
             ``(B,)`` ``pos`` and once with the scalar, bit for bit (logits
@@ -353,6 +354,40 @@ runs phases 1 and 6n, then the ``nvidia-smi`` line and the last line.
             (float32) at that bound, the bf16 caches (KV, conv) within it
             or one bf16 step.  No port kernel may launch in the phase.
             Its tensors are freed before phase 6l's ranks spawn;
+6o. train   the training path (``launch/train.py``, ``optim``, ``data``,
+            ``_remat``, the flash backward): no port kernel either.
+            (a) ``flash_attention``'s backward (``_Flash``) at qwen2.5-3b's
+            shape (B 4 × S 512, 16 / 2 heads of 128, causal) and
+            whisper's encoder's (B 4 × 1500 frames, 20 heads of 64, not
+            causal), f32 and bf16: dq / dk / dv against autograd through
+            the plain forward within 1e-4 / 2e-2 of max|ref|, and fwd+bwd
+            ms beside ``scaled_dot_product_attention``'s (a yardstick).
+            (b) Every arch at ``reduced()`` (B 2, S 32) in the
+            deterministic mode: ``loss_fn``'s f32 gradient card against
+            CPU on one seeded weight set (TF32 off), per reference leaf
+            within 1e-4·max|g leaf| + 1e-6·max|g|; ``remat_policy``
+            ``full`` / ``dots`` / ``none`` bit for bit on the card; every
+            bf16 gradient finite.  The trainer's CLI in this process
+            (xlstm-350m ``--reduced``, B 2, S 64, ``--device cuda``): 8
+            steps with a checkpoint every 4, then only ``step_000000004``
+            resumed to 8: losses 5-8 and the step-8 checkpoint's arrays
+            bit for bit.  (c) qwen2.5-3b at full width (3,089,346,560
+            parameters, f32 weights from a seeded generator on the card,
+            bf16 compute, ``remat`` ``full``), the port's
+            ``TokenPipeline`` at B 4 × S 512: a step of 1e-2 along
+            -g/|g| at init lowers the loss by 1e-2·|g| within 10%; then
+            ``make_train_step`` with AdamW (lr 3e-5, warmup 1) for 8
+            steps: every loss and grad norm finite, the last loss below
+            the first, a second run of steps 1-3 from the seed equal bit
+            for bit (losses and each parameter's int64 sum of its f32
+            bits), continued 6 steps that alternate without and with the
+            deterministic mode (its cost, within one run).
+            Printed: ms per step (median of steps 2-8, CUDA events),
+            tokens/s, device ms, launches and top five device ops over
+            one step (``torch.profiler``), the bound (8·N·T at the bf16
+            peak plus AdamW's 28·N bytes at phase 1's rate), 6·N·T over
+            ms × the bf16 peak, ``max_memory_allocated``, the card's name
+            and power limit.  Its tensors are freed before phase 6l;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
@@ -374,6 +409,7 @@ matrix (cuSPARSE) — the yardstick only; the port never calls it.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -869,18 +905,20 @@ def phase_full(A, plans, x, b) -> tuple[dict, dict]:
     return launches, rows
 
 
-def device_profile(fn, host: dict | None = None) -> tuple[dict, int]:
+def device_profile(fn, host: dict | None = None,
+                   cpu: bool = True) -> tuple[dict, int]:
     """``torch.profiler`` over one call of ``fn`` (then a synchronise):
     device ms by kernel name and the number of device launches (kernels,
     copies and fills on the card); ``host``, where given, gathers the
     host ms of the process-group calls by name (the ``c10d::``
-    operators)."""
+    operators).  ``cpu=False`` traces the card alone (a training step's
+    ~100k host operators take the profiler longer than the step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name, launches = {}, 0
@@ -2280,9 +2318,10 @@ def phase_cli(full_rows) -> None:
 
 
 #: phase lm: the full-width models it serves, one after the other, and
-#: the requests each gets
+#: the requests each gets (16 greedy steps: 32 put the whole script near
+#: its time limit once phase train came)
 LM_ARCHS = ("qwen2.5-3b", "xlstm-350m", "zamba2-1.2b")
-LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 512, 576, 32
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 512, 576, 16
 #: phase lm's reduced-size parity, card against CPU: every arch the
 #: port serves, and the request shape
 LM_REDUCED = ("yi-34b", "stablelm-1.6b", "qwen2.5-3b", "granite-3-8b",
@@ -2689,6 +2728,450 @@ def phase_lm(bw: float, smi: str) -> None:
                    "its products are torch.matmul (cuBLAS) and its "
                    "elementwise work and scans PyTorch's own kernels")
     check(not port, f"lm: the port's SpMV kernels launched: {port}")
+
+
+#: phase train: the arch trained at full width, its batch (B x S tokens
+#: from the port's TokenPipeline), steps, learning rate, the steps a
+#: second run repeats (bit for bit), and whether each of the steps it
+#: runs after them is in the deterministic mode: alternated, in ABBA
+#: order, so that the mode's cost is read within one run.  The gated
+#: run's rate is 3e-5: at 3e-4 the loss of the randomly initialised
+#: 36-layer model rose over the 8 steps (12.0 → 13.8 on an H100; 3e-5
+#: falls to 8.3)
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 512, 8, 3e-5
+TRAIN_REPEAT = 3
+TRAIN_ALTERNATE = (False, True, True, False, False, True)
+#: the step along -g/|g| of the full-width gradient check, and how far
+#: the loss's drop may be from TRAIN_EPS·|g| (relative)
+TRAIN_EPS, TRAIN_EPS_BOUND = 1e-2, 0.1
+#: phase train's flash-attention shapes: (B, S, H, KV, dh, causal) of
+#: qwen2.5-3b's attention at the trained batch, and whisper's encoder
+TRAIN_FLASH = {"qwen2.5-3b": (4, 512, 16, 2, 128, True),
+               "whisper-large-v3/encoder": (4, 1500, 20, 20, 64, False)}
+TRAIN_FLASH_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
+#: phase train's gradient bound, card against CPU at f32: per reference
+#: leaf, of its own max|g| plus of the tree's
+TRAIN_GRAD_LEAF, TRAIN_GRAD_TREE = 1e-4, 1e-6
+#: the CLI resume check: arch (at reduced()), batch, sequence, steps and
+#: the checkpoint it resumes from
+TRAIN_CLI = ("xlstm-350m", 2, 64, 8, 4)
+
+
+def bf16_peak(name: str) -> float:
+    """The card's dense bf16 rate (data sheets: H100 SXM 989 TFLOP/s,
+    PCIe 756)."""
+    return 756e12 if "pcie" in name.lower() else 989e12
+
+
+def train_flash(smi: str) -> None:
+    """6o (a): ``flash_attention``'s backward at full width against
+    autograd through its plain forward, at f32 and bf16, with fwd+bwd ms
+    beside ``scaled_dot_product_attention``'s (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import common as pc
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for label, (B, S, H, KV, dh, causal) in TRAIN_FLASH.items():
+        for dtype, rel in TRAIN_FLASH_BOUND.items():
+            dt = getattr(torch, dtype)
+            q, k, v, do = (torch.randn(s, generator=gen, device=DEVICE)
+                           .to(dt) for s in ((B, S, H, dh), (B, S, KV, dh),
+                                             (B, S, KV, dh), (B, S, H, dh)))
+            for t in (q, k, v):
+                t.requires_grad_(True)
+            # the model's chunking (attention_train's chunk_q / chunk_k)
+            cq, ck = pc._pick_chunk(S, 512), pc._pick_chunk(S, 1024)
+
+            def fn():
+                out = pc.flash_attention(q, k, v, causal=causal,
+                                         chunk_q=512, chunk_k=1024)
+                return torch.autograd.grad(out, (q, k, v), do)
+
+            def plain():
+                out = pc._flash_fwd_impl(q, k, v, causal, 0, cq, ck)[0]
+                return torch.autograd.grad(out, (q, k, v), do)
+
+            def sdpa():
+                out = F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=causal, enable_gqa=True)
+                return torch.autograd.grad(out, (q, k, v),
+                                           do.transpose(1, 2))
+
+            got, want = fn(), plain()
+            errs = {}
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                check(finite(g), f"train flash {label} {dtype}: {name} "
+                      "not finite")
+                top = float(w.float().abs().max())
+                errs[name] = float((g.float() - w.float()).abs().max()) / top
+                check(errs[name] <= rel, f"train flash {label} {dtype}: "
+                      f"{name} {errs[name]} of max|ref| > {rel}")
+            emit("train_flash", shape=label, batch=B, seq=S, heads=H,
+                 kv_heads=KV, d_head=dh, causal=causal, dtype=dtype,
+                 tiles=[S // cq, S // ck], rel_err=errs, bound=rel,
+                 fwd_bwd_ms=time_ms(fn, reps=5, warmup=1),
+                 plain_fwd_bwd_ms=time_ms(plain, reps=5, warmup=1),
+                 sdpa_fwd_bwd_ms=time_ms(sdpa, reps=5, warmup=1),
+                 nvidia_smi=smi)
+            del q, k, v, do, got, want
+    torch.cuda.empty_cache()
+
+
+def train_grads(model, cfg, batch) -> dict:
+    """``loss_fn``'s gradient in the reference's layout (numpy float32)
+    and the loss."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as lm
+
+    dev = next(model.parameters()).device
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = lm.loss_fn(model, cfg, {k: v.to(dev) for k, v in
+                                      batch.items()})
+    loss.backward()
+    grads = lm.to_reference({k: p.grad for k, p in
+                             model.named_parameters()})
+    for p in model.parameters():
+        p.grad = None
+    return {"loss": float(loss.detach()), "grads": grads,
+            "finite": all(bool(np.isfinite(a).all())
+                          for _, a in lm_leaves(grads))}
+
+
+def train_reduced(name: str) -> dict:
+    """6o (b) for one arch at ``reduced()``: the f32 gradient card against
+    CPU on one seeded weight set; ``full`` / ``dots`` / ``none`` bit for
+    bit on the card; every bf16 gradient finite."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+
+    base = get_config(name).reduced()
+    cfg = dataclasses.replace(base, compute_dtype="float32")
+    host = lm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                          device="cpu", trainable=True)
+    card = copy.deepcopy(host).to(DEVICE)
+    rng = np.random.default_rng(SEED + 11)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     (LM_B, LM_S)))}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (LM_B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+    want = train_grads(host, cfg, batch)
+    runs = {}
+    for policy in ("full", "dots", "none"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        runs[policy] = train_grads(card, c, batch)
+    got = runs[cfg.remat_policy]
+    wl = [a for _, a in lm_leaves(want["grads"])]
+    gl = [a for _, a in lm_leaves(got["grads"])]
+    check(len(wl) == len(gl), f"train {name}: gradient trees differ")
+    top = max(float(np.abs(w).max()) for w in wl)
+    worst = 0.0
+    for w, g in zip(wl, gl):
+        check(bool(np.isfinite(g).all()), f"train {name}: non-finite f32 "
+              "gradient on the card")
+        bound = TRAIN_GRAD_LEAF * float(np.abs(w).max()) \
+            + TRAIN_GRAD_TREE * top
+        worst = max(worst, float(np.abs(g - w).max()) / bound)
+    check(worst <= 1.0, f"train {name}: f32 gradient card vs CPU at "
+          f"{worst} of its bound")
+    same = {p: all(np.array_equal(a, b) for (_, a), b in zip(
+        lm_leaves(runs[p]["grads"]), gl)) for p in runs}
+    check(all(same.values()), f"train {name}: remat policies differ on the "
+          f"card: {same}")
+    bf = train_grads(card, dataclasses.replace(
+        cfg, compute_dtype="bfloat16"), batch)
+    check(bf["finite"] and np.isfinite(bf["loss"]),
+          f"train {name}: non-finite bf16 gradient")
+    del host, card
+    return {"arch": name, "remat_policy": cfg.remat_policy,
+            "f32_loss_card": got["loss"], "f32_loss_cpu": want["loss"],
+            "f32_grad_of_bound": worst, "remat_bits_equal": same,
+            "bf16_loss": bf["loss"], "bf16_grads_finite": bf["finite"]}
+
+
+def train_resume_cli() -> dict:
+    """6o (b): the trainer's CLI on the card (in process): an
+    uninterrupted run with a checkpoint every 4 steps, then only the
+    step-4 checkpoint resumed to the end; losses and the last
+    checkpoint's arrays bit for bit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.train import main as train_main
+
+    arch, B, S, steps, at = TRAIN_CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        def argv(d, extra=()):
+            return ["--arch", arch, "--reduced", "--steps", str(steps),
+                    "--batch", str(B), "--seq", str(S),
+                    "--ckpt-dir", f"{tmp}/{d}/ckpt",
+                    "--ckpt-every", str(at), "--log-every", str(steps),
+                    "--metrics-out", f"{tmp}/{d}.json", "--device", DEVICE,
+                    *extra]
+        t0 = time.perf_counter()
+        rc, _ = run_cli(train_main, argv("whole"))
+        check(rc == 0, f"train cli: uninterrupted run exit {rc}")
+        step_dir = f"step_{at:09d}"
+        shutil.copytree(f"{tmp}/whole/ckpt/{step_dir}",
+                        f"{tmp}/part/ckpt/{step_dir}")
+        rc, out = run_cli(train_main, argv("part", ["--resume"]))
+        check(rc == 0, f"train cli: resumed run exit {rc}")
+        check(any(f"resumed from step {at}" in ln for ln in out),
+              "train cli: the run did not resume")
+        with open(f"{tmp}/whole.json") as f:
+            whole = json.load(f)
+        with open(f"{tmp}/part.json") as f:
+            part = json.load(f)
+        last = f"step_{steps:09d}"
+        a = np.load(f"{tmp}/whole/ckpt/{last}/arrays.npz")
+        b = np.load(f"{tmp}/part/ckpt/{last}/arrays.npz")
+        arrays_same = a.files == b.files and all(
+            a[k].tobytes() == b[k].tobytes() for k in a.files)
+        losses_same = whole["losses"][at:] == part["losses"]
+        n_arrays = len(a.files)
+    check(losses_same, f"train cli: resumed losses {part['losses']} != "
+          f"{whole['losses'][at:]}")
+    check(arrays_same, "train cli: the resumed run's last checkpoint "
+          "differs from the uninterrupted run's")
+    check(whole["loss_decreased"], "train cli: the loss did not fall")
+    return {"arch": arch, "batch": B, "seq": S, "steps": steps,
+            "resumed_from": at, "losses": whole["losses"],
+            "losses_bits_equal": losses_same,
+            "checkpoint_bits_equal": arrays_same, "arrays": n_arrays,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def train_checksums(model) -> list:
+    """Each parameter's int64 sum of its float32 bits."""
+    import torch
+
+    return torch.stack([p.detach().view(torch.int32).to(torch.int64).sum()
+                        for p in model.parameters()]).tolist()
+
+
+def train_full(bw: float, smi: str) -> None:
+    """6o (c): qwen2.5-3b trained at full width.  First the gradient at
+    init along its own direction (the loss must fall by ``eps·|g|`` for a
+    step of ``eps`` along ``-g/|g|``); then 8 steps of ``make_train_step``
+    (AdamW) in the deterministic mode; a second run of the first steps
+    from the same seed, bit for bit, continued with steps that alternate
+    without and with the deterministic mode (its cost)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import deterministic, make_train_step
+    from repro_torch.models import model as lm
+    from repro_torch.optim import AdamWConfig, global_norm, init_opt
+
+    cfg = get_config(TRAIN_ARCH)
+    pipe = TokenPipeline(vocab=cfg.vocab, global_batch=TRAIN_B,
+                         seq_len=TRAIN_S, seed=SEED)
+    batches = [torch.from_numpy(pipe.batch_at(i)).to(DEVICE)
+               for i in range(TRAIN_STEPS + 1)]
+
+    def init():
+        return lm.init_params(cfg, torch.Generator(device=DEVICE)
+                              .manual_seed(SEED), device=DEVICE,
+                              trainable=True)
+
+    def start():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = init()
+        opt = init_opt(dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        return model, opt, time.perf_counter() - t0
+
+    def run(step_fn, model, opt, first, n):
+        """Steps ``first`` .. ``first + n - 1``: losses, grad norms and
+        CUDA-event ms of each."""
+        losses, norms, ms = [], [], []
+        for i in range(first, first + n):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            model, opt, loss, met = step_fn(model, opt,
+                                            {"tokens": batches[i]})
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(loss))
+            norms.append(float(met["grad_norm"]))
+        return model, opt, losses, norms, ms
+
+    # the gradient at full width: a step of TRAIN_EPS along -g/|g| lowers
+    # the loss by TRAIN_EPS·|g| to first order
+    clock = {"start": time.perf_counter()}
+
+    def lap(name):
+        now = time.perf_counter()
+        clock[name], clock["start"] = now - clock["start"], now
+    with deterministic():
+        model = init()
+        first = {"tokens": batches[0]}
+        # the loss alone: its metrics' graph would keep the parameters
+        loss0 = lm.loss_fn(model, cfg, first)[0]
+        loss0.backward()
+        gnorm = float(global_norm({k: p.grad for k, p in
+                                   model.named_parameters()}))
+        with torch.no_grad():
+            for p in model.parameters():
+                p.sub_(TRAIN_EPS / gnorm * p.grad)
+                p.grad = None
+            loss1 = float(lm.loss_fn(model, cfg, first)[0])
+        loss0 = float(loss0.detach())
+    del model
+    torch.cuda.empty_cache()
+    lap("direction")
+    drop, predicted = loss0 - loss1, TRAIN_EPS * gnorm
+    emit("train", what="direction", arch=TRAIN_ARCH, loss=loss0,
+         grad_norm=gnorm, eps=TRAIN_EPS, loss_drop=drop,
+         predicted_drop=predicted, bound=TRAIN_EPS_BOUND)
+    check(abs(drop - predicted) <= TRAIN_EPS_BOUND * predicted,
+          f"train {TRAIN_ARCH}: a step of {TRAIN_EPS} along the gradient "
+          f"lowered the loss by {drop}, not {predicted}")
+
+    step_fn = make_train_step(cfg, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, init_s = start()
+    n_params = sum(p.numel() for p in model.parameters())
+    with deterministic():
+        model, opt, losses, norms, ms = run(step_fn, model, opt, 0,
+                                            TRAIN_REPEAT)
+        sums = train_checksums(model)
+        model, opt, l2, n2, ms2 = run(step_fn, model, opt, TRAIN_REPEAT,
+                                      TRAIN_STEPS - TRAIN_REPEAT)
+        losses, norms, ms = losses + l2, norms + n2, ms + ms2
+        peak = torch.cuda.max_memory_allocated()
+        lap("run")
+        box = {}
+
+        def one_step():
+            box["r"] = step_fn(model, opt, {"tokens": batches[TRAIN_STEPS]})
+        by_name, launches = device_profile(one_step, cpu=False)
+        lap("profile")
+    del box, model, opt
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train {TRAIN_ARCH}: non-finite loss or grad norm: {losses} "
+          f"{norms}")
+    check(losses[-1] < losses[0], f"train {TRAIN_ARCH}: the loss did not "
+          f"fall: {losses}")
+
+    # the same seed again: the first steps bit for bit, then on with and
+    # without the deterministic mode in turn, for its cost
+    model, opt, _ = start()
+    with deterministic():
+        model, opt, again, _, _ = run(step_fn, model, opt, 0, TRAIN_REPEAT)
+    sums_again = train_checksums(model)
+    alt = {True: [], False: []}
+    for i, det in enumerate(TRAIN_ALTERNATE, TRAIN_REPEAT):
+        with deterministic() if det else contextlib.nullcontext():
+            model, opt, _, _, (t,) = run(step_fn, model, opt, i, 1)
+        alt[det].append(t)
+    del model, opt
+    torch.cuda.empty_cache()
+    lap("repeat")
+    check(again == losses[:TRAIN_REPEAT], f"train {TRAIN_ARCH}: a second "
+          f"run's losses {again} != {losses[:TRAIN_REPEAT]}")
+    check(sums_again == sums, f"train {TRAIN_ARCH}: a second run's "
+          "parameter checksums differ")
+
+    tokens = TRAIN_B * TRAIN_S
+    step_ms = statistics.median(ms[1:])
+    peak_bf16 = bf16_peak(torch.cuda.get_device_name(0))
+    flops_ms = 8 * n_params * tokens / peak_bf16 * 1e3
+    adamw_ms = 28 * n_params / bw * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    emit("train", what="full", arch=TRAIN_ARCH, params=n_params,
+         remat=cfg.remat, remat_policy=cfg.remat_policy,
+         compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype,
+         batch=TRAIN_B, seq=TRAIN_S, tokens_per_step=tokens, lr=TRAIN_LR,
+         warmup_steps=1, init_seconds=round(init_s, 3), losses=losses,
+         grad_norms=norms, loss_decreased=losses[-1] < losses[0],
+         step_ms=ms, ms_per_step=step_ms,
+         tokens_per_s=tokens / (step_ms / 1e3),
+         repeat_losses_bits_equal=again == losses[:TRAIN_REPEAT],
+         repeat_checksums_equal=sums_again == sums,
+         repeat_steps=TRAIN_REPEAT,
+         alternate_steps=list(range(TRAIN_REPEAT + 1, TRAIN_REPEAT + 1
+                                    + len(TRAIN_ALTERNATE))),
+         alternate_deterministic=list(TRAIN_ALTERNATE),
+         deterministic_ms=alt[True], nondeterministic_ms=alt[False],
+         deterministic_cost=statistics.median(alt[True])
+         / statistics.median(alt[False]) - 1,
+         device_ms_per_step=sum(by_name.values()),
+         launches_per_step=launches,
+         top5_device_ms=dict(top),
+         bound_ms=flops_ms + adamw_ms, bound_flops_ms=flops_ms,
+         bound_adamw_ms=adamw_ms, bf16_peak_tflop_s=peak_bf16 / 1e12,
+         share_of_peak=6 * n_params * tokens / (step_ms / 1e3 * peak_bf16),
+         max_memory_allocated=peak, nvidia_smi=smi,
+         seconds={k: round(v, 3) for k, v in clock.items() if k != "start"})
+
+
+def phase_train(bw: float, smi: str) -> None:
+    """6o: training.  (a) the flash backward at full width; (b) every
+    arch at ``reduced()``: the f32 gradient card against CPU, the remat
+    policies bit for bit, bf16 gradients finite, and the trainer's CLI
+    resumed bit for bit; (c) qwen2.5-3b trained at full width.  No port
+    kernel may launch.  Frees its tensors before returning."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import deterministic
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the f32 gradient parity must run in f32")
+    reset_launches()
+    t_phase = time.perf_counter()
+    train_flash(smi)
+    emit("train", what="flash_seconds",
+         seconds=round(time.perf_counter() - t_phase, 3))
+    failed = []
+    with deterministic():
+        for name in LM_REDUCED:
+            try:
+                t0 = time.perf_counter()
+                row = train_reduced(name)
+                emit("train_reduced", **row,
+                     seconds=round(time.perf_counter() - t0, 3))
+            except RuntimeError as e:
+                emit("train_reduced", arch=name, failed=str(e))
+                failed.append(str(e))
+    torch.cuda.empty_cache()
+    check(not failed, f"train: {len(failed)} reduced archs failed: "
+          f"{failed}")
+    emit("train_cli", **train_resume_cli())
+    train_full(bw, smi)
+    port = {k: v for k, v in LAUNCHES.items() if v}
+    emit("train", what="port_kernels", launched=port,
+         seconds=round(time.perf_counter() - t_phase, 3),
+         statement="the training path launches none of the port's CUDA "
+                   "kernels: its products are torch.matmul (cuBLAS), the "
+                   "rest PyTorch's own kernels")
+    check(not port, f"train: the port's SpMV kernels launched: {port}")
 
 
 #: phase procmesh's plans, run on 8 ranks of one card
@@ -3815,12 +4298,12 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["nccl", "lm"], default=None,
+    ap.add_argument("--only", choices=["nccl", "lm", "train"], default=None,
                     help="nccl: the device, build and matrix phases, phase "
-                         "nccl, then the kernels and ok lines; lm: the "
-                         "device phase and phase lm, then the nvidia-smi "
-                         "and ok lines (the LM path has no kernel of its "
-                         "own)")
+                         "nccl, then the kernels and ok lines; lm / train: "
+                         "the device phase and phase lm / train, then the "
+                         "nvidia-smi and ok lines (the LM path has no "
+                         "kernel of its own)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3833,11 +4316,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    from repro_torch.launch.train import CUBLAS_WORKSPACE
     from repro_torch.sparse import graded_extruded_mesh_matrix
 
+    # before the process's first cuBLAS call: the trainer's deterministic
+    # mode (phase train) needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     smi, bw, f32_peak = phase_device()
-    if args.only == "lm":
-        phase_lm(bw, smi)
+    if args.only in ("lm", "train"):
+        (phase_lm if args.only == "lm" else phase_train)(bw, smi)
         last_lines(smi)
         return 0
     phase_build()
@@ -3872,6 +4359,7 @@ def main(argv=None) -> int:
     phase_analyze(plans)
     phase_cli(rows)
     phase_lm(bw, smi)
+    phase_train(bw, smi)
     mesh_launches = phase_procmesh(A, plans, x, b, smi, two_level, service)
     phase_nccl(A, x, b, smi)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])

@@ -5,12 +5,13 @@ Layout:  <dir>/step_000123/
            arrays.npz        — one entry per flattened leaf (host numpy)
 
 The layout, the leaf order and the manifest's ``treedef`` string are the
-JAX package's (``repro.checkpoint.store``) for the trees a solve persists —
-dicts (keys in sorted order), lists, tuples and ``None`` over array leaves —
-so a checkpoint written by either package loads in the other.  Arrays are
-saved whole (host-gathered), so a run may resume on another plan.  A save
-is atomic: it writes a tmp directory, fsyncs the manifest, then renames.
-Saves can run on a host thread (:class:`AsyncSaver`).
+JAX package's (``repro.checkpoint.store``) for the trees a solve or a
+trainer persists — dicts (keys in sorted order), lists, tuples,
+``NamedTuple``s (the optimizer's ``OptState``) and ``None`` over array
+leaves — so a checkpoint written by either package loads in the other.
+Arrays are saved whole (host-gathered), so a run may resume on another
+plan.  A save is atomic: it writes a tmp directory, fsyncs the manifest,
+then renames.  Saves can run on a host thread (:class:`AsyncSaver`).
 """
 from __future__ import annotations
 
@@ -59,12 +60,18 @@ def _flatten(tree) -> tuple[list, str, object]:
     elif isinstance(tree, (list, tuple)):
         parts = [_flatten(v) for v in tree]
         kind = type(tree)
-
-        def rebuild(it):
-            return kind(p[2](it) for p in parts)
         inner = ", ".join(p[1] for p in parts)
-        text = (f"[{inner}]" if kind is list
-                else f"({inner},)" if len(parts) == 1 else f"({inner})")
+        if hasattr(kind, "_fields"):        # a NamedTuple: jax's CustomNode
+
+            def rebuild(it):
+                return kind(*(p[2](it) for p in parts))
+            text = f"CustomNode(namedtuple[{kind.__name__}], [{inner}])"
+        else:
+
+            def rebuild(it):
+                return kind(p[2](it) for p in parts)
+            text = (f"[{inner}]" if kind is list
+                    else f"({inner},)" if len(parts) == 1 else f"({inner})")
     else:
         return [tree], "*", lambda it: next(it)
     return [leaf for p in parts for leaf in p[0]], text, rebuild

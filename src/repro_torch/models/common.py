@@ -7,6 +7,11 @@ port rounds where the reference rounds: norms and RoPE in float32 and back,
 attention scores and ``P·V`` accumulated in float32 from tiles kept in the
 storage dtype.
 
+``flash_attention``'s backward is the reference's ``_flash_bwd``, a
+``torch.autograd.Function`` that recomputes each score tile (no S² state
+is kept); ``prefix_sum`` is the scans' ``cumsum`` in a form that is
+deterministic on the card.
+
 The reference's ``constrain_batch`` has no counterpart here: it pins an
 activation's batch dimension to an ambient JAX mesh and is the identity
 without one.  Sharding arrives with ``runtime/sharding.py`` in a later
@@ -20,7 +25,8 @@ import torch
 from torch import nn
 
 __all__ = ["rms_norm", "layer_norm", "rope", "dense_init", "new_param",
-           "flash_attention", "decode_attention", "cdtype", "pad_seq"]
+           "flash_attention", "decode_attention", "cdtype", "pad_seq",
+           "prefix_sum"]
 
 
 def cdtype(cfg) -> torch.dtype:
@@ -49,7 +55,8 @@ def new_param(shape, device, generator: torch.Generator | None = None,
     ``"ones"``, ``"zeros"``, a tensor of fixed values (the recurrent
     blocks' gate biases and decay rates), or ``dense_init`` with ``init``
     as its scale (``None``: the fan-in scale).  Serving needs no gradient,
-    so none is kept."""
+    so none is kept: a trainer turns it on (``init_params(...,
+    trainable=True)``)."""
     if isinstance(init, torch.Tensor) and generator is not None:
         assert tuple(init.shape) == tuple(shape), (init.shape, shape)
         t = init.to(device=device, dtype=torch.float32)
@@ -60,6 +67,20 @@ def new_param(shape, device, generator: torch.Generator | None = None,
     else:
         t = dense_init(generator, shape, scale=init, device=device)
     return nn.Parameter(t, requires_grad=False)
+
+
+def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The inclusive prefix sum of ``x`` along ``dim``, as a float64
+    product with a lower-triangular matrix of ones, rounded once to
+    ``x``'s dtype.  The scans' ``cumsum`` in this form is deterministic on
+    the card (CUDA's float ``cumsum`` has no deterministic kernel, so a
+    deterministic trainer refuses it), is never TF32, and its gradient is
+    the transposed product."""
+    n = x.shape[dim]
+    tri = torch.tril(torch.ones((n, n), dtype=torch.float64,
+                                device=x.device))
+    y = tri @ x.movedim(dim, -2).double()
+    return y.to(x.dtype).movedim(-2, dim)
 
 
 def pad_seq(t: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
@@ -103,7 +124,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 # --------------------------------------------------------------------- #
-# blockwise (flash) attention, forward only: O(S * chunk) memory
+# blockwise (flash) attention: O(S * chunk) memory, a custom backward
+# that recomputes score tiles instead of storing them
 # --------------------------------------------------------------------- #
 def _tile_state(i, j, cq, ck, q_offset, causal):
     """Static causal classification of a (q-chunk i, kv-chunk j) tile:
@@ -121,12 +143,19 @@ def _tile_state(i, j, cq, ck, q_offset, causal):
     return "edge"
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation dtype of tiles stored in ``dtype``: float32, or
+    float64 for float64 tiles (``gradcheck``)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``einsum`` of two tiles in their storage dtype with a float32
     result, as the reference's ``preferred_element_type=float32``: the
     widening is exact, so each product is the tile's and the sum is
-    float32's."""
-    return torch.einsum(eq, a.float(), b.float())
+    float32's (float64's for float64 tiles)."""
+    dt = _acc(a.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 def _flash_fwd_impl(q, k, v, causal, q_offset, cq, ck):
@@ -138,7 +167,7 @@ def _flash_fwd_impl(q, k, v, causal, q_offset, cq, ck):
     nq, nk = Sq // cq, Sk // ck
     scale = dh ** -0.5
     neg = -1e30
-    dev = q.device
+    dev, acc_dt = q.device, _acc(q.dtype)
     qs = q.reshape(B, nq, cq, KV, G, dh)
     ks = k.reshape(B, nk, ck, KV, dh)
     vs = v.reshape(B, nk, ck, KV, dh)
@@ -148,10 +177,9 @@ def _flash_fwd_impl(q, k, v, causal, q_offset, cq, ck):
         # the scale is rounded to the storage dtype and the tile scaled there
         qi = qs[:, i] * torch.tensor(scale, dtype=qs.dtype, device=dev)
         qpos = q_offset + i * cq + torch.arange(cq, device=dev)
-        m = torch.full((B, KV, G, cq), neg, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, KV, G, cq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, KV, G, cq, dh), dtype=torch.float32,
-                          device=dev)
+        m = torch.full((B, KV, G, cq), neg, dtype=acc_dt, device=dev)
+        l = torch.zeros((B, KV, G, cq), dtype=acc_dt, device=dev)
+        acc = torch.zeros((B, KV, G, cq, dh), dtype=acc_dt, device=dev)
         for j in range(nk):
             state = _tile_state(i, j, cq, ck, q_offset, causal)
             if state == "skip":
@@ -178,6 +206,83 @@ def _flash_fwd_impl(q, k, v, causal, q_offset, cq, ck):
     return out.to(q.dtype), lse
 
 
+def _flash_bwd(causal, q_offset, cq, ck, res, dout):
+    """The reference's ``_flash_bwd``: recompute each (cq, ck) score tile
+    from ``lse``, skip the fully masked causal tiles, store no S² state.
+    ``delta = Σ dout·out`` in float32; ``ds`` and ``p`` rounded to the
+    storage dtype before their products; float32 accumulation, ``dq``
+    scaled by the softmax scale; the results in the inputs' dtypes."""
+    q, k, v, out, lse = res
+    B, Sq, H, dh = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    nq, nk = Sq // cq, Sk // ck
+    scale = dh ** -0.5
+    dev, acc_dt = q.device, _acc(q.dtype)
+    qs = q.reshape(B, nq, cq, KV, G, dh)
+    ks = k.reshape(B, nk, ck, KV, dh)
+    vs = v.reshape(B, nk, ck, KV, dh)
+    dos = dout.reshape(B, nq, cq, KV, G, dh)
+    lses = lse.reshape(B, KV, G, nq, cq)
+    # delta = sum_d dout * out  (B, KV, G, Sq)
+    delta = (dout.to(acc_dt) * out.to(acc_dt)).sum(-1).permute(
+        0, 2, 1).reshape(B, KV, G, nq, cq)
+
+    dqs = []
+    dks = [torch.zeros((B, ck, KV, dh), dtype=acc_dt, device=dev)
+           for _ in range(nk)]
+    dvs = [torch.zeros((B, ck, KV, dh), dtype=acc_dt, device=dev)
+           for _ in range(nk)]
+    for i in range(nq):
+        qi = qs[:, i] * torch.tensor(scale, dtype=qs.dtype, device=dev)
+        doi = dos[:, i]                                    # (B,cq,KV,G,dh)
+        li = lses[:, :, :, i]
+        di = delta[:, :, :, i]
+        qpos = q_offset + i * cq + torch.arange(cq, device=dev)
+        dq_i = torch.zeros((B, cq, KV, G, dh), dtype=acc_dt, device=dev)
+        for j in range(nk):
+            state = _tile_state(i, j, cq, ck, q_offset, causal)
+            if state == "skip":
+                continue
+            kj = ks[:, j]
+            vj = vs[:, j]
+            s = _f32_einsum("bqvgd,bkvd->bvgqk", qi, kj)
+            if state == "edge":
+                kpos = j * ck + torch.arange(ck, device=dev)
+                mask = (qpos[:, None] >= kpos[None, :])[None, None, None]
+                s = torch.where(mask, s, -1e30)
+            p = torch.exp(s - li[..., None])               # (B,KV,G,cq,ck)
+            dp = _f32_einsum("bqvgd,bkvd->bvgqk", doi, vj)
+            ds = p * (dp - di[..., None])
+            dsl = ds.to(kj.dtype)
+            pl = p.to(doi.dtype)
+            dq_i = dq_i + _f32_einsum("bvgqk,bkvd->bqvgd", dsl, kj) * scale
+            dks[j] = dks[j] + _f32_einsum("bvgqk,bqvgd->bkvd", dsl, qi)
+            dvs[j] = dvs[j] + _f32_einsum("bvgqk,bqvgd->bkvd", pl, doi)
+        dqs.append(dq_i)
+    dq = torch.cat(dqs, dim=1).reshape(B, Sq, H, dh)
+    dk = torch.cat(dks, dim=1).reshape(B, Sk, KV, dh)
+    dv = torch.cat(dvs, dim=1).reshape(B, Sk, KV, dh)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """``_flash_fwd_impl`` forward, saving ``q, k, v, out, lse``;
+    ``_flash_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, cq, ck):
+        out, lse = _flash_fwd_impl(q, k, v, causal, q_offset, cq, ck)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.tiles = (causal, q_offset, cq, ck)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.tiles, ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None, None
+
+
 def _pick_chunk(S: int, want: int) -> int:
     """The chunk for a length-``S`` axis: the largest divisor of ``S`` at
     or below ``min(max(want, S // 8), S)`` (513 → 171, whisper's 1500 →
@@ -196,12 +301,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, dh);  k, v: (B, Sk, KV, dh) with H % KV == 0 (GQA).
     Never materialises the (Sq, Sk) score matrix, only (chunk_q, chunk_k)
-    tiles.  Forward only: the backward (the reference's ``_flash_bwd``)
-    comes with training.
+    tiles, in the forward and in the backward (``_flash_bwd``).
     """
     cq = _pick_chunk(q.shape[1], chunk_q)
     ck = _pick_chunk(k.shape[1], chunk_k)
-    return _flash_fwd_impl(q, k, v, causal, int(q_offset), cq, ck)[0]
+    return _Flash.apply(q, k, v, causal, int(q_offset), cq, ck)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

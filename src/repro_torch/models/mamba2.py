@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import new_param, pad_seq, rms_norm
+from repro_torch.models.common import (new_param, pad_seq, prefix_sum,
+                                       rms_norm)
 from repro_torch.util import resolve_device
 
 __all__ = ["Mamba2", "init_mamba2", "mamba2_train", "mamba2_prefill",
@@ -111,7 +112,7 @@ def _ssd_chunked(xh, dt, a, Bm, Cm, chunk: int, h0=None):
     Bc = Bm.reshape(Bb, nc, Q, N).float()
     Cc = Cm.reshape(Bb, nc, Q, N).float()
 
-    cum = torch.cumsum(la, dim=2)                         # (B,nc,Q,H)
+    cum = prefix_sum(la, 2)                               # (B,nc,Q,H)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Q,Qs,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
     # mask BEFORE exp: exp of the (positive) upper-triangle entries would

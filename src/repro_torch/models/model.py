@@ -13,20 +13,26 @@ The port of ``src/repro/models/model.py``:
 
 Parameters are ``nn.Module``s named as the reference's nested dicts name
 them; a layer stack is an ``nn.ModuleList`` walked by a Python loop where
-the reference scans over a leading ``L`` dim.  The reference's ``_remat``
-belongs to training and has no counterpart yet.  Caches are dicts of
-tensors laid out as the reference's (a leading ``L`` dim); ``prefill`` and
-``decode_step`` write them in place and return them.  The recurrent
+the reference scans over a leading ``L`` dim (``params_from_reference``
+and ``params_to_reference`` convert).  While a gradient is recorded each
+block runs under ``_remat``, the reference's ``jax.checkpoint`` as
+``torch.utils.checkpoint``.  Caches are dicts of tensors laid out as the
+reference's (a leading ``L`` dim); ``prefill`` and ``decode_step`` write
+them in place, record no graph, and return them.  The recurrent
 families' prefill is their training forward that also writes each
 layer's final state, so the two run the same arithmetic.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -38,8 +44,53 @@ from repro_torch.models.mlp import (gelu_mlp, init_gelu_mlp, init_swiglu,
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.util import resolve_device
 
-__all__ = ["Model", "init_params", "params_from_reference", "forward_train",
-           "loss_fn", "init_cache", "prefill", "decode_step"]
+__all__ = ["Model", "init_params", "params_from_reference",
+           "params_to_reference", "to_reference", "named_from_reference",
+           "reference_like", "reference_ndim", "load_named",
+           "forward_train", "loss_fn", "init_cache", "prefill",
+           "decode_step"]
+
+
+# --------------------------------------------------------------------- #
+# rematerialisation (the reference's _remat)
+# --------------------------------------------------------------------- #
+#: the products whose outputs the ``dots`` policy keeps, as
+#: ``jax.checkpoint_policies.checkpoint_dots`` keeps every dot's
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """``fn`` as the reference's ``_remat`` wraps a block: under
+    ``torch.utils.checkpoint`` (non-reentrant) recomputing the whole
+    block in the backward (``remat_policy`` ``full``), or all but the
+    products' outputs (``dots``); unwrapped with ``remat`` off or policy
+    ``none``.  The wrap applies only while a gradient is recorded through
+    a tensor argument (the residual stream): serving and value-only
+    calls run ``fn`` as it is."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+    elif cfg.remat_policy == "full":
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}")
+
+    def wrapped(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in args)):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return wrapped
 
 
 # --------------------------------------------------------------------- #
@@ -165,25 +216,40 @@ _MIXERS = {
 }
 
 
+def _mix_block_train(kind: str, bp: MixBlock, cfg, x):
+    return x + _MIXERS[kind][0](bp.mix, cfg,
+                                rms_norm(x, bp.ln, cfg.norm_eps))[0]
+
+
+def _shared_attn_train(p: AttnBlock, cfg, x):
+    return _attn_block_train(p, cfg, x)[0]
+
+
 def _recurrent_seq(params: "Model", cfg, x, cache: dict | None = None):
-    """The xlstm / zamba stack over a whole sequence: ``forward_train``,
-    and ``prefill`` with ``cache``, where each layer's final state (and
-    each shared-attention application's KV layer) is written."""
+    """The xlstm / zamba stack over a whole sequence: ``forward_train``
+    (each block under ``_remat``), and ``prefill`` with ``cache``, where
+    each layer's final state (and each shared-attention application's KV
+    layer) is written."""
+    if cache is None:
+        mix, attn_block = (_remat(cfg, _mix_block_train),
+                           _remat(cfg, _shared_attn_train))
     for kind, i in _recurrent_order(cfg):
         if kind == "attn":
             if cache is None:
-                x = _attn_block_train(params.shared_attn, cfg, x)[0]
+                x = attn_block(params.shared_attn, cfg, x)
             else:
                 x, _ = _attn_block_prefill(params.shared_attn, cfg, x,
                                            _layer(cache["attn_kv"], i))
             continue
         bp = getattr(params, f"{kind}_blocks")[i]
+        if cache is None:
+            x = mix(kind, bp, cfg, x)
+            continue
         y, st = _MIXERS[kind][0](bp.mix, cfg,
                                  rms_norm(x, bp.ln, cfg.norm_eps))
         x = x + y
-        if cache is not None:
-            for key, t in st.items():
-                cache[kind][key][i].copy_(t)
+        for key, t in st.items():
+            cache[kind][key][i].copy_(t)
     return x
 
 
@@ -234,16 +300,21 @@ class WhisperDecBlock(nn.Module):
         self.ffn = init_gelu_mlp(generator, d, cfg.d_ff, device)
 
 
+def _whisper_enc_block(bp: WhisperEncBlock, cfg, x):
+    h = x + attn.attention_train(
+        bp.attn, cfg, layer_norm(x, bp.ln1_w, bp.ln1_b, cfg.norm_eps),
+        causal=False, use_rope=False)
+    return h + gelu_mlp(bp.ffn, layer_norm(h, bp.ln2_w, bp.ln2_b,
+                                           cfg.norm_eps))
+
+
 def _whisper_encode(params: "Model", cfg, frames):
     """frames: (B, n_audio_frames, d), the conv frontend stub's output."""
     dt = cdtype(cfg)
     x = frames.to(dt) + params.enc_pos.to(dt)
+    block = _remat(cfg, _whisper_enc_block)
     for bp in params.enc_blocks:
-        h = x + attn.attention_train(
-            bp.attn, cfg, layer_norm(x, bp.ln1_w, bp.ln1_b, cfg.norm_eps),
-            causal=False, use_rope=False)
-        x = h + gelu_mlp(bp.ffn, layer_norm(h, bp.ln2_w, bp.ln2_b,
-                                            cfg.norm_eps))
+        x = block(bp, cfg, x)
     return layer_norm(x, params.enc_norm_w, params.enc_norm_b, cfg.norm_eps)
 
 
@@ -313,11 +384,13 @@ class Model(nn.Module):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device=None) -> Model:
+                device=None, trainable: bool = False) -> Model:
     """A model of ``cfg`` with weights drawn from ``generator`` (on its own
     device) as the reference draws them: ``dense_init``'s truncated normal
-    times each weight's scale, norms at one, biases at zero."""
-    return Model(cfg, resolve_device(device), generator)
+    times each weight's scale, norms at one, biases at zero.  Every
+    parameter keeps a gradient with ``trainable``."""
+    return Model(cfg, resolve_device(device), generator).requires_grad_(
+        trainable)
 
 
 #: the reference's layer-stacked subtrees and the port's module lists
@@ -333,45 +406,115 @@ def _flatten(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def params_from_reference(cfg: ArchConfig, tree: dict,
-                          device=None) -> Model:
+def named_from_reference(tree: dict) -> dict[str, np.ndarray]:
+    """A tree in the reference's layout (nested dicts; a leaf under one
+    of ``_STACKS`` carries a leading ``L`` dim) as the port's parameter
+    names: layer ``i`` of ``<stack>.<rest>`` goes to
+    ``<stack>.<i>.<rest>``."""
+    out: dict[str, np.ndarray] = {}
+    for path, leaf in _flatten(tree):
+        leaf = np.asarray(leaf)
+        head, _, rest = path.partition(".")
+        if head in _STACKS:
+            out.update((f"{head}.{i}.{rest}", leaf[i])
+                       for i in range(leaf.shape[0]))
+        else:
+            out[path] = leaf
+    return out
+
+
+def _nest(named: dict, leaf, stack) -> dict:
+    """The port's parameter names to the reference's nested layout:
+    ``leaf`` converts each value, ``stack`` makes one leaf of a stack's
+    layers (in layer order)."""
+    tree: dict = {}
+    stacks: dict[str, dict[int, object]] = {}
+    for name, t in named.items():
+        head, _, rest = name.partition(".")
+        if head in _STACKS:
+            i, _, rest = rest.partition(".")
+            stacks.setdefault(f"{head}.{rest}", {})[int(i)] = leaf(t)
+        else:
+            stacks[name] = {-1: leaf(t)}
+    for path, layers in stacks.items():
+        a = (layers[-1] if -1 in layers
+             else stack([layers[i] for i in range(len(layers))]))
+        *parents, key = path.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[key] = a
+    return tree
+
+
+def to_reference(named: dict) -> dict:
+    """The inverse of ``named_from_reference``: tensors (or arrays) under
+    the port's parameter names as numpy leaves in the reference's nested
+    layout, each stack's layers restacked along a leading ``L`` dim."""
+    def host(t):
+        return (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                else np.asarray(t))
+    return _nest(named, host, np.stack)
+
+
+def reference_like(named: dict) -> dict:
+    """The structure of ``to_reference(named)`` (tensors by name) with
+    meta-device leaves of its shapes and dtypes: a restore template that
+    copies no number."""
+    return _nest(named, lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"),
+                 lambda ls: ls[0].new_empty((len(ls), *ls[0].shape)))
+
+
+def params_to_reference(model: Model) -> dict:
+    """The model's parameters as the JAX package's ``init_params`` tree
+    (numpy float32 leaves, stacks restacked): what a checkpoint holds."""
+    return to_reference(dict(model.named_parameters()))
+
+
+def reference_ndim(name: str, t: torch.Tensor) -> int:
+    """The rank of the reference leaf that parameter ``name`` belongs to:
+    a layer of a stack is one dim short of its stacked leaf."""
+    return t.ndim + (name.partition(".")[0] in _STACKS)
+
+
+def params_from_reference(cfg: ArchConfig, tree: dict, device=None,
+                          trainable: bool = False) -> Model:
     """The port's model holding the numbers of the JAX package's
     ``init_params`` tree (nested dicts of numpy arrays; a leaf under one
     of ``_STACKS`` carries a leading ``L`` dim, layer ``i`` going to
     ``<stack>.<i>.<rest>``; zamba's ``shared_attn`` is one block).  Every
     leaf must map onto one port parameter of the same shape and every
     port parameter must be filled: anything left over on either side
-    raises."""
+    raises.  Every parameter keeps a gradient with ``trainable``."""
     model = Model(cfg, resolve_device(device))
+    load_named(model, named_from_reference(tree))
+    return model.requires_grad_(trainable)
+
+
+def load_named(model: Model, named: dict) -> None:
+    """Copy ``named`` (the port's parameter names to arrays) into the
+    model's parameters; every name must match one parameter of the same
+    shape, and every parameter must be filled."""
     params = dict(model.named_parameters())
-    filled: set[str] = set()
-
-    def put(name: str, a: np.ndarray) -> None:
-        if name not in params:
-            raise KeyError(f"reference leaf {name} has no port parameter")
-        t = params[name]
-        if tuple(a.shape) != tuple(t.shape) or name in filled:
-            raise ValueError(f"{name}: reference {a.shape}, port "
-                             f"{tuple(t.shape)}, filled {name in filled}")
-        t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
-        filled.add(name)
-
-    for path, leaf in _flatten(tree):
-        leaf = np.asarray(leaf)
-        head, _, rest = path.partition(".")
-        if head in _STACKS:
-            for i in range(leaf.shape[0]):
-                put(f"{head}.{i}.{rest}", leaf[i])
-        else:
-            put(path, leaf)
-    missing = sorted(set(params) - filled)
+    extra = sorted(set(named) - set(params))
+    if extra:
+        raise KeyError(f"reference leaves with no port parameter: {extra}")
+    missing = sorted(set(params) - set(named))
     if missing:
         raise KeyError(f"port parameters with no reference leaf: {missing}")
-    return model
+    with torch.no_grad():
+        for name, a in named.items():
+            t = params[name]
+            a = np.asarray(a)
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: reference {a.shape}, port "
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
 
 
 # --------------------------------------------------------------------- #
-# training forward and loss (values; the gradient comes with training)
+# training forward and loss
 # --------------------------------------------------------------------- #
 def _embed(params: Model, cfg, tokens):
     dt = cdtype(cfg)
@@ -398,16 +541,18 @@ def forward_train(params: Model, cfg: ArchConfig, tokens, frames=None):
     x = _embed(params, cfg, tokens)
     if cfg.is_encdec:
         enc_out = _whisper_encode(params, cfg, frames)
+        block = _remat(cfg, _whisper_dec_block_train)
         for bp in params.dec_blocks:
-            x = _whisper_dec_block_train(bp, cfg, x, enc_out)
+            x = block(bp, cfg, x, enc_out)
         return _unembed(params, cfg, x), {"load_balance_loss": _zero(x),
                                           "router_z_loss": _zero(x)}
     lb, rz = _zero(x), _zero(x)
     if cfg.block_pattern != "attn":
         return _unembed(params, cfg, _recurrent_seq(params, cfg, x)), {
             "load_balance_loss": lb, "router_z_loss": rz}
+    block = _remat(cfg, _attn_block_train)
     for bp in params.blocks:
-        x, aux = _attn_block_train(bp, cfg, x)
+        x, aux = block(bp, cfg, x)
         if aux:
             lb = lb + aux["load_balance_loss"]
             rz = rz + aux["router_z_loss"]
@@ -489,6 +634,7 @@ def _layer(group: dict, i: int) -> dict:
     return {k: t[i] for k, t in group.items()}
 
 
+@torch.no_grad()
 def prefill(params: Model, cfg: ArchConfig, tokens, cache, frames=None):
     """Run the full prompt, writing the caches in place.  Returns
     ``(cache, last_logits)`` with last_logits (B, 1, vocab_padded)."""
@@ -523,6 +669,7 @@ def prefill(params: Model, cfg: ArchConfig, tokens, cache, frames=None):
     return cache, _unembed(params, cfg, x[:, -1:])
 
 
+@torch.no_grad()
 def decode_step(params: Model, cfg: ArchConfig, tokens, cache, pos):
     """One-token step.  tokens: (B, 1) int; pos: the write position, an
     int or 0-d tensor for every row, or a (B,) tensor per row (the two give

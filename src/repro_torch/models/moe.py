@@ -89,13 +89,20 @@ def route(p: MoE, cfg, x: torch.Tensor) -> Routing:
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[..., :K], idx[..., :K]           # (B,S,K)
-    gate_vals = gate_vals / torch.clamp_min(
-        gate_vals.sum(-1, keepdim=True), 1e-9)
+    # a 0-d host tensor: jnp.maximum's gradient at a tie, no host copy
+    gate_vals = gate_vals / torch.maximum(gate_vals.sum(-1, keepdim=True),
+                                          torch.tensor(1e-9))
 
     # position of each (token, k) within its expert queue, per group
-    onehot = F.one_hot(gate_idx, E).float()                    # (B,S,K,E)
+    # a comparison, as jax.nn.one_hot computes it: no host sync (F.one_hot
+    # checks its indices' range on the host) and deterministic on the card
+    onehot = (gate_idx[..., None] == torch.arange(
+        E, device=x.device)).float()                           # (B,S,K,E)
     flat = onehot.reshape(B, S * K, E)
-    pos_in_expert = (torch.cumsum(flat, dim=1) - flat).reshape(B, S, K, E)
+    # counted in integers: the same exact sums as a float cumsum, and
+    # deterministic on the card (a float cumsum there is not)
+    pos_in_expert = (torch.cumsum(flat.to(torch.int32), dim=1).float()
+                     - flat).reshape(B, S, K, E)
     pos = (pos_in_expert * onehot).sum(-1)                     # (B,S,K)
     keep = (pos < C) & (gate_vals > 0)
     gate_vals = torch.where(keep, gate_vals, 0.0)

@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import new_param, pad_seq, rms_norm
+from repro_torch.models.common import (new_param, pad_seq, prefix_sum,
+                                       rms_norm)
 from repro_torch.util import resolve_device
 
 __all__ = ["MLSTM", "SLSTM", "init_mlstm", "mlstm_train", "mlstm_prefill",
@@ -113,6 +114,18 @@ def mlstm_ref_scan(q, k, v, log_i, log_f):
     return torch.stack(hs, dim=1)                           # (B,S,H,dh)
 
 
+#: the constants of the reference's ``jnp.minimum(-m, 30)`` and
+#: ``jnp.maximum(n, 1e-6)`` as 0-d host tensors: ``torch.minimum`` /
+#: ``maximum`` halve the gradient at a tie as jax does (``clamp`` would
+#: pass it whole), and a host scalar reaches a kernel as an argument, with
+#: no copy to the card
+_CAP_EXP, _FLOOR_N = torch.tensor(30.0), torch.tensor(1e-6)
+
+
+def _min30(x: torch.Tensor) -> torch.Tensor:
+    return torch.minimum(x, _CAP_EXP)
+
+
 def _mlstm_step(C, n, m, qt, kt, vt, li, lf):
     """One stabilised mLSTM step on float32 (B, H, ·) tensors: the new
     ``(C, n, m)`` and the output h (B, H, dh)."""
@@ -124,7 +137,7 @@ def _mlstm_step(C, n, m, qt, kt, vt, li, lf):
     n = n * f_[..., None] + i_[..., None] * kt
     num = (qt[..., None, :] @ C)[..., 0, :]                 # (B,H,dh)
     den = torch.abs((n[..., None, :] @ qt[..., :, None])[..., 0, 0])
-    den = torch.maximum(den, torch.exp(torch.clamp_max(-m_new, 30.0)))
+    den = torch.maximum(den, torch.exp(_min30(-m_new)))
     return C, n, m_new, num / den[..., None]
 
 
@@ -149,7 +162,7 @@ def _mlstm_chunked(q, k, v, log_i, log_f, chunk: int, state=None):
     li = log_i.reshape(B, nc, Q, H)
     lf = log_f.reshape(B, nc, Q, H)
 
-    Fc = torch.cumsum(lf, dim=2)                            # (B,nc,Q,H)
+    Fc = prefix_sum(lf, 2)                                  # (B,nc,Q,H)
     Ftot = Fc[:, :, -1]                                     # (B,nc,H)
     # log weight of source s surviving to the chunk's end: Ftot - F_s + li_s
     lw_end = Ftot[:, :, None] - Fc + li                     # (B,nc,Q,H)
@@ -194,7 +207,7 @@ def _mlstm_chunked(q, k, v, log_i, log_f, chunk: int, state=None):
     den = SD.sum(dim=-1, keepdim=True) + w_inter * (qf @ np_[..., None])
     # cap the stabiliser exponent: for very negative m the true
     # normaliser max(|n.q|, 1) is 1 and the output is ~0 anyway
-    floor = torch.exp(torch.clamp_max(-m_tot, 30.0))
+    floor = torch.exp(_min30(-m_tot))
     den = torch.maximum(torch.abs(den),
                         floor.permute(0, 1, 3, 2)[..., None])
     h = (num / den).permute(0, 1, 3, 2, 4)                  # (B,nc,Q,H,dh)
@@ -296,7 +309,7 @@ def _slstm_cell(p: SLSTM, xg, st: dict) -> dict:
     o_ = torch.sigmoid(go)
     c_new = f_ * c + i_ * z_
     n_new = f_ * n + i_
-    h = o_ * c_new / torch.clamp_min(n_new, 1e-6)
+    h = o_ * c_new / torch.maximum(n_new, _FLOOR_N)
     return {"c": c_new, "n": n_new, "m": m_new, "h": h}
 
 

@@ -1,10 +1,10 @@
 """The port stands apart from the JAX package and imports without a card.
 
 * An AST scan of every module under ``src/repro_torch/``, of
-  ``chip_smoke.py`` and of ``examples/cg_solve_torch.py`` and
-  ``examples/quickstart_torch.py``: no ``jax`` or ``repro`` import
-  anywhere, no ``triton``
-  import at module level, and no ``torch.sparse`` on the port's path.
+  ``chip_smoke.py`` and of ``examples/cg_solve_torch.py``,
+  ``examples/quickstart_torch.py`` and ``examples/train_lm_torch.py``:
+  no ``jax`` or ``repro`` import anywhere, no ``triton`` import at
+  module level, and no ``torch.sparse`` on the port's path.
 * Importing every ``repro_torch`` module in a fresh interpreter on this
   CPU-only machine works and pulls in neither ``jax`` nor ``repro``.
 * ``chip_smoke.py`` refuses to run without CUDA, and alone in a directory.
@@ -24,7 +24,8 @@ PKG = REPO / "src" / "repro_torch"
 MODULES = sorted(PKG.rglob("*.py"))
 FILES = MODULES + [REPO / "chip_smoke.py",
                    REPO / "examples" / "cg_solve_torch.py",
-                   REPO / "examples" / "quickstart_torch.py"]
+                   REPO / "examples" / "quickstart_torch.py",
+                   REPO / "examples" / "train_lm_torch.py"]
 
 
 def _imports(tree):
@@ -42,7 +43,8 @@ def test_scan_covers_every_module_of_the_port():
     """The scans below walk the whole package: the verifier, the
     collectives, the preconditioners, the test CLIs, the process mesh, the
     layers above the solvers that run on it, the config registry and the
-    LM model code (the recurrent mixers too) among them."""
+    LM model code (the recurrent mixers too) and the trainer (optimizer,
+    token pipeline, launcher) among them."""
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"analysis/__init__.py", "analysis/report.py",
             "analysis/plan_check.py", "analysis/kernel_check.py",
@@ -58,7 +60,8 @@ def test_scan_covers_every_module_of_the_port():
             "testing/resilience_check.py", "testing/serve_check.py",
             "configs/base.py", "configs/fluidity_cg.py", "models/model.py",
             "models/attention.py", "models/moe.py", "models/mamba2.py",
-            "models/xlstm.py"} \
+            "models/xlstm.py", "optim/adamw.py", "data/pipeline.py",
+            "launch/train.py"} \
         <= names
 
 
