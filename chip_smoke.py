@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--only nccl|lm|train]
+    python3 chip_smoke.py [--only nccl|lm|train|shard]
 
 Run from the root of a checkout; needs a CUDA card and ``nvcc``, and
-exits non-zero otherwise.  Every phase prints one JSON line; any failed
-check raises, so the exit code is not 0.  With no arguments every phase
+exits non-zero otherwise.  Every phase prints one JSON line (each with
+``at_s``, its seconds since the script started); any failed check
+raises, so the exit code is not 0.  With no arguments every phase
 runs and one card suffices; ``--only nccl`` runs phases 1, 2, the matrix
 and 6m, then the kernels of 6m's path (at its shapes, against their plain
 versions) and the last lines, for a run on several cards; ``--only lm``
 (``--only train``) runs phases 1 and 6n (6o), then the ``nvidia-smi``
-line and the last line.
+line and the last line; ``--only shard`` runs phase 1 and phase 6p's
+full-width path on four cards, then the same two lines.
 
 1. device   the card's name and power limit (``nvidia-smi``) and the
             rates the bounds use (3.35 TB/s and 67 TFLOP/s f32 for H100
@@ -263,7 +265,9 @@ line and the last line.
             and the batched SELL offd pass launched on every rank, true
             residuals
             under 1e-4, 2e-4 at tol 1e-4; makespan reported, not gated);
-            and ``resilience_check --mesh process --device cuda``.  Eight processes share one card and
+            and ``resilience_check --mesh process --device cuda`` (two
+            spawns since PR 28: the victim's 8 ranks, then 4 ranks that
+            resume and then solve the clean baseline).  Eight processes share one card and
             their wire is host memory: no inter-node wire is measured;
 6m. nccl     the process mesh on NCCL, one rank per card (rank ``r`` on
             ``cuda:r``, every card of this host; the first line names
@@ -388,6 +392,47 @@ line and the last line.
             peak plus AdamW's 28·N bytes at phase 1's rate), 6·N·T over
             ms × the bf16 peak, ``max_memory_allocated``, the card's name
             and power limit.  Its tensors are freed before phase 6l;
+6p. shard   sharded training and the ring collective matmul
+            (``runtime/sharding.py``, ``runtime/sharded.py``,
+            ``runtime/overlap.py``), which run no kernel of the port
+            either.  ``param_pspecs`` of every arch on both production
+            meshes (16x16, 2x16x16; meta-device stand-ins, host only):
+            every spec splits its dims evenly, and each card's share of
+            the f32 parameters.  A mesh of one NCCL rank more than the
+            cards is refused before any process starts.  In the default
+            run: one spawned NCCL rank (a 1x1 mesh), where qwen2.5-3b at
+            ``reduced()`` (B 2, S 32, 3 AdamW steps) trains bit for bit
+            as the one-device trainer (losses, grad norms, each
+            parameter's bit sum).  Under ``--only shard``, four NCCL
+            ranks, one a card, a 2x2 ``data x model`` mesh: (a)
+            qwen2.5-3b at full width and f32 compute, B 4 x S 512, remat
+            ``full``, AdamW lr 3e-5 (warmup 1), 3 steps, first by the
+            one-card trainer on rank 0 (its parameters kept on the host),
+            then twice on the mesh: every rank's losses equal, losses and
+            grad norms within 1e-5 / 1e-4 relative of the one-card run,
+            every leaf's gradient block after step 1 on every rank within
+            1e-3 (2-norm, relative) of the one-card gradient's (read as
+            AdamW's first moment; rank 0 broadcasts the one-card leaves
+            one at a time), the parameters after step 3 within 0.5·lr,
+            each block its spec's shard, the second mesh run bit for bit
+            the first; (b) granite-3-8b at full width (bf16
+            compute, the ``TokenPipeline`` at B 4 x S 512): a step of
+            1e-2 along -g/|g| lowers the loss by 1e-2·|g| within 10%,
+            then 8 steps (and a ninth, profiled on rank 0): every loss
+            finite, the last below the first, every rank's
+            ``max_memory_allocated`` under 80 GB; printed: ms per step
+            (median of steps 2-8, CUDA events), tokens/s, device ms and
+            launches per step (``torch.profiler``), the wire's ms by kind
+            per step (``WIRE``: CUDA events around each collective), the
+            bound (8·N·T at the bf16 peak over four cards plus AdamW's
+            28·N bytes over four cards' memory rate) and 6·N·T over the
+            step as the share of four cards' peak; (c) the ring at
+            qwen2.5-3b's MLP up-projection, x (2048, 2048) · W (2048,
+            11008), K split over the four ranks, f32 and bf16 storage:
+            each rank within 1e-5·max|y| of the float64 product; the
+            ring's ms, its wire's and exposed wire's ms, against the
+            all-gather-then-one-``torch.matmul`` form's (median of 10,
+            CUDA events, the ranks released together by a barrier);
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
@@ -409,11 +454,13 @@ matrix (cuSPARSE) — the yardstick only; the port never calls it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
+from collections.abc import Mapping
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -462,8 +509,15 @@ def path_kernels(fmt: str, halo: bool, mode: str, batched: bool = False
     return (kernel_of(fmt, False) + tag, f"{fmt}_spmv_onto{tag}")
 
 
+#: the script's start (``time.perf_counter``): every line carries its
+#: seconds since, so each phase's time is the gap between its lines
+START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": round(time.perf_counter() - START, 3)}),
+          flush=True)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -4280,6 +4334,525 @@ def nccl_scaling(rows: dict, smi) -> None:
              grids=grids)
 
 
+# --------------------------------------------------------------------- #
+# phase shard: sharded training and the ring collective matmul
+# --------------------------------------------------------------------- #
+#: the f32 parity run against the one-card trainer, and the arch whose
+#: state one card cannot hold
+SHARD_CHECK, SHARD_ARCH = "qwen2.5-3b", "granite-3-8b"
+SHARD_B, SHARD_S, SHARD_LR = 4, 512, 3e-5
+SHARD_CHECK_STEPS, SHARD_STEPS = 3, 8
+#: the full-width path's ranks (2x2: data x model)
+SHARD_RANKS = 4
+#: the ring at qwen2.5-3b's MLP up-projection: x (M, K) @ W (K, N), K
+#: split over the ranks; its gate and timing repetitions
+SHARD_RING = (2048, 2048, 11008)
+SHARD_RING_GATE, SHARD_RING_REPS = 1e-5, 10
+#: a card's memory: each rank's peak must stay under it
+SHARD_MEMORY = 80e9
+#: the full-width f32 parity gates beside ``train_mesh_check``'s loss and
+#: norm gates: each leaf's gradient block after step 1 (relative, 2-norm)
+#: and the parameters after the last step in units of lr.  Set from the
+#: readings on four H100s, 0.158 lr for the parameters (PERF.md §6), with
+#: the margin of the longer sums at full width; a missed or doubled sync
+#: moves a leaf's gradient by 50% or more
+SHARD_GRAD_REL, SHARD_PARAM_LR = 1e-3, 0.5
+
+
+def shard_rules() -> dict:
+    """``param_pspecs`` of every arch on both production meshes and on
+    the four-card 2x2 host mesh (host only, meta-device stand-ins): every
+    leaf's spec splits its dims evenly (``shard_shape``), each card's
+    share of the f32 parameters (train and serving specs; a trainer's
+    state, parameters, gradients and two moments, is four times the train
+    share) and the largest whole leaf of the port's model (one layer's),
+    which is all a rank holds beyond its blocks while ``init_sharded``
+    draws."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import param_specs
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.sharding import (MeshShape, NamedSharding,
+                                              param_pspecs)
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    out = {}
+    for arch in list_archs():
+        cfg = get_config(arch)
+        params = param_specs(cfg)
+        row = {"params": sum(t.numel() for t in leaves(params)),
+               "largest_leaf_gb": max(t.numel() for t in Model(
+                   cfg, "meta").parameters()) * 4 / 1e9}
+        for name, mesh in (("16x16", make_production_mesh()),
+                           ("2x16x16", make_production_mesh(multi_pod=True)),
+                           ("2x2", MeshShape(("data", "model"), (2, 2)))):
+            for serving in (False, True):
+                specs = param_pspecs(cfg, mesh, params, serving=serving)
+                per_card = sum(
+                    math.prod(NamedSharding(mesh, s).shard_shape(t.shape))
+                    for s, t in zip(leaves(specs), leaves(params)))
+                key = name + ("/serving" if serving else "")
+                row[key] = per_card * 4 / 1e9
+        out[arch] = row
+    return out
+
+
+def shard_loss(model, cfg, mesh, batch, shards: int):
+    """``(this rank's loss, the mesh's)`` on ``batch``, this rank's rows
+    of ``shards``."""
+    from repro_torch.models.common import use_mesh
+    from repro_torch.models.model import loss_fn
+    from repro_torch.runtime.sharded import mean_over_mesh
+
+    with use_mesh(mesh, shards):
+        loss = loss_fn(model, cfg, batch)[0]
+    return loss, mean_over_mesh(loss, mesh)
+
+
+def shard_direction(cfg, mesh, tok, shards: int) -> dict:
+    """A step of ``TRAIN_EPS`` along -g/|g| on the mesh at init lowers the
+    loss by ``TRAIN_EPS·|g|`` (phase train's check, on the blocks)."""
+    import torch
+
+    from repro_torch.launch.train import deterministic
+    from repro_torch.runtime import sharded
+
+    with deterministic():
+        model = sharded.init_sharded(cfg, torch.Generator(
+            device=mesh.device).manual_seed(SEED), mesh, mesh.device)
+        st = model.sharding
+        local, loss0 = shard_loss(model, cfg, mesh, {"tokens": tok}, shards)
+        local.backward()
+        grads = {k: p.grad for k, p in st.params.items()}
+        sharded.sync_grads(st, grads)
+        gnorm = float(sharded.global_norm(st, grads))
+        with torch.no_grad():
+            for p in st.params.values():
+                p.sub_(TRAIN_EPS / gnorm * p.grad)
+                p.grad = None
+            loss1 = float(shard_loss(model, cfg, mesh, {"tokens": tok},
+                                     shards)[1])
+    del model, st, grads, local
+    torch.cuda.empty_cache()
+    return {"loss": float(loss0), "grad_norm": gnorm, "eps": TRAIN_EPS,
+            "loss_drop": float(loss0) - loss1,
+            "predicted_drop": TRAIN_EPS * gnorm}
+
+
+def shard_ring(mesh, dtype) -> dict:
+    """The ring at ``SHARD_RING`` with ``dtype`` storage on a ``model``
+    mesh of every rank: each rank's ``y`` against the float64 product,
+    the ring's ms and its exposed wire against the all-gather form's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.collectives import WIRE, reset_wire
+    from repro_torch.runtime.overlap import ring_linear_ag
+    from repro_torch.runtime.sharded import all_gather_dim
+    from repro_torch.runtime.sharding import NamedSharding, P
+
+    M, K, N = SHARD_RING
+    rng = np.random.default_rng(SEED + 40)
+    dev = mesh.device
+    x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((K, N), np.float32)).to(dev)
+    x, w = x.to(dtype), w.to(dtype)
+    want = x.double() @ w.double()
+    xs = NamedSharding(mesh, P(None, "model")).shard(x).contiguous()
+    ws = NamedSharding(mesh, P("model", None)).shard(w).contiguous()
+    del x, w
+    n, group = mesh.shape["model"], mesh.group(("model",))
+
+    def ring():
+        return ring_linear_ag(xs, ws, mesh)
+
+    def gathered():
+        xf = all_gather_dim(xs, mesh, group, n, 1)
+        wf = all_gather_dim(ws, mesh, group, n, 0)
+        return torch.matmul(xf.float(), wf.float())
+
+    y = ring()
+    top = float(want.abs().max())
+    err = float((y.double() - want).abs().max()) / top
+    ag_err = float((gathered().double() - want).abs().max()) / top
+    checksum = int(y.view(torch.int32).to(torch.int64).sum())
+    del want
+
+    def timed_ms(fn):
+        out = []
+        for _ in range(SHARD_RING_REPS):
+            mesh.barrier()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            ev[1].synchronize()
+            out.append(ev[0].elapsed_time(ev[1]))
+        return statistics.median(out)
+
+    ring()
+    reset_wire()
+    ring_ms = timed_ms(ring)
+    wire = dict(WIRE)
+    gathered()
+    reset_wire()
+    ag_ms = timed_ms(gathered)
+    ag_wire = dict(WIRE)
+    local_ms = timed_ms(lambda: torch.matmul(xs.float(), ws.float()))
+    reps = SHARD_RING_REPS
+    return {"dtype": str(dtype).split(".")[-1], "rel_err": err,
+            "allgather_rel_err": ag_err, "checksum": checksum,
+            "ring_ms": ring_ms, "allgather_matmul_ms": ag_ms,
+            "chunk_product_ms": local_ms,
+            "ring_wire_ms": wire["seconds"] * 1e3 / reps,
+            "ring_exposed_wire_ms": wire["exposed"] * 1e3 / reps,
+            "allgather_wire_ms": ag_wire["seconds"] * 1e3 / reps,
+            "ring_hops": n - 1}
+
+
+class _FromRankZero(Mapping):
+    """Rank 0's whole tensors by name, each broadcast to every rank of
+    ``mesh`` when it is read (every rank reads the same names in the same
+    order): the one-card run's leaves, one on the card at a time."""
+
+    def __init__(self, mesh, tensors, shapes: dict):
+        self.mesh, self.tensors, self.shapes = mesh, tensors, shapes
+
+    def __getitem__(self, k):
+        import torch
+        import torch.distributed as dist
+
+        dev = self.mesh.device
+        t = (self.tensors[k].to(dev) if self.mesh.rank == 0 else
+             torch.empty(self.shapes[k], dtype=torch.float32, device=dev))
+        dist.broadcast(t, 0, group=self.mesh.world)
+        return t
+
+    def __iter__(self):
+        return iter(self.shapes)
+
+    def __len__(self) -> int:
+        return len(self.shapes)
+
+
+def shard_rank(mesh, job: dict) -> dict:
+    """One rank of phase shard (see the module docstring, 6p)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import WIRE, reset_wire
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import batch_rows
+    from repro_torch.runtime.sharded import model_params
+    from repro_torch.testing import train_mesh_check as tm
+
+    dev = mesh.device
+    out = {"rank": mesh.rank, "mesh": mesh.shape}
+    clock = {"start": time.perf_counter()}
+
+    def lap(name):
+        now = time.perf_counter()
+        clock[name], clock["start"] = now - clock["start"], now
+
+    if job["kind"] == "one":
+        # the 1x1 NCCL mesh against the one-device trainer, bit for bit
+        cfg = get_config(SHARD_CHECK).reduced()
+        kw = dict(steps=SHARD_CHECK_STEPS, batch=LM_B, seq=LM_S,
+                  lr=SHARD_LR)
+        m1, _, one = tm.run_steps(cfg, dev, **kw)
+        m2, _, got = tm.run_steps(cfg, dev, mesh=mesh, **kw)
+        out.update(one=one, mesh_row=got,
+                   bits_equal=(one["losses"] == got["losses"]
+                               and one["grad_norms"] == got["grad_norms"]
+                               and tm.checksums(m1) == tm.checksums(m2)),
+                   port_kernels={k: v for k, v in LAUNCHES.items() if v})
+        return out
+
+    # (a) qwen2.5-3b at f32: the one-card trainer on rank 0, its
+    # parameters kept on the host, then the 2x2 mesh twice
+    cfg = dataclasses.replace(get_config(SHARD_CHECK),
+                              compute_dtype="float32")
+    kw = dict(steps=SHARD_CHECK_STEPS, batch=SHARD_B, seq=SHARD_S,
+              lr=SHARD_LR)
+    ref = m1 = None
+    if mesh.rank == 0:
+        m1 = {}
+
+        def keep_m1(i, model, opt):
+            if i == 0:
+                m1.update((k, m.detach().cpu()) for k, m in opt.m.items())
+        model, opt, out["one"] = tm.run_steps(cfg, dev, after=keep_m1, **kw)
+        ref = {k: t.detach().cpu() for k, t in model_params(model).items()}
+        del model, opt
+        torch.cuda.empty_cache()
+    lap("one_card")
+    mesh.barrier()
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats(dev)
+        seen = {}
+
+        def grad_check(i, model, opt):
+            if i == 0 and not runs:
+                st = model.sharding
+                seen["grad"] = tm.grad_diff(
+                    model, opt, _FromRankZero(mesh, m1, st.shapes))
+        model, opt, row = tm.run_steps(cfg, dev, mesh=mesh,
+                                       after=grad_check, **kw)
+        row["grad"] = seen.get("grad")
+        row["checksums"] = tm.checksums(model)
+        row["shapes_ok"] = tm.block_shapes(model)[0]
+        row["param_diff"] = tm.param_diff(model, ref) if not runs else None
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        runs.append(row)
+        del model, opt
+        torch.cuda.empty_cache()
+    del ref, m1
+    out["check"] = runs
+    lap("check")
+
+    # (b) granite-3-8b at full width, bf16 compute
+    cfg = get_config(SHARD_ARCH)
+    pipe = TokenPipeline(vocab=cfg.vocab, global_batch=SHARD_B,
+                         seq_len=SHARD_S, seed=SEED)
+    rows = batch_rows(cfg, mesh, SHARD_B, SHARD_S)
+    tok = torch.from_numpy(rows.shard(pipe.batch_at(0))).to(dev)
+    out["direction"] = shard_direction(
+        cfg, mesh, tok, SHARD_B // rows.shard_shape((SHARD_B, SHARD_S))[0])
+    lap("direction")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, opt, first = tm.run_steps(cfg, dev, steps=1, batch=SHARD_B,
+                                     seq=SHARD_S, lr=SHARD_LR, mesh=mesh)
+    reset_wire()
+    model, opt, rest = tm.run_steps(cfg, dev, steps=SHARD_STEPS - 1,
+                                    batch=SHARD_B, seq=SHARD_S, lr=SHARD_LR,
+                                    mesh=mesh, first=1, model=model,
+                                    opt=opt)
+    wire = dict(WIRE)
+    steps = SHARD_STEPS - 1
+    out["granite"] = {
+        "losses": first["losses"] + rest["losses"],
+        "grad_norms": first["grad_norms"] + rest["grad_norms"],
+        "step_ms": first["step_ms"] + rest["step_ms"],
+        "params_local": sum(t.numel()
+                            for t in model_params(model).values()),
+        "wire_ms_per_step": {k: v * 1e3 / steps
+                             for k, v in wire["by_kind"].items()},
+        "wire_calls_per_step": wire["calls"] / steps,
+        "wire_bytes_per_step": wire["bytes"] / steps}
+    lap("granite")
+    if mesh.rank == 0 or job.get("profile_all"):
+        box = {}
+
+        def one_step():
+            box["r"] = tm.run_steps(cfg, dev, steps=1, batch=SHARD_B,
+                                    seq=SHARD_S, lr=SHARD_LR, mesh=mesh,
+                                    first=SHARD_STEPS, model=model, opt=opt)
+        by_name, launches = device_profile(one_step, cpu=False)
+        del box
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        out["granite"].update(device_ms_per_step=sum(by_name.values()),
+                              launches_per_step=launches,
+                              top5_device_ms=dict(top))
+    else:
+        # the profiled step's collectives, on the other ranks unprofiled
+        tm.run_steps(cfg, dev, steps=1, batch=SHARD_B, seq=SHARD_S,
+                     lr=SHARD_LR, mesh=mesh, first=SHARD_STEPS, model=model,
+                     opt=opt)
+    out["granite"]["max_memory_allocated"] = \
+        torch.cuda.max_memory_allocated(dev)
+    del model, opt
+    torch.cuda.empty_cache()
+    lap("profile")
+
+    # (c) the ring over every rank (model = 4), f32 and bf16 storage
+    ring_mesh = make_host_mesh(model=mesh.size, device=dev,
+                               backend=mesh.backend, rank=mesh.rank,
+                               world_size=mesh.size)
+    out["ring"] = [shard_ring(ring_mesh, dt)
+                   for dt in (torch.float32, torch.bfloat16)]
+    lap("ring")
+    out["seconds"] = {k: round(v, 3) for k, v in clock.items()
+                      if k != "start"}
+    out["port_kernels"] = {k: v for k, v in LAUNCHES.items() if v}
+    return out
+
+
+def phase_shard(smi: str, bw: float, full: bool) -> None:
+    """6p: the sharded trainer and the ring (see the module docstring).
+    ``full``: the full-width path on ``SHARD_RANKS`` cards; else the 1x1
+    NCCL mesh against the one-device trainer."""
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn_mesh
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rules = shard_rules()
+    emit("shard_rules", meshes=["16x16", "2x16x16", "2x2"],
+         per_card_f32_gb=rules,
+         seconds=round(time.perf_counter() - t0, 3))
+
+    cards = torch.cuda.device_count()
+    before = len(multiprocessing.active_children())
+    try:
+        spawn_mesh(shard_rank, cards + 1, DEVICE, backend="nccl",
+                   args=({"kind": "one"},))
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    started = len(multiprocessing.active_children()) - before
+    emit("shard_refusal", ranks=cards + 1, cards=cards, error=refusal,
+         processes_started=started)
+    check(refusal is not None and started == 0,
+          f"shard: {cards + 1} NCCL ranks on {cards} card(s) not refused "
+          f"before a spawn ({refusal!r}, {started} started)")
+
+    if not full:
+        t0 = time.perf_counter()
+        (r,) = spawn_mesh(shard_rank, 1, DEVICE, backend="nccl",
+                          args=({"kind": "one"},), timeout=600)
+        emit("shard_1x1", arch=SHARD_CHECK + " reduced", batch=LM_B,
+             seq=LM_S, steps=SHARD_CHECK_STEPS, one=r["one"],
+             mesh_row=r["mesh_row"], bits_equal=r["bits_equal"],
+             seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
+        check(r["bits_equal"], "shard: the 1x1 NCCL mesh trainer differs "
+              "from the one-device trainer")
+        ranks = [r]
+    else:
+        check(cards >= SHARD_RANKS, f"shard: the full-width path needs "
+              f"{SHARD_RANKS} cards, this host has {cards}")
+        t0 = time.perf_counter()
+        ranks = spawn_mesh(shard_rank, SHARD_RANKS, DEVICE, backend="nccl",
+                           args=({"kind": "full"},), timeout=1500)
+        spawn_s = time.perf_counter() - t0
+        shard_report(ranks, smi, bw, spawn_s)
+    port = {}
+    for r in ranks:
+        for k, v in r["port_kernels"].items():
+            port[k] = port.get(k, 0) + v
+    emit("shard", what="port_kernels", launched=port,
+         seconds=round(time.perf_counter() - t_phase, 3),
+         statement="sharded training and the ring launch none of the "
+                   "port's CUDA kernels: their products are torch.matmul "
+                   "(cuBLAS), their collectives NCCL's")
+    check(not port, f"shard: the port's SpMV kernels launched: {port}")
+
+
+def shard_report(ranks: list, smi: str, bw: float, spawn_s: float) -> None:
+    """The lines and gates of the full-width path from its ranks."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.testing import train_mesh_check as tm
+
+    one = ranks[0]["one"]
+    a, b = (ranks[0]["check"][i] for i in (0, 1))
+    same = all(r["check"][0]["losses"] == a["losses"]
+               and r["check"][0]["grad_norms"] == a["grad_norms"]
+               for r in ranks)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                        one["losses"]))
+    norm_rel = max(abs(x - y) / abs(y) for x, y in zip(a["grad_norms"],
+                                                        one["grad_norms"]))
+    diff_lr = a["param_diff"] / SHARD_LR
+    repeat = all(r["check"][0]["checksums"] == r["check"][1]["checksums"]
+                 and r["check"][0]["losses"] == r["check"][1]["losses"]
+                 for r in ranks)
+    shapes = all(r["check"][0]["shapes_ok"] for r in ranks)
+    grad_rel, grad_leaf = max(tuple(r["check"][0]["grad"]) for r in ranks)
+    emit("shard_check", arch=SHARD_CHECK, compute_dtype="float32",
+         mesh=ranks[0]["mesh"], batch=SHARD_B, seq=SHARD_S, lr=SHARD_LR,
+         steps=SHARD_CHECK_STEPS, one_card=one, mesh_losses=a["losses"],
+         mesh_grad_norms=a["grad_norms"], ranks_agree=same,
+         loss_rel=loss_rel, loss_bound=tm.LOSS_REL, grad_norm_rel=norm_rel,
+         grad_norm_bound=tm.NORM_REL, grad_rel=grad_rel, grad_leaf=grad_leaf,
+         grad_rel_by_rank=[r["check"][0]["grad"][0] for r in ranks],
+         grad_bound=SHARD_GRAD_REL, param_diff_lr=diff_lr,
+         param_bound_lr=SHARD_PARAM_LR, repeat_bits_equal=repeat,
+         shapes_ok=shapes, mesh_step_ms=a["step_ms"],
+         one_card_step_ms=one["step_ms"],
+         max_memory_allocated=[r["check"][0]["max_memory_allocated"]
+                               for r in ranks], nvidia_smi=smi)
+    check(same, "shard check: the ranks' losses differ")
+    check(loss_rel <= tm.LOSS_REL and norm_rel <= tm.NORM_REL,
+          f"shard check: mesh against one card: loss {loss_rel}, grad "
+          f"norm {norm_rel}")
+    check(grad_rel <= SHARD_GRAD_REL, f"shard check: leaf {grad_leaf}'s "
+          f"gradient after step 1 is {grad_rel} off the one card's")
+    check(diff_lr <= SHARD_PARAM_LR, f"shard check: parameters after step "
+          f"{SHARD_CHECK_STEPS} differ by {diff_lr} lr > {SHARD_PARAM_LR}")
+    check(shapes, "shard check: a block is not its spec's shard")
+
+    cfg = get_config(SHARD_ARCH)
+    g = [r["granite"] for r in ranks]
+    d = ranks[0]["direction"]
+    emit("shard_direction", arch=SHARD_ARCH, **d, bound=TRAIN_EPS_BOUND)
+    check(abs(d["loss_drop"] - d["predicted_drop"])
+          <= TRAIN_EPS_BOUND * d["predicted_drop"],
+          f"shard {SHARD_ARCH}: a step of {TRAIN_EPS} along the gradient "
+          f"lowered the loss by {d['loss_drop']}, not {d['predicted_drop']}")
+    losses, norms = g[0]["losses"], g[0]["grad_norms"]
+    n_params = cfg.n_params()
+    tokens = SHARD_B * SHARD_S
+    step_ms = statistics.median(g[0]["step_ms"][1:])
+    peak = bf16_peak(torch.cuda.get_device_name(0))
+    flops_ms = 8 * n_params * tokens / (SHARD_RANKS * peak) * 1e3
+    adamw_ms = 28 * n_params / (SHARD_RANKS * bw) * 1e3
+    mem = [r["max_memory_allocated"] for r in g]
+    emit("shard_train", arch=SHARD_ARCH, mesh=ranks[0]["mesh"],
+         n_params=n_params, params_local=[r["params_local"] for r in g],
+         compute_dtype=cfg.compute_dtype, remat_policy=cfg.remat_policy,
+         batch=SHARD_B, seq=SHARD_S, tokens_per_step=tokens, lr=SHARD_LR,
+         losses=losses, grad_norms=norms, step_ms=g[0]["step_ms"],
+         ms_per_step=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+         device_ms_per_step=g[0].get("device_ms_per_step"),
+         launches_per_step=g[0].get("launches_per_step"),
+         top5_device_ms=g[0].get("top5_device_ms"),
+         wire_ms_per_step=[r["wire_ms_per_step"] for r in g],
+         wire_calls_per_step=g[0]["wire_calls_per_step"],
+         wire_bytes_per_step=g[0]["wire_bytes_per_step"],
+         max_memory_allocated=mem, bound_ms=flops_ms + adamw_ms,
+         bound_flops_ms=flops_ms, bound_adamw_ms=adamw_ms,
+         share_of_peak=6 * n_params * tokens
+         / (step_ms / 1e3 * SHARD_RANKS * peak),
+         seconds=ranks[0]["seconds"], spawn_s=spawn_s, nvidia_smi=smi)
+    check(all(math.isfinite(v) for v in losses + norms),
+          f"shard {SHARD_ARCH}: non-finite loss or grad norm")
+    check(all(r["losses"] == losses for r in g),
+          f"shard {SHARD_ARCH}: the ranks' losses differ")
+    check(losses[-1] < losses[0], f"shard {SHARD_ARCH}: the loss did not "
+          f"fall: {losses}")
+    check(max(mem) < SHARD_MEMORY, f"shard {SHARD_ARCH}: a rank peaked at "
+          f"{max(mem)} bytes")
+
+    for i, row in enumerate(ranks[0]["ring"]):
+        rows = [r["ring"][i] for r in ranks]
+        errs = [r["rel_err"] for r in rows]
+        emit("shard_ring", shape=list(SHARD_RING), ranks=len(ranks),
+             dtype=row["dtype"], rel_err=errs, gate=SHARD_RING_GATE,
+             ranks_bits_equal=len({r["checksum"] for r in rows}) == 1,
+             allgather_rel_err=[r["allgather_rel_err"] for r in rows],
+             ring_ms=[r["ring_ms"] for r in rows],
+             allgather_matmul_ms=[r["allgather_matmul_ms"] for r in rows],
+             chunk_product_ms=[r["chunk_product_ms"] for r in rows],
+             ring_wire_ms=[r["ring_wire_ms"] for r in rows],
+             ring_exposed_wire_ms=[r["ring_exposed_wire_ms"] for r in rows],
+             allgather_wire_ms=[r["allgather_wire_ms"] for r in rows],
+             nvidia_smi=smi)
+        check(max(errs) < SHARD_RING_GATE, f"shard ring {row['dtype']}: "
+              f"{max(errs)} of max|y| >= {SHARD_RING_GATE}")
+
+
 def library_ms(A, x) -> float:
     """One torch.sparse CSR matvec of the global matrix (the yardstick)."""
     import torch
@@ -4298,12 +4871,15 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["nccl", "lm", "train"], default=None,
+    ap.add_argument("--only", choices=["nccl", "lm", "train", "shard"],
+                    default=None,
                     help="nccl: the device, build and matrix phases, phase "
                          "nccl, then the kernels and ok lines; lm / train: "
                          "the device phase and phase lm / train, then the "
                          "nvidia-smi and ok lines (the LM path has no "
-                         "kernel of its own)")
+                         "kernel of its own); shard: the device phase and "
+                         "phase shard's full-width path on four cards, "
+                         "then the nvidia-smi and ok lines")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4325,6 +4901,10 @@ def main(argv=None) -> int:
     smi, bw, f32_peak = phase_device()
     if args.only in ("lm", "train"):
         (phase_lm if args.only == "lm" else phase_train)(bw, smi)
+        last_lines(smi)
+        return 0
+    if args.only == "shard":
+        phase_shard(smi, bw, full=True)
         last_lines(smi)
         return 0
     phase_build()
@@ -4362,6 +4942,7 @@ def main(argv=None) -> int:
     phase_train(bw, smi)
     mesh_launches = phase_procmesh(A, plans, x, b, smi, two_level, service)
     phase_nccl(A, x, b, smi)
+    phase_shard(smi, bw, full=False)
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
     # the batched kernels at the service's k, with their serving launches

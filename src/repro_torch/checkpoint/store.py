@@ -124,10 +124,13 @@ def _np_dtype(dtype) -> np.dtype:
     return np.dtype(dtype)
 
 
-def load(path: str, step: int, like, device=None):
+def load(path: str, step: int, like, device=None, cut=None):
     """Restore into the structure of ``like`` (a tree of anything with
     ``.shape`` and ``.dtype``: numpy arrays, tensors).  Returns ``(tree,
-    extra)``: numpy leaves, or tensors on ``device`` when it is given."""
+    extra)``: numpy leaves, or tensors on ``device`` when it is given.
+    ``cut``: a tree of ``like``'s structure whose leaves are functions of
+    an array, each applied to its leaf as it is read (a rank keeps its
+    block and only one whole leaf is held at a time)."""
     d = os.path.join(path, f"step_{step:09d}")
     with open(os.path.join(d, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -143,6 +146,7 @@ def load(path: str, step: int, like, device=None):
         raise ValueError(
             f"checkpoint {d} has {manifest['n_leaves']} leaves, restore "
             f"target has {len(leaves_like)}")
+    cuts = None if cut is None else _flatten(cut)[0]
     new_leaves = []
     with np.load(os.path.join(d, _ARRAYS)) as data:
         for i, ref in enumerate(leaves_like):
@@ -153,6 +157,8 @@ def load(path: str, step: int, like, device=None):
                     f"{tuple(arr.shape)} vs restore-target shape "
                     f"{tuple(ref.shape)}")
             arr = arr.astype(_np_dtype(ref.dtype))
+            if cuts is not None:
+                arr = cuts[i](arr)
             new_leaves.append(arr if device is None
                               else torch.from_numpy(arr).to(device))
     return rebuild(iter(new_leaves)), manifest["extra"]

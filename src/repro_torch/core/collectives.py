@@ -351,14 +351,19 @@ class _Staged:
             return out
         return Pending(self.kind, done, keep)
 
-    def out(self, t: torch.Tensor) -> torch.Tensor:
-        """A contiguous host copy of ``t`` as bytes (gloo moves host
-        tensors; bytes carry every wire dtype unaltered)."""
+    def put(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` contiguous where the wire reads it, its dtype kept: a host
+        copy (gloo moves host tensors), counted as sent."""
         h = t.detach().contiguous()
         if self.on_card:
             h = h.to("cpu")
         WIRE._d["bytes"] += h.numel() * h.element_size()
-        return h.reshape(-1).view(torch.uint8)
+        return h
+
+    def out(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`put` as bytes (bytes carry every wire dtype
+        unaltered)."""
+        return self.put(t).reshape(-1).view(torch.uint8)
 
     def empty(self, nbytes: int) -> torch.Tensor:
         """A receive buffer of ``nbytes`` where the wire delivers."""
@@ -413,10 +418,10 @@ class _OnCard(_Staged):
             return out
         return Pending(self.kind, done, keep)
 
-    def out(self, t: torch.Tensor) -> torch.Tensor:
-        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
-        WIRE._d["bytes"] += b.numel()
-        return b
+    def put(self, t: torch.Tensor) -> torch.Tensor:
+        h = t.detach().contiguous()
+        WIRE._d["bytes"] += h.numel() * h.element_size()
+        return h
 
     def empty(self, nbytes: int) -> torch.Tensor:
         return torch.empty(nbytes, dtype=torch.uint8, device=self.device)

@@ -46,6 +46,16 @@ An NCCL mesh needs a card for every rank: ``make_cg_mesh`` and
 ``spawn_cg_mesh`` refuse, before any process group or process exists,
 when the device is not a card or this host has fewer cards than ranks
 (NCCL rejects two ranks on one card).  Nothing falls back to gloo.
+
+The LM trainer's meshes are :class:`LMMesh`: named axes ``data x model``
+(``pod x data x model`` for two pods), the counterparts of the JAX
+package's ``make_production_mesh`` (16x16, 2x16x16: descriptions the
+sharding rules read, no process behind them) and ``make_host_mesh``
+(``data x model`` over this process mesh's ranks, ``model`` 2 for an
+even rank count above 1).  Over a process group an ``LMMesh`` holds the
+group of every tuple of its axes; ``spawn_mesh`` starts its ranks with
+``spawn_cg_mesh``'s launcher (the same rendezvous, refusal, failure and
+timeout handling).
 """
 from __future__ import annotations
 
@@ -68,6 +78,8 @@ import torch
 from repro_torch.util import resolve_device
 
 __all__ = ["CGMesh", "make_cg_mesh", "spawn_cg_mesh", "write_plan",
+           "LMMesh", "make_mesh", "make_production_mesh", "make_host_mesh",
+           "spawn_mesh",
            "read_plan", "require_cards", "add_dist_backend",
            "dist_backend", "BACKENDS", "RanksKilled"]
 
@@ -76,8 +88,43 @@ __all__ = ["CGMesh", "make_cg_mesh", "spawn_cg_mesh", "write_plan",
 BACKENDS = ("gloo", "nccl")
 
 
+class _HostControl:
+    """Host control over a mesh's ``control`` group (see the module
+    docstring); on a mesh with no process group each is the identity."""
+
+    def agree(self, obj):
+        """Rank 0's ``obj`` on every rank (every rank calls this; the
+        others' ``obj`` is ignored).  No process group: ``obj``."""
+        if not self.is_process:
+            return obj
+        import torch.distributed as dist
+
+        from repro_torch.core.collectives import host_control
+        box = [obj]
+        with host_control():
+            dist.broadcast_object_list(box, src=0, group=self.control)
+        return box[0]
+
+    def barrier(self) -> None:
+        """Every rank has reached this point (no process group: a
+        no-op)."""
+        if self.is_process:
+            import torch.distributed as dist
+
+            from repro_torch.core.collectives import host_control
+            with host_control():
+                dist.barrier(group=self.control)
+
+    def destroy(self) -> None:
+        """Tear down the process group (no process group: a no-op)."""
+        if self.is_process:
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
-class CGMesh:
+class CGMesh(_HostControl):
     """A ``(n_node, n_core)`` mesh.  On the virtual mesh ``node``/``core``
     and the groups are ``None``; on a process mesh they are this rank's
     shard and its process groups."""
@@ -117,19 +164,6 @@ class CGMesh:
         return node * self.n_core + core
 
     # -- host control (see the module docstring) ------------------------ #
-    def agree(self, obj):
-        """Rank 0's ``obj`` on every rank (every rank calls this; the
-        others' ``obj`` is ignored).  The virtual mesh: ``obj``."""
-        if not self.is_process:
-            return obj
-        import torch.distributed as dist
-
-        from repro_torch.core.collectives import host_control
-        box = [obj]
-        with host_control():
-            dist.broadcast_object_list(box, src=0, group=self.control)
-        return box[0]
-
     def allgather(self, obj) -> list:
         """Every rank's ``obj``, in rank order, on every rank.  The virtual
         mesh: ``[obj]``."""
@@ -171,23 +205,6 @@ class CGMesh:
         for v, r in parts:
             out[..., r] = v
         return out
-
-    def barrier(self) -> None:
-        """Every rank has reached this point (a no-op on the virtual
-        mesh)."""
-        if self.is_process:
-            import torch.distributed as dist
-
-            from repro_torch.core.collectives import host_control
-            with host_control():
-                dist.barrier(group=self.control)
-
-    def destroy(self) -> None:
-        """Tear down the process group (a no-op on the virtual mesh)."""
-        if self.is_process:
-            import torch.distributed as dist
-            if dist.is_initialized():
-                dist.destroy_process_group()
 
 
 def require_cards(world: int, device=None) -> None:
@@ -312,12 +329,188 @@ def make_cg_mesh(n_node: int, n_core: int, *, device=None,
 
 
 # ---------------------------------------------------------------------- #
+# the LM meshes: data x model (x pod)
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True, eq=False)
+class LMMesh(_HostControl):
+    """The LM trainer's mesh: named axes (``("data", "model")``, or
+    ``("pod", "data", "model")``) of the sizes ``sizes``, rank ``r`` at the
+    row-major index ``coords`` (the JAX mesh's device order).  The
+    sharding rules read only ``shape`` and ``axis_names``.
+
+    With ``backend`` ``"virtual"`` no process group stands behind it: a
+    mesh of one shard (this process holds everything; every collective
+    is the identity), or a description of a larger one (``coords`` is
+    ``None``: rules only).  On a process mesh (``"gloo"`` or ``"nccl"``)
+    ``groups`` holds, for every tuple of axes (in mesh order), the
+    process group of this rank's fellows along those axes (the others'
+    coordinates fixed), ranks in row-major order of the tuple; a group of
+    one is ``None``.  ``control`` is the gloo group of host control, as on
+    :class:`CGMesh`."""
+
+    axis_names: tuple
+    sizes: tuple
+    device: torch.device
+    backend: str = "virtual"
+    rank: int | None = None
+    groups: dict = dataclasses.field(default_factory=dict)
+    world: Any = None
+    control: Any = None
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes))
+
+    @property
+    def is_process(self) -> bool:
+        return self.backend != "virtual"
+
+    @property
+    def coords(self) -> dict | None:
+        """This rank's index on every axis (``None`` for a description)."""
+        r = self.rank if self.is_process else (0 if self.size == 1
+                                               else None)
+        if r is None:
+            return None
+        out = {}
+        for a, n in zip(reversed(self.axis_names), reversed(self.sizes)):
+            r, out[a] = divmod(r, n)
+        return {a: out[a] for a in self.axis_names}
+
+    def group(self, axes: tuple):
+        """The process group along ``axes`` (``None``: one member)."""
+        key = tuple(a for a in self.axis_names if a in axes)
+        return self.groups.get(key)
+
+
+def make_mesh(sizes: tuple, axis_names: tuple, *, device=None,
+              backend: str | None = None, rank: int | None = None,
+              world_size: int | None = None, init_method: str | None = None,
+              timeout: float = 600.0) -> LMMesh:
+    """An :class:`LMMesh` of ``sizes`` over ``axis_names``.  With no
+    process arguments, the virtual mesh on ``device`` (default ``cuda``):
+    one shard, or a description of a larger mesh.  With ``backend`` this
+    process joins a process mesh as ``rank`` of ``world_size ==
+    prod(sizes)``, as :func:`make_cg_mesh` joins one (NCCL: rank ``r`` on
+    ``cuda:r``, refused before any process group without a card per rank;
+    a gloo control group beside it), and builds the group of every tuple
+    of axes (every rank must call this, in the same order)."""
+    import itertools
+
+    sizes, axis_names = tuple(int(n) for n in sizes), tuple(axis_names)
+    device = resolve_device(device)
+    world = int(np.prod(sizes))
+    if backend is None and rank is None and world_size is None \
+            and init_method is None:
+        return LMMesh(axis_names, sizes, device)
+    if backend not in BACKENDS:
+        raise ValueError(f"process mesh backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    if world_size != world:
+        raise ValueError(f"world_size {world_size} != prod{sizes} = {world}")
+    if rank is None or not 0 <= rank < world:
+        raise ValueError(f"rank must be in [0, {world}), got {rank!r}")
+    if backend == "nccl":
+        require_cards(world, device)
+        if device.index not in (None, rank):
+            raise ValueError(f"NCCL rank {rank} runs on cuda:{rank}, not "
+                             f"{device}")
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        if init_method is None:
+            raise ValueError("a process mesh needs an init_method "
+                             "('file://<path>' or 'tcp://<host>:<port>')")
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout),
+            **({"device_id": device} if backend == "nccl" else {}))
+    elif (dist.get_rank(), dist.get_world_size()) != (rank, world):
+        raise ValueError(
+            f"the process group is rank {dist.get_rank()} of "
+            f"{dist.get_world_size()}, not {rank} of {world}")
+    mesh = LMMesh(axis_names, sizes, device, backend, rank)
+    coords = mesh.coords
+    groups = {}
+    for k in range(1, len(axis_names) + 1):
+        for axes in itertools.combinations(axis_names, k):
+            if int(np.prod([mesh.shape[a] for a in axes])) == 1:
+                continue
+            if len(axes) == len(axis_names):
+                groups[axes] = dist.group.WORLD
+                continue
+            rest = [a for a in axis_names if a not in axes]
+            # new_group is collective over the world: every rank builds
+            # every group
+            for fixed in itertools.product(*(range(mesh.shape[a])
+                                             for a in rest)):
+                members = []
+                for idx in itertools.product(*(range(mesh.shape[a])
+                                               for a in axes)):
+                    c = dict(zip(rest, fixed)) | dict(zip(axes, idx))
+                    r = 0
+                    for a in axis_names:
+                        r = r * mesh.shape[a] + c[a]
+                    members.append(r)
+                g = dist.new_group(sorted(members))
+                if all(coords[a] == f for a, f in zip(rest, fixed)):
+                    groups[axes] = g
+    control = dist.group.WORLD
+    if backend == "nccl":
+        control = dist.new_group(backend="gloo")
+        # every communicator started now, by one collective on each group
+        one = torch.zeros(1, device=device)
+        for g in {id(g): g for g in (*groups.values(),
+                                      dist.group.WORLD)}.values():
+            dist.all_reduce(one, group=g)
+        torch.cuda.synchronize(device)
+    return dataclasses.replace(mesh, groups=groups, world=dist.group.WORLD,
+                               control=control)
+
+
+def make_production_mesh(*, multi_pod: bool = False, **process) -> LMMesh:
+    """The production mesh: ``data=16 x model=16`` (one pod of 256), or
+    ``pod=2 x data=16 x model=16`` (512).  With no ``process`` arguments
+    (those of :func:`make_mesh`) a description for the rules."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, **process)
+
+
+def make_host_mesh(*, model: int | None = None, **process) -> LMMesh:
+    """The ``data x model`` mesh over this process mesh's ranks
+    (``world_size``; one without process arguments): ``model`` is 2 when
+    the rank count is even and above 1, else 1, unless given."""
+    n = process.get("world_size") or 1
+    m = model or (2 if n % 2 == 0 and n > 1 else 1)
+    if n % m:
+        raise ValueError(f"model={m} does not divide {n} ranks")
+    return make_mesh((n // m, m), ("data", "model"), **process)
+
+
+def spawn_mesh(fn: Callable, world: int, device="cuda", *,
+               model: int | None = None, backend: str = "gloo",
+               args: tuple = (), timeout: float = 600.0) -> list:
+    """:func:`spawn_cg_mesh` for the LM mesh: ``fn(mesh, *args)`` on
+    ``world`` spawned ranks of ``make_host_mesh(model=model)``, with the
+    same rendezvous, refusal, failure and timeout handling."""
+    return _spawn(fn, world, device, backend, args, timeout,
+                  make_host_mesh, {"model": model})
+
+
+# ---------------------------------------------------------------------- #
 # the launcher
 # ---------------------------------------------------------------------- #
-def _rank_main(rank: int, n_node: int, n_core: int, device, backend: str,
+def _rank_main(rank: int, world: int, device, backend: str,
                init_method: str, out_dir: str) -> None:
-    """One spawned rank: join the mesh, run the call ``out_dir`` holds,
-    write its result there."""
+    """One spawned rank: join the mesh the call ``out_dir`` holds names,
+    run the call, write its result there."""
     # every rank is on this host: gloo's sockets (the whole gloo mesh, or
     # an NCCL mesh's control group) bind to the loopback
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -325,10 +518,9 @@ def _rank_main(rank: int, n_node: int, n_core: int, device, backend: str,
     os.environ.setdefault("NCCL_DEBUG", "WARN")
     torch.set_num_threads(1)
     with open(Path(out_dir) / "call.pkl", "rb") as f:
-        fn, args = pickle.load(f)
-    mesh = make_cg_mesh(n_node, n_core, device=device, backend=backend,
-                        rank=rank, world_size=n_node * n_core,
-                        init_method=init_method)
+        fn, args, build, build_kw = pickle.load(f)
+    mesh = build(**build_kw, device=device, backend=backend, rank=rank,
+                 world_size=world, init_method=init_method)
     result = fn(mesh, *args)
     tmp = Path(out_dir) / f"result_{rank}.tmp"
     with open(tmp, "wb") as f:
@@ -385,16 +577,27 @@ def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
     have not all finished after ``timeout`` seconds, every rank is killed
     and this raises ``TimeoutError``.  On a card the kernel library is
     built here once, before any rank starts."""
+    return _spawn(fn, n_node * n_core, device, backend, args, timeout,
+                  make_cg_mesh, {"n_node": n_node, "n_core": n_core},
+                  kernels=True)
+
+
+def _spawn(fn: Callable, world: int, device, backend: str, args: tuple,
+           timeout: float, build: Callable, build_kw: dict,
+           kernels: bool = False) -> list:
+    """The launcher of :func:`spawn_cg_mesh` and :func:`spawn_mesh`: each
+    of ``world`` ranks joins ``build(**build_kw, <process arguments>)``
+    and runs ``fn(mesh, *args)``.  ``kernels``: build the kernel library
+    first when the ranks are on cards."""
     import torch.multiprocessing as mp
 
     device = resolve_device(device)
-    world = n_node * n_core
     if backend not in BACKENDS:
         raise ValueError(f"process mesh backend must be one of {BACKENDS}, "
                          f"got {backend!r}")
     if backend == "nccl":
         require_cards(world, device)
-    if device.type == "cuda":
+    if kernels and device.type == "cuda":
         from repro_torch.kernels import spmv_cuda
         spmv_cuda.build()
     tmp = tempfile.mkdtemp(prefix="cg_mesh_")
@@ -406,12 +609,12 @@ def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
         # the call goes through a file: arguments larger than a pipe's
         # buffer would make each rank's start wait for the one before
         with open(Path(tmp) / "call.pkl", "wb") as f:
-            pickle.dump((fn, tuple(args)), f)
+            pickle.dump((fn, tuple(args), build, build_kw), f)
         for k in _BLAS_THREADS:
             os.environ.setdefault(k, "1")
         try:
             ctx = mp.start_processes(
-                _rank_main, args=(n_node, n_core,
+                _rank_main, args=(world,
                                   # NCCL: each rank binds its own card
                                   str(device) if backend == "gloo"
                                   else device.type, backend,
@@ -428,7 +631,7 @@ def spawn_cg_mesh(fn: Callable, n_node: int, n_core: int, device="cuda",
             while not ctx.join(timeout=0.1, grace_period=_GRACE_S):
                 if time.monotonic() > deadline:
                     raise TimeoutError(
-                        f"spawn_cg_mesh: {world} ranks not done after "
+                        f"spawn: {world} ranks not done after "
                         f"{timeout} s")
         except mp.ProcessExitedException:
             # join ended every rank before raising: all exit codes are in

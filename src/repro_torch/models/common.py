@@ -12,13 +12,18 @@ storage dtype.
 is kept); ``prefix_sum`` is the scans' ``cumsum`` in a form that is
 deterministic on the card.
 
-The reference's ``constrain_batch`` has no counterpart here: it pins an
-activation's batch dimension to an ambient JAX mesh and is the identity
-without one.  Sharding arrives with ``runtime/sharding.py`` in a later
-slice.
+``constrain_batch`` is the reference's layout hint at the same seven
+places of the model: it changes no value, and without an ambient mesh
+(:func:`use_mesh`) it returns its input as it is.  Under a mesh it works
+out the batch axes the reference pins the activation to, with the
+reference's fall-back when the batch does not divide them, and records
+them for a :func:`record_constraints` block.  The port's activations are
+already the rank's rows of the batch (the mesh trainer split it), so
+nothing moves.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -26,7 +31,81 @@ from torch import nn
 
 __all__ = ["rms_norm", "layer_norm", "rope", "dense_init", "new_param",
            "flash_attention", "decode_attention", "cdtype", "pad_seq",
-           "prefix_sum"]
+           "prefix_sum", "constrain_batch", "use_mesh", "ambient_mesh",
+           "record_constraints", "on_new_param"]
+
+#: the meshes of the enclosing ``use_mesh`` blocks (innermost last), each
+#: with the number of shards its trainer split the batch into
+_MESHES: list = []
+#: the open ``record_constraints`` logs
+_LOGS: list = []
+#: the enclosing ``on_new_param`` hooks (innermost last)
+_MADE: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, batch_shards: int = 1):
+    """``mesh`` is the ambient mesh inside the block; the model's
+    activations hold ``1/batch_shards`` of the global batch's rows."""
+    _MESHES.append((mesh, batch_shards))
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+@contextlib.contextmanager
+def on_new_param(hook):
+    """Inside the block every parameter :func:`new_param` makes, drawn
+    and whole, goes through ``hook(param) -> param`` before the module
+    keeps it, in the order they are drawn (a rank keeps its block of each
+    leaf and frees the leaf before the next is drawn)."""
+    _MADE.append(hook)
+    try:
+        yield
+    finally:
+        _MADE.pop()
+
+
+def ambient_mesh():
+    """The mesh of the innermost ``use_mesh`` block, or None."""
+    return _MESHES[-1][0] if _MESHES else None
+
+
+@contextlib.contextmanager
+def record_constraints():
+    """A list of ``(activation shape, batch axes)``, one per
+    ``constrain_batch`` under a mesh inside the block."""
+    log: list = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+def constrain_batch(x: torch.Tensor, batch_axis: int = 0,
+                    dp: bool = False) -> torch.Tensor:
+    """Pin the batch dim of an activation to the data-parallel mesh axes
+    (a layout hint: ``x`` is returned as it is).
+
+    The identity when no mesh is ambient.  Under one, the axes are
+    ``(pod, data)`` (with ``dp`` also ``model``) present on the mesh,
+    dropped from the front until the global batch divides them (none when
+    it divides none, e.g. global_batch=1 long-context decode), as the
+    reference drops them; they are recorded for
+    :func:`record_constraints`."""
+    if not _MESHES:
+        return x
+    m, shards = _MESHES[-1]
+    names = ("pod", "data", "model") if dp else ("pod", "data")
+    bax = tuple(a for a in names if a in m.axis_names)
+    n = x.shape[batch_axis] * shards
+    while bax and n % math.prod(m.shape[a] for a in bax):
+        bax = bax[1:]
+    for log in _LOGS:
+        log.append((tuple(x.shape), bax))
+    return x
 
 
 def cdtype(cfg) -> torch.dtype:
@@ -66,7 +145,8 @@ def new_param(shape, device, generator: torch.Generator | None = None,
             t.fill_(1.0 if init == "ones" else 0.0)
     else:
         t = dense_init(generator, shape, scale=init, device=device)
-    return nn.Parameter(t, requires_grad=False)
+    p = nn.Parameter(t, requires_grad=False)
+    return _MADE[-1](p) if _MADE else p
 
 
 def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:

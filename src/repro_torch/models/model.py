@@ -38,7 +38,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import xlstm as xl
-from repro_torch.models.common import cdtype, layer_norm, new_param, rms_norm
+from repro_torch.models.common import (cdtype, constrain_batch, layer_norm,
+                                       new_param, rms_norm)
 from repro_torch.models.mlp import (gelu_mlp, init_gelu_mlp, init_swiglu,
                                     swiglu)
 from repro_torch.models.moe import init_moe, moe_apply
@@ -136,7 +137,7 @@ def _attn_block_train(p: AttnBlock, cfg, x):
     if p.ffn is not None:
         y, aux = _ffn(p, cfg, h)
         h = h + y
-    return h, aux
+    return constrain_batch(h, dp=cfg.shard_strategy == "dp"), aux
 
 
 def _attn_block_prefill(p: AttnBlock, cfg, x, cache):
@@ -146,7 +147,7 @@ def _attn_block_prefill(p: AttnBlock, cfg, x, cache):
     h = x + y
     if p.ffn is not None:
         h = h + _ffn(p, cfg, h)[0]
-    return h, cache
+    return constrain_batch(h, dp=cfg.shard_strategy == "dp"), cache
 
 
 def _attn_block_decode(p: AttnBlock, cfg, x, cache, pos):
@@ -156,7 +157,7 @@ def _attn_block_decode(p: AttnBlock, cfg, x, cache, pos):
     h = x + y
     if p.ffn is not None:
         h = h + _ffn(p, cfg, h)[0]
-    return h, cache
+    return constrain_batch(h, dp=cfg.shard_strategy == "dp"), cache
 
 
 # --------------------------------------------------------------------- #
@@ -217,8 +218,11 @@ _MIXERS = {
 
 
 def _mix_block_train(kind: str, bp: MixBlock, cfg, x):
-    return x + _MIXERS[kind][0](bp.mix, cfg,
-                                rms_norm(x, bp.ln, cfg.norm_eps))[0]
+    h = x + _MIXERS[kind][0](bp.mix, cfg,
+                             rms_norm(x, bp.ln, cfg.norm_eps))[0]
+    # the reference pins the mLSTM and Mamba blocks' outputs, not sLSTM's
+    return h if kind == "slstm" else constrain_batch(
+        h, dp=cfg.shard_strategy == "dp")
 
 
 def _shared_attn_train(p: AttnBlock, cfg, x):
@@ -304,8 +308,9 @@ def _whisper_enc_block(bp: WhisperEncBlock, cfg, x):
     h = x + attn.attention_train(
         bp.attn, cfg, layer_norm(x, bp.ln1_w, bp.ln1_b, cfg.norm_eps),
         causal=False, use_rope=False)
-    return h + gelu_mlp(bp.ffn, layer_norm(h, bp.ln2_w, bp.ln2_b,
-                                           cfg.norm_eps))
+    h = h + gelu_mlp(bp.ffn, layer_norm(h, bp.ln2_w, bp.ln2_b,
+                                        cfg.norm_eps))
+    return constrain_batch(h, dp=cfg.shard_strategy == "dp")
 
 
 def _whisper_encode(params: "Model", cfg, frames):
@@ -519,7 +524,8 @@ def load_named(model: Model, named: dict) -> None:
 def _embed(params: Model, cfg, tokens):
     dt = cdtype(cfg)
     x = params.embed[tokens].to(dt)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    return constrain_batch(x, dp=cfg.shard_strategy == "dp")
 
 
 def _unembed(params: Model, cfg, x):

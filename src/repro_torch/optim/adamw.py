@@ -90,13 +90,17 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: dict, grads: dict,
-                  opt: OptState, ref_ndim: dict):
+                  opt: OptState, ref_ndim: dict,
+                  gnorm: torch.Tensor | None = None):
     """One AdamW step: ``params`` and the moments updated in place (a
     second copy of the moments would not fit beside a 3B model's on one
     card).  ``ref_ndim`` maps every name to its reference leaf's rank,
-    which decides the decay.  Returns ``(params, new_opt, metrics)``
+    which decides the decay.  ``gnorm``: the gradients' global norm when
+    the caller computed it (over a mesh's blocks,
+    ``runtime.sharded.global_norm``); else ``global_norm(grads)``.  Returns ``(params, new_opt, metrics)``
     with metrics ``grad_norm`` and ``lr`` (0-d float32 tensors)."""
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.minimum(_f32(1.0, gnorm), cfg.clip_norm / torch.maximum(
         gnorm, _f32(1e-9, gnorm)))
     step = opt.step + 1

@@ -3,8 +3,8 @@
 Usage (parent):  python -m repro_torch.testing.resilience_check
                      [--device cuda|cpu] [--ckpt-dir DIR]
 
-The parent orchestrates three **child** processes (the parent itself never
-touches the device):
+The parent orchestrates two **child** processes (the parent itself never
+touches the device), which run three solves:
 
   1. *victim*   — a 4×2 resilient solve (ell, a2a) with a ``preempt@K``
                   fault armed: the driver checkpoints every healthy chunk,
@@ -15,8 +15,10 @@ touches the device):
                   The plan is rebuilt from scratch and the solve re-enters
                   at the checkpointed x and iteration; it must converge
                   against the numpy f64 oracle.
-  3. *clean*    — the same 2×2 configuration solved uninterrupted: the
-                  iteration baseline the resumed run must stay near.
+  3. *clean*    — the same 2×2 configuration solved uninterrupted, by
+                  the resumed child after its resumed solve (on a process
+                  mesh: on the same spawned ranks): the iteration baseline
+                  the resumed run must stay near.
 
 Every child runs on ``--device`` (default ``cuda``).  Each prints one
 ``CHILD ...`` line; the parent prints its verdicts and ``OK``/``FAIL``.
@@ -71,8 +73,18 @@ def solve(args, mesh=None):
         device=args.device if mesh is None else mesh.device, mesh=mesh)
 
 
+def _solves(args) -> list:
+    """The child's solves: its own, then with ``--with-clean`` the same
+    configuration from scratch."""
+    out = [args]
+    if args.with_clean:
+        out.append(argparse.Namespace(**{**vars(args), "resume_from": None,
+                                         "with_clean": False}))
+    return out
+
+
 def _rank_solve(mesh, args):
-    return solve(args, mesh)
+    return [solve(a, mesh) for a in _solves(args)]
 
 
 def child_main(args) -> int:
@@ -81,7 +93,6 @@ def child_main(args) -> int:
     from repro_torch.testing.refine_check import host_cg
 
     A, b = _system(args)
-    tail = ""
     if args.mesh == "process":
         from repro_torch.launch.mesh import RanksKilled, spawn_cg_mesh
         try:
@@ -91,19 +102,33 @@ def child_main(args) -> int:
         except RanksKilled as e:
             print(f"CHILD KILLED {e.exitcodes}")
             return 3
-        res = ranks[0]
-        same = all(np.array_equal(r.iters, res.iters) for r in ranks)
-        tail = f" RANKS {'ok' if same else 'BAD'}"
+        results = []
+        for i in range(len(ranks[0])):
+            res = ranks[0][i]
+            same = all(np.array_equal(r[i].iters, res.iters)
+                       for r in ranks)
+            results.append((same, res, f" RANKS {'ok' if same else 'BAD'}"))
     else:
-        same, res = True, solve(args)
+        results = [(True, solve(a), "") for a in _solves(args)]
 
     xh = host_cg(A, b, tol=1e-10, maxiter=20_000)
+    rc = 0
+    for (same, res, tail), label in zip(results, ("", "CLEAN ")):
+        rc |= _report(args, res, same, xh, tail, label)
+    return rc
+
+
+def _report(args, res, same, xh, tail, label) -> int:
+    """One solve's ``CHILD`` line (``label`` marks the clean baseline of a
+    ``--with-clean`` child); 1 if it failed."""
+    import numpy as np
+
     dxh = float(np.linalg.norm(res.x - xh)
                 / max(float(np.linalg.norm(xh)), 1e-30))
     tr_max, dx_max = BOUNDS.get(args.solver, (2e-3, 5e-2))
     ok = (same and res.converged and res.true_rel < tr_max
           and dxh < dx_max)
-    print(f"CHILD SOLVER {args.solver} ITERS {int(np.max(res.iters))} "
+    print(f"CHILD {label}SOLVER {args.solver} ITERS {int(np.max(res.iters))} "
           f"CHUNKS {res.chunks} ROLLBACKS {res.rollbacks} "
           f"RESUMED_FROM {-1 if res.resumed_from is None else res.resumed_from} "
           f"TRUE_REL {res.true_rel:.3e} DX_HOST {dxh:.3e}{tail} "
@@ -164,28 +189,26 @@ def parent_main(args) -> int:
     ok &= have_ckpt and last > 0
 
     # 2) resumed: 2x2 grid, sell/ring — another grid shape, partition,
-    #    format and transport; re-enters at the checkpointed iteration
+    #    format and transport; re-enters at the checkpointed iteration;
+    # 3) then, in the same child (on the same ranks), the clean baseline
+    #    on the resume configuration
     r2 = _spawn(common + ["--n-node", "2", "--n-core", "2",
                           "--format", "sell", "--transport", "ring",
-                          "--resume-from", ckpt])
+                          "--resume-from", ckpt, "--with-clean"])
     sys.stdout.write(r2.stdout)
+    resumed = [ln for ln in r2.stdout.splitlines()
+               if "CHILD" in ln.split() and "CLEAN" not in ln.split()]
+    clean = [ln for ln in r2.stdout.splitlines() if "CHILD CLEAN" in ln]
     resumed_ok = r2.returncode == 0
-    resumed_from = int(_field(r2.stdout, "RESUMED_FROM") or -1)
-    it_resumed = int(_field(r2.stdout, "ITERS") or -1)
+    resumed_from = int(_field("\n".join(resumed), "RESUMED_FROM") or -1)
+    it_resumed = int(_field("\n".join(resumed), "ITERS") or -1)
     print(f"RESUMED rc={r2.returncode} from={resumed_from} "
           f"{'ok' if resumed_ok and resumed_from > 0 else 'BAD'}")
     if not resumed_ok:
         sys.stderr.write(r2.stderr)
     ok &= resumed_ok and resumed_from > 0
-
-    # 3) clean baseline on the resume configuration
-    r3 = _spawn(common + ["--n-node", "2", "--n-core", "2",
-                          "--format", "sell", "--transport", "ring"])
-    sys.stdout.write(r3.stdout)
-    clean_ok = r3.returncode == 0
-    it_clean = int(_field(r3.stdout, "ITERS") or -1)
-    if not clean_ok:
-        sys.stderr.write(r3.stderr)
+    clean_ok = bool(clean) and "BAD" not in clean[0].split()
+    it_clean = int(_field("\n".join(clean), "ITERS") or -1)
     ok &= clean_ok
 
     # the resumed run re-enters with a fresh Krylov space (β-chain reset),
@@ -223,6 +246,9 @@ def main(argv=None) -> int:
     ap.add_argument("--inject-fault", default=None)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume-from", default=None)
+    ap.add_argument("--with-clean", action="store_true",
+                    help="child: after its solve, the same configuration "
+                         "from scratch (the parent's baseline)")
     ap.add_argument("--mesh", default="virtual",
                     choices=["virtual", "process"],
                     help="virtual: each child's grid on one device; "

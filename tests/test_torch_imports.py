@@ -43,8 +43,9 @@ def test_scan_covers_every_module_of_the_port():
     """The scans below walk the whole package: the verifier, the
     collectives, the preconditioners, the test CLIs, the process mesh, the
     layers above the solvers that run on it, the config registry and the
-    LM model code (the recurrent mixers too) and the trainer (optimizer,
-    token pipeline, launcher) among them."""
+    LM model code (the recurrent mixers too), the trainer (optimizer,
+    token pipeline, launcher) and the sharded trainer and ring (the rules,
+    the stand-ins, the blocks, the ring and their checks) among them."""
     names = {str(p.relative_to(PKG)) for p in MODULES}
     assert {"analysis/__init__.py", "analysis/report.py",
             "analysis/plan_check.py", "analysis/kernel_check.py",
@@ -61,7 +62,9 @@ def test_scan_covers_every_module_of_the_port():
             "configs/base.py", "configs/fluidity_cg.py", "models/model.py",
             "models/attention.py", "models/moe.py", "models/mamba2.py",
             "models/xlstm.py", "optim/adamw.py", "data/pipeline.py",
-            "launch/train.py"} \
+            "launch/train.py", "launch/specs.py", "runtime/sharding.py",
+            "runtime/sharded.py", "runtime/overlap.py",
+            "testing/ring_check.py", "testing/train_mesh_check.py"} \
         <= names
 
 

@@ -9,6 +9,8 @@ Usage:  python tests/torch_reference.py OUT.npz [CASE ...]
         python tests/torch_reference.py OUT.npz --precond
         python tests/torch_reference.py OUT.npz --serve PORT_CKPT REF_CKPT
         python tests/torch_reference.py OUT.npz --modes
+        python tests/torch_reference.py OUT.npz --ring
+        python tests/torch_reference.py OUT.npz --train-mesh IN.npz ARCH
 
 A case is ``FORMAT/N_NODExN_CORE`` (default: ``ell/4x2 sell/4x2 ell/1x4
 sell/1x4``) on ``graded_extruded_mesh_matrix(48, 6, seed=0)`` — the golden
@@ -91,6 +93,16 @@ and sell, ``make_spmv`` (jnp) of ``x`` in distributed layout for each
 mode's own plan (``vector``/``task`` on equal rows, ``balanced`` on
 non-zeros, the default node partition), under
 ``"modes/<format>/<n_node>x<n_core>/<mode>/y"``.
+
+``--ring`` dumps ``repro.testing.ring_check``'s product through the
+reference's ring (``make_ring_linear`` over a ``model`` mesh of 4 XLA
+devices, jitted): ``x`` (8, 64) and ``w`` (64, 32) (``default_rng(0)``
+normals as float32) and ``y``.
+
+``--train-mesh IN.npz ARCH`` dumps the reference's sharded train step on a
+2x2 ``data x model`` mesh of 4 XLA devices from the weights and batches in
+``IN.npz`` (``dump_train_mesh``): each step's ``losses`` and
+``grad_norms``.
 
 ``--resilient PORT_CKPT REF_CKPT`` works on ``resilience_check``'s system
 (``graded_extruded_mesh_matrix(48, 6)``, RHS ``default_rng(1)``, jacobi,
@@ -451,8 +463,77 @@ def dump_serve(port_ckpt: str, ref_ckpt: str) -> dict:
     return out
 
 
+def dump_ring() -> dict:
+    import jax
+
+    from repro.runtime.overlap import make_ring_linear
+    from repro.util import make_mesh_compat
+
+    mesh = make_mesh_compat((4,), ("model",))
+    rng = np.random.default_rng(0)
+    x = np.asarray(rng.normal(size=(8, 64)), np.float32)
+    w = np.asarray(rng.normal(size=(64, 32)), np.float32)
+    y = np.asarray(jax.jit(make_ring_linear(mesh, "model"))(x, w))
+    return {"x": x, "w": w, "y": y}
+
+
+def dump_train_mesh(inputs: str, arch: str) -> dict:
+    """The reference's trainer as ``launch/train.py`` jits it (parameters
+    sharded by ``param_pspecs``) on a 2x2 ``data x model`` mesh of 4 XLA
+    host devices: ``arch`` at ``reduced()`` and float32 compute, from the
+    weights in ``inputs`` (the reference's layout, ``/``-joined keys under
+    ``params/``), on its ``tokens/<i>`` (and ``frames/<i>``) batches, AdamW
+    lr 3e-5, warmup 1.  Returns each step's ``losses`` and
+    ``grad_norms``."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.launch.train import make_train_step
+    from repro.optim import AdamWConfig, init_opt
+    from repro.runtime.sharding import named, param_pspecs
+    from repro.util import make_mesh_compat
+
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    tree, batches = {}, {}
+    with np.load(inputs) as f:
+        for key in f.files:
+            head, _, rest = key.partition("/")
+            if head == "params":
+                *parents, leaf = rest.split("/")
+                node = tree
+                for k in parents:
+                    node = node.setdefault(k, {})
+                node[leaf] = f[key]
+            else:
+                batches.setdefault(int(rest), {})[head] = jnp.asarray(f[key])
+    mesh = make_mesh_compat((2, 2), ("data", "model"))
+    psh = named(mesh, param_pspecs(cfg, mesh, tree))
+    params = jax.device_put(tree, psh)
+    opt = init_opt(params)
+    steps = len(batches)
+    step_fn = jax.jit(make_train_step(cfg, AdamWConfig(
+        lr=3e-5, warmup_steps=1, total_steps=steps)),
+        in_shardings=(psh, None, None), out_shardings=(psh, None, None, None))
+    losses, norms = [], []
+    for i in range(steps):
+        params, opt, loss, metrics = step_fn(params, opt, batches[i])
+        losses.append(float(loss))
+        norms.append(float(metrics["grad_norm"]))
+    return {"losses": np.asarray(losses), "grad_norms": np.asarray(norms)}
+
+
 def main() -> int:
     path, cases = sys.argv[1], sys.argv[2:] or CASES
+    if cases == ["--ring"]:
+        np.savez(path, **dump_ring())
+        return 0
+    if cases[0] == "--train-mesh":
+        np.savez(path, **dump_train_mesh(*cases[1:]))
+        return 0
     if cases == ["--transports"]:
         np.savez(path, **dump_transports())
         return 0
