@@ -12,7 +12,8 @@ and 6m, then the kernels of 6m's path (at its shapes, against their plain
 versions) and the last lines, for a run on several cards; ``--only lm``
 (``--only train``) runs phases 1 and 6n (6o), then the ``nvidia-smi``
 line and the last line; ``--only shard`` runs phase 1 and phase 6p's
-full-width path on four cards, then the same two lines.
+full-width path on four cards (sharded training, serving and the
+dry-run's four-card cells), then the same two lines.
 
 1. device   the card's name and power limit (``nvidia-smi``) and the
             rates the bounds use (3.35 TB/s and 67 TFLOP/s f32 for H100
@@ -232,9 +233,10 @@ full-width path on four cards, then the same two lines.
             wire's ms per SpMV and its exposed part (``procmesh_modes``:
             ``y``, ghosts, iterations and ``x`` bit for bit across
             ``vector`` and ``task``, whose cg runs to 1e-2),
-            then fused cg + jacobi to tol 1e-6 after a warm block
-            (iterations equal on every rank and within ±1 of the virtual
-            mesh's, true relative residual < 1e-4, iterates held to the
+            then, on the sell plan, fused cg + jacobi to
+            ``PROCMESH_TOL`` (1e-3) after a warm block (iterations equal on every rank and within ±1 of
+            the virtual mesh's at that tol, true relative residual <
+            10·tol, iterates held to the
             virtual mesh's bit for bit and reported), with the rank's
             launch counts zeroed just before and read just after (the
             kernels of the mode's schedule, ``path_kernels``, every
@@ -256,7 +258,8 @@ full-width path on four cards, then the same two lines.
             every rank and within ±1 of phase 6h's, the ELL offd pass
             launched at R's and P's shapes on every rank, per-rank host
             build seconds);
-            the resilient driver there in chunks of 50 (every rank's
+            the resilient driver there in chunks of 50, to the
+            monolithic solve's tol (every rank's
             rows of the whole ``x`` bit for bit its monolithic shard,
             ``nan@60`` rolled back once with one trajectory on every
             rank); the service (nrhs 4, the first 5 of phase 6i's
@@ -432,7 +435,39 @@ full-width path on four cards, then the same two lines.
             each rank within 1e-5·max|y| of the float64 product; the
             ring's ms, its wire's and exposed wire's ms, against the
             all-gather-then-one-``torch.matmul`` form's (median of 10,
-            CUDA events, the ranks released together by a barrier);
+            CUDA events, the ranks released together by a barrier).
+            Also under ``--only shard`` (sharded serving and the
+            dry-run, ``launch/dryrun.py``): (b2) one more granite step
+            measured as the dry-run measures its train cell (flops by
+            ``FlopCounterMode``, the allocator's peak less what lies
+            beside the step's arguments) against ``dryrun.predict`` on a
+            fake 2x2 process group, made before the spawn: flops equal,
+            peak within 10%; (d) qwen2.5-3b at full width, f32 compute
+            and caches, bf16 weights, 4 prompts x 512 and 16 greedy
+            steps on each rank's card alone and on the 2x2 mesh
+            (weights split over ``model``, KV caches as each rank's
+            slice of the sequence): tokens equal, logits and every cache
+            block within 1e-5·max|ref|, a second mesh run bit for bit;
+            (e) yi-34b at full width and bf16 on the 2x2 mesh (34.4 GB of
+            weights a rank; one card cannot hold the 68.8 GB): a decode
+            step of the dry-run's cell (4 rows, 528 slots) against its
+            prediction (flops equal, peak within 10%), its wire by kind
+            and device ms and launches (``torch.profiler``, rank 0), then
+            4 prompts x 512 and 16 greedy steps: prefill ms, decode ms
+            a step, tokens/s, tokens in vocab, logits finite, every
+            rank's peak under 80 GB; then ``localsgd_check`` (2 ranks)
+            and ``elastic_check`` (4 then 2 ranks) over NCCL, ``OK``;
+6q. dryrun  sharded serving on the 1x1 NCCL mesh (phase shard's rank,
+            after its trainer: qwen2.5-3b at ``reduced()``, f32: tokens,
+            logits and cache bit for bit the non-mesh path's), then two
+            cells one card runs, each
+            predicted by ``dryrun.predict`` on a 1x1 mesh (fake tensors)
+            and run for real on the card by ``dryrun.build_cell``:
+            qwen2.5-3b decode at phase lm's shape (4 rows, 576 slots,
+            bf16) and train at phase train's (B 4 x S 512, remat
+            ``full``): flops equal, the predicted peak within 10% of
+            ``max_memory_allocated`` over the step (less what lies beside
+            its arguments), with ``total_memory``;
 7. the ``kernels`` line (B1-B4, B5 and the flat ELL, then B1/B2 at R's
    and P's shapes with phase 6g's launches and the library's time on R or
    P, then the batched B1-B4 at k = 4 with phase 6i's launches and SpMM's
@@ -3245,6 +3280,11 @@ PROCMESH_TWO_LEVEL = {"agg_size": 256, "smoother": "jacobi"}
 #: time stays under 15%
 PROCMESH_MODES = {"sell/4x2/rows": ("vector", "task")}
 PROCMESH_MODES_TOL = 1e-2
+#: phase procmesh's cg: on the balanced sell plan only (the one its layers
+#: build on; the ell plan runs its SpMV), to 1e-3 (~250 iterations, not
+#: 1e-6's 515 at gloo's 40-140 ms), and its resilient driver to the same
+#: tol: they keep the default run near 900 s with phase dryrun added
+PROCMESH_SOLVE, PROCMESH_TOL = "sell/4x2", 1e-3
 
 
 def rows_plan(A, key: str, device):
@@ -3542,7 +3582,8 @@ def procmesh_layers(mesh, job, sync, mono: dict) -> dict:
     # chunked = monolithic: every rank holds the whole x, and its rows
     # must be its monolithic shard's bits (the verdicts read the chunks'
     # device probe; resilience_check below reads the host residual)
-    kw = dict(layout=layout, tol=1e-6, maxiter=10_000, check_every=50)
+    kw = dict(layout=layout, tol=mono["tol"], maxiter=10_000,
+              check_every=50)
     t0 = start()
     clean = resilient_solve(plan, b, **kw)
     row = done(t0)
@@ -3940,8 +3981,9 @@ def phase_procmesh(A, plans, x, b, smi, two_level: dict,
     keys = (*PROCMESH_PLANS, *PROCMESH_HALOFREE)
     mplans = {k: plans[k] for k in keys}
     mplans.update({k: rows_plan(A, k, DEVICE) for k in PROCMESH_MODES})
-    solve = (*PROCMESH_PLANS, *PROCMESH_MODES)
+    solve = (PROCMESH_SOLVE, *PROCMESH_MODES)
     tols = {k: PROCMESH_MODES_TOL for k in PROCMESH_MODES}
+    tols[PROCMESH_SOLVE] = PROCMESH_TOL
     with tempfile.TemporaryDirectory(prefix="procmesh_") as d:
         t0 = time.perf_counter()
         job = write_job(mplans, x, b, d)
@@ -4571,8 +4613,12 @@ def shard_rank(mesh, job: dict) -> dict:
         out.update(one=one, mesh_row=got,
                    bits_equal=(one["losses"] == got["losses"]
                                and one["grad_norms"] == got["grad_norms"]
-                               and tm.checksums(m1) == tm.checksums(m2)),
-                   port_kernels={k: v for k, v in LAUNCHES.items() if v})
+                               and tm.checksums(m1) == tm.checksums(m2)))
+        del m1, m2
+        t0 = time.perf_counter()
+        out["serve"] = dryrun_rank(mesh)     # phase dryrun's 1x1 server
+        out["serve"]["seconds"] = round(time.perf_counter() - t0, 3)
+        out["port_kernels"] = {k: v for k, v in LAUNCHES.items() if v}
         return out
 
     # (a) qwen2.5-3b at f32: the one-card trainer on rank 0, its
@@ -4668,9 +4714,20 @@ def shard_rank(mesh, job: dict) -> dict:
                      opt=opt)
     out["granite"]["max_memory_allocated"] = \
         torch.cuda.max_memory_allocated(dev)
+    lap("profile")
+
+    # (b2) one more granite step measured against the dry-run's cell
+    out["granite"]["measured"] = train_measure(cfg, mesh, model, opt, tok,
+                                               SHARD_B, SHARD_S)
     del model, opt
     torch.cuda.empty_cache()
-    lap("profile")
+    lap("granite_measured")
+
+    # (d) sharded serving: qwen2.5-3b f32 against one card, then yi-34b
+    out["serve_check"] = serve_parity(mesh)
+    lap("serve_check")
+    out["serve_big"] = serve_big(mesh)
+    lap("serve_big")
 
     # (c) the ring over every rank (model = 4), f32 and bf16 storage
     ring_mesh = make_host_mesh(model=mesh.size, device=dev,
@@ -4685,7 +4742,7 @@ def shard_rank(mesh, job: dict) -> dict:
     return out
 
 
-def phase_shard(smi: str, bw: float, full: bool) -> None:
+def phase_shard(smi: str, bw: float, full: bool) -> dict | None:
     """6p: the sharded trainer and the ring (see the module docstring).
     ``full``: the full-width path on ``SHARD_RANKS`` cards; else the 1x1
     NCCL mesh against the one-device trainer."""
@@ -4717,6 +4774,7 @@ def phase_shard(smi: str, bw: float, full: bool) -> None:
           f"shard: {cards + 1} NCCL ranks on {cards} card(s) not refused "
           f"before a spawn ({refusal!r}, {started} started)")
 
+    served = None
     if not full:
         t0 = time.perf_counter()
         (r,) = spawn_mesh(shard_rank, 1, DEVICE, backend="nccl",
@@ -4727,25 +4785,34 @@ def phase_shard(smi: str, bw: float, full: bool) -> None:
              seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
         check(r["bits_equal"], "shard: the 1x1 NCCL mesh trainer differs "
               "from the one-device trainer")
-        ranks = [r]
+        ranks, served = [r], r["serve"]
     else:
         check(cards >= SHARD_RANKS, f"shard: the full-width path needs "
               f"{SHARD_RANKS} cards, this host has {cards}")
+        t0 = time.perf_counter()
+        preds = {"granite": predicted(SHARD_ARCH, "train", SHARD_B, SHARD_S,
+                                      (2, 2)),
+                 "yi": predicted(SERVE_BIG, "decode", SERVE_B,
+                                 SERVE_S + SERVE_STEPS, (2, 2))}
+        predict_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ranks = spawn_mesh(shard_rank, SHARD_RANKS, DEVICE, backend="nccl",
                            args=({"kind": "full"},), timeout=1500)
         spawn_s = time.perf_counter() - t0
         shard_report(ranks, smi, bw, spawn_s)
+        serve_report(ranks, preds, smi, predict_s)
+        shard_checks(smi)
     port = {}
     for r in ranks:
         for k, v in r["port_kernels"].items():
             port[k] = port.get(k, 0) + v
     emit("shard", what="port_kernels", launched=port,
          seconds=round(time.perf_counter() - t_phase, 3),
-         statement="sharded training and the ring launch none of the "
-                   "port's CUDA kernels: their products are torch.matmul "
-                   "(cuBLAS), their collectives NCCL's")
+         statement="sharded training, serving and the ring launch none "
+                   "of the port's CUDA kernels: their products are "
+                   "torch.matmul (cuBLAS), their collectives NCCL's")
     check(not port, f"shard: the port's SpMV kernels launched: {port}")
+    return served
 
 
 def shard_report(ranks: list, smi: str, bw: float, spawn_s: float) -> None:
@@ -4853,6 +4920,365 @@ def shard_report(ranks: list, smi: str, bw: float, spawn_s: float) -> None:
               f"{max(errs)} of max|y| >= {SHARD_RING_GATE}")
 
 
+# ---------------------------------------------------------------------- #
+# sharded serving and the dry-run against the card
+# ---------------------------------------------------------------------- #
+#: the dry-run's predicted peak against the allocator's (relative)
+DRYRUN_PEAK_REL = 0.10
+#: the 1x1 NCCL serving check, and the arch whose cells one card runs
+DRYRUN_ARCH = "qwen2.5-3b"
+#: ``--only shard``'s serving: the f32 parity arch and the arch no card
+#: holds alone; prompts x length, greedy steps; a second run bit for bit
+SERVE_CHECK, SERVE_BIG = "qwen2.5-3b", "yi-34b"
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 512, 16
+SERVE_GATE = 1e-5
+
+
+def sync_all(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def real_measure(cell) -> tuple[dict, int]:
+    """``dryrun.measure`` of a cell built for real on the card, and the
+    allocator's peak over the step: ``max_memory_allocated`` after a
+    reset, less what was allocated beside the cell's arguments."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    dev = next(t.device for t in cell.arguments)
+    sync_all(dev)
+    args = sum(dryrun._storages(cell.arguments).values())
+    beside = torch.cuda.memory_allocated(dev) - args
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = dryrun.measure(cell)
+    sync_all(dev)
+    got.pop("result")
+    got.pop("census")
+    return got, torch.cuda.max_memory_allocated(dev) - beside
+
+
+def predicted(arch: str, kind: str, batch: int, seq: int, sizes: tuple,
+              remat: str | None = None) -> dict:
+    """``dryrun.predict`` of rank 0 of a ``data x model`` mesh of
+    ``sizes``, in a process of its own (a mesh of more than one rank
+    joins a fake process group)."""
+    kw = dict(arch=arch, kind=kind, batch=batch, seq=seq, sizes=sizes,
+              axes=("data", "model"), remat_policy=remat)
+    code = ("import json, sys; from repro_torch.launch.dryrun import "
+            "predict; print(json.dumps(predict(**json.loads(sys.argv[1]))))")
+    r = subprocess.run([sys.executable, "-c", code, json.dumps(kw)],
+                       capture_output=True, text=True, timeout=900,
+                       env=dict(os.environ, PYTHONPATH=str(SRC)))
+    check(r.returncode == 0, f"dryrun predict {kw}: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def against(pred: dict, flops: float, peak: int) -> dict:
+    """A prediction's flops and peak against a measured step's."""
+    p = pred["per_device"]
+    return {"predicted_flops": p["hlo_flops"], "measured_flops": flops,
+            "flops_equal": p["hlo_flops"] == flops,
+            "predicted_peak": p["peak_bytes"], "measured_peak": peak,
+            "peak_rel": abs(p["peak_bytes"] - peak) / peak,
+            "predicted_argument": p["argument_bytes"],
+            "predicted_dominant": pred["roofline"]["dominant"]}
+
+
+def train_measure(cfg, mesh, model, opt, tok, batch: int, seq: int) -> dict:
+    """One more training step of the mesh trainer's ``model``/``opt`` on
+    the rank's rows ``tok``, measured as the dry-run measures its train
+    cell (``make_train_step(cfg, AdamWConfig(), 1)``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.common import use_mesh
+    from repro_torch.optim import AdamWConfig
+
+    step = make_train_step(cfg, AdamWConfig(), accum=1)
+    shards = batch // tok.shape[0]
+
+    def train_step(model, opt, data):
+        with use_mesh(mesh, shards):
+            model, opt, loss, _ = step(model, opt, data)
+        return model, opt, loss
+
+    data = {"tokens": tok}
+    cell = dryrun.Cell(cfg, None, mesh, train_step, (model, opt, data))
+    got, peak = real_measure(cell)
+    return {"flops": got["hlo_flops"], "peak": peak,
+            "argument_bytes": got["argument_bytes"]}
+
+
+def serve_parity(mesh) -> dict:
+    """``--only shard`` (d): qwen2.5-3b at full width, f32 compute and
+    caches, ``SERVE_B`` prompts of ``SERVE_S`` and ``SERVE_STEPS`` greedy
+    steps on this rank's card alone and on the 2x2 mesh, twice."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_rows
+    from repro_torch.testing import serve_mesh_check as sm
+
+    dev = mesh.device
+    cfg = dataclasses.replace(get_config(SERVE_CHECK),
+                              compute_dtype="float32")
+    kw = dict(batch=SERVE_B, seq=SERVE_S, steps=SERVE_STEPS,
+              slots=SERVE_S + SERVE_STEPS, seed=SEED)
+    one = sm.serve_steps(cfg, dev, **kw)
+    del one["model"]
+    torch.cuda.empty_cache()
+    first = sm.serve_steps(cfg, dev, mesh=mesh, **kw)
+    second = sm.serve_steps(cfg, dev, mesh=mesh, model=first["model"], **kw)
+    rows = batch_rows(cfg, mesh, SERVE_B, SERVE_S)
+    cmp = sm.compare(one, first, rows, first["placements"])
+    out = {"tokens_equal": cmp["tokens_equal"], "logit_rel": cmp["logit_rel"],
+           "cache_rel": cmp["cache_rel"],
+           "repeat_bits_equal": sm._same_bits(first, second),
+           "one_card_prefill_ms": one["prefill_ms"],
+           "one_card_step_ms": one["step_ms"],
+           "mesh_prefill_ms": first["prefill_ms"],
+           "mesh_step_ms": first["step_ms"]}
+    del one, first, second
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_big(mesh) -> dict:
+    """``--only shard`` (e): yi-34b at full width and bf16 on the 2x2
+    mesh, its weights split over ``model`` (34.4 GB a rank): one decode
+    step of the dry-run's cell measured (flops, peak, the wire by kind,
+    device ms and launches), then ``SERVE_B`` prompts of ``SERVE_S`` and
+    ``SERVE_STEPS`` greedy steps on the same weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.collectives import WIRE, reset_wire
+    from repro_torch.launch import dryrun
+    from repro_torch.testing import serve_mesh_check as sm
+
+    dev = mesh.device
+    cfg = get_config(SERVE_BIG)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cell = dryrun.build_cell(SERVE_BIG, mesh=mesh, shape=ShapeConfig(
+        "decode", SERVE_S + SERVE_STEPS, SERVE_B, "decode"), device=dev,
+        generator=gen)
+    model = cell.args[0]
+    params_local = sum(t.numel() * t.element_size()
+                       for t in model.sharding.params.values())
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    cell.fn(*cell.args)                       # warm the step once
+    reset_wire()
+    got, peak = real_measure(cell)
+    wire = dict(WIRE)
+    out = {"measured": {"flops": got["hlo_flops"], "peak": peak,
+                        "argument_bytes": got["argument_bytes"]},
+           "params_bytes_local": params_local, "init_peak": init_peak,
+           "wire_ms_per_step": {k: v * 1e3 for k, v in
+                                wire["by_kind"].items()},
+           "wire_calls_per_step": wire["calls"],
+           "wire_bytes_per_step": wire["bytes"]}
+    if mesh.rank == 0:
+        by_name, launches = device_profile(lambda: cell.fn(*cell.args),
+                                           cpu=False)
+        out.update(device_ms_per_step=sum(by_name.values()),
+                   launches_per_step=launches,
+                   top5_device_ms=dict(sorted(
+                       by_name.items(), key=lambda kv: -kv[1])[:5]))
+    else:
+        cell.fn(*cell.args)                   # the profiled step's calls
+    run = sm.serve_steps(cfg, dev, batch=SERVE_B, seq=SERVE_S,
+                         steps=SERVE_STEPS, slots=SERVE_S + SERVE_STEPS,
+                         seed=SEED, mesh=mesh, model=model,
+                         kv_dtype=torch.bfloat16, keep_cache=False)
+    out.update(tokens=run["tokens"].tolist(),
+               tokens_ok=bool(((run["tokens"] >= 0)
+                               & (run["tokens"] < cfg.vocab)).all()),
+               logits_finite=bool(np.isfinite(run["logits"]).all()),
+               prefill_ms=run["prefill_ms"], step_ms=run["step_ms"],
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    del cell, model, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_rank(mesh) -> dict:
+    """Phase dryrun's 1x1 NCCL rank (phase shard's): sharded serving of
+    ``DRYRUN_ARCH`` at ``reduced()`` against the non-mesh path, bit for
+    bit."""
+    from repro_torch.testing import serve_mesh_check as sm
+
+    cfg = sm._cfg(DRYRUN_ARCH)
+    kw = dict(batch=LM_B, seq=LM_S, steps=4, slots=LM_S + 8, seed=SEED)
+    one = sm.serve_steps(cfg, mesh.device, **kw)
+    got = sm.serve_steps(cfg, mesh.device, mesh=mesh, **kw)
+    return {"bits_equal": sm._same_bits(one, got),
+            "tokens": got["tokens"].tolist()}
+
+
+def dryrun_cell(name: str, kind: str, batch: int, seq: int,
+                remat: str | None, smi: str) -> None:
+    """A cell one card runs: the dry-run's prediction on a 1x1 mesh, then
+    the same step for real (``build_cell`` on the card)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    pred = dryrun.predict(DRYRUN_ARCH, kind, batch, seq, (1, 1),
+                          ("data", "model"), remat_policy=remat)
+    t_pred = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cell = dryrun.build_cell(DRYRUN_ARCH, cfg=get_config(DRYRUN_ARCH),
+                             remat_policy=remat,
+                             mesh=make_host_mesh(device=DEVICE),
+                             shape=ShapeConfig(kind, seq, batch, kind),
+                             device=DEVICE, generator=gen)
+    got, peak = real_measure(cell)
+    del cell
+    torch.cuda.empty_cache()
+    row = against(pred, got["hlo_flops"], peak)
+    emit("dryrun_cell", cell=name, arch=DRYRUN_ARCH, kind=kind,
+         batch=batch, seq=seq, remat_policy=remat, **row,
+         predicted_hlo_bytes=pred["per_device"]["hlo_bytes"],
+         measured_hlo_bytes=got["hlo_bytes"],
+         predicted_roofline=pred["roofline"], fake_device=pred["fake_device"],
+         total_memory=torch.cuda.get_device_properties(0).total_memory,
+         predict_s=round(t_pred, 3),
+         seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
+    check(row["flops_equal"], f"dryrun {name}: predicted flops "
+          f"{row['predicted_flops']} != measured {row['measured_flops']}")
+    check(row["peak_rel"] <= DRYRUN_PEAK_REL, f"dryrun {name}: predicted "
+          f"peak {row['predicted_peak']} vs measured {peak}")
+
+
+def phase_dryrun(smi: str, r: dict) -> None:
+    """6q: sharded serving on the 1x1 NCCL mesh (``r``: ``dryrun_rank``'s
+    row, run on phase shard's 1x1 rank after its trainer), then the
+    dry-run against the card (see the module docstring)."""
+    emit("dryrun_serve_1x1", arch=DRYRUN_ARCH + " reduced", batch=LM_B,
+         seq=LM_S, steps=4, bits_equal=r["bits_equal"], tokens=r["tokens"],
+         seconds=r["seconds"], nvidia_smi=smi)
+    check(r["bits_equal"], "dryrun: sharded serving on the 1x1 NCCL mesh "
+          "differs from the non-mesh path")
+    dryrun_cell("decode", "decode", LM_BATCH, LM_MAX_LEN, None, smi)
+    dryrun_cell("train", "train", TRAIN_B, TRAIN_S, "full", smi)
+
+
+def serve_report(ranks: list, preds: dict, smi: str,
+                 predict_s: float) -> None:
+    """The lines and gates of ``--only shard``'s serving and dry-run
+    comparisons (d, e, b2) from its ranks."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    c = [r["serve_check"] for r in ranks]
+    emit("shard_serve_check", arch=SERVE_CHECK, compute_dtype="float32",
+         cache_dtype="float32", weights="bfloat16", mesh=ranks[0]["mesh"],
+         batch=SERVE_B, prompt=SERVE_S, steps=SERVE_STEPS,
+         tokens_equal=[x["tokens_equal"] for x in c],
+         logit_rel=[x["logit_rel"] for x in c],
+         cache_rel=[x["cache_rel"] for x in c], gate=SERVE_GATE,
+         repeat_bits_equal=[x["repeat_bits_equal"] for x in c],
+         one_card_prefill_ms=c[0]["one_card_prefill_ms"],
+         one_card_step_ms=c[0]["one_card_step_ms"],
+         mesh_prefill_ms=c[0]["mesh_prefill_ms"],
+         mesh_step_ms=c[0]["mesh_step_ms"], nvidia_smi=smi)
+    check(all(x["tokens_equal"] for x in c), "shard serve: 2x2 tokens "
+          "differ from one card's")
+    check(max(x["logit_rel"] for x in c) <= SERVE_GATE
+          and max(x["cache_rel"] for x in c) <= SERVE_GATE,
+          f"shard serve: logits {[x['logit_rel'] for x in c]}, caches "
+          f"{[x['cache_rel'] for x in c]} over {SERVE_GATE}")
+    check(all(x["repeat_bits_equal"] for x in c), "shard serve: a second "
+          "2x2 run differs")
+
+    cfg = get_config(SERVE_BIG)
+    y = [r["serve_big"] for r in ranks]
+    steps = statistics.median(y[0]["step_ms"][1:])
+    vs = [against(preds["yi"], r["measured"]["flops"],
+                  r["measured"]["peak"]) for r in y]
+    mem = [max(r["init_peak"], r["max_memory_allocated"]) for r in y]
+    emit("shard_serve_big", arch=SERVE_BIG, n_params=cfg.n_params(),
+         weights="bfloat16", mesh=ranks[0]["mesh"], batch=SERVE_B,
+         prompt=SERVE_S, steps=SERVE_STEPS,
+         params_bytes_local=[r["params_bytes_local"] for r in y],
+         prefill_ms=[r["prefill_ms"] for r in y],
+         decode_ms_per_step=steps, step_ms=y[0]["step_ms"],
+         tokens_per_s=SERVE_B / (steps / 1e3),
+         prefill_tokens_per_s=SERVE_B * SERVE_S / (y[0]["prefill_ms"] / 1e3),
+         wire_ms_per_step=[r["wire_ms_per_step"] for r in y],
+         wire_calls_per_step=y[0]["wire_calls_per_step"],
+         wire_bytes_per_step=y[0]["wire_bytes_per_step"],
+         device_ms_per_step=y[0].get("device_ms_per_step"),
+         launches_per_step=y[0].get("launches_per_step"),
+         top5_device_ms=y[0].get("top5_device_ms"),
+         max_memory_allocated=mem, init_peak=[r["init_peak"] for r in y],
+         tokens_ok=all(r["tokens_ok"] for r in y),
+         logits_finite=all(r["logits_finite"] for r in y),
+         tokens=y[0]["tokens"], nvidia_smi=smi)
+    emit("shard_dryrun", cell=f"{SERVE_BIG} decode 2x2", batch=SERVE_B,
+         seq=SERVE_S + SERVE_STEPS, by_rank=vs,
+         predicted_roofline=preds["yi"]["roofline"],
+         predicted_collectives=preds["yi"]["per_device"]["collective_by_kind"],
+         predict_s=round(predict_s, 3), nvidia_smi=smi)
+    check(all(r["tokens_ok"] and r["logits_finite"] for r in y),
+          f"shard {SERVE_BIG}: tokens out of vocab or logits not finite")
+    check(max(mem) < SHARD_MEMORY, f"shard {SERVE_BIG}: a rank peaked at "
+          f"{max(mem)} bytes")
+    g = [against(preds["granite"], r["granite"]["measured"]["flops"],
+                 r["granite"]["measured"]["peak"]) for r in ranks]
+    emit("shard_dryrun", cell=f"{SHARD_ARCH} train 2x2", batch=SHARD_B,
+         seq=SHARD_S, by_rank=g,
+         predicted_roofline=preds["granite"]["roofline"],
+         predicted_collectives=preds["granite"]["per_device"][
+             "collective_by_kind"],
+         total_memory=torch.cuda.get_device_properties(0).total_memory,
+         nvidia_smi=smi)
+    for name, rows in ((SERVE_BIG, vs), (SHARD_ARCH, g)):
+        check(all(r["flops_equal"] for r in rows), f"shard dryrun {name}: "
+              f"flops {[(r['predicted_flops'], r['measured_flops']) for r in rows]}")
+        check(max(r["peak_rel"] for r in rows) <= DRYRUN_PEAK_REL,
+              f"shard dryrun {name}: peaks "
+              f"{[(r['predicted_peak'], r['measured_peak']) for r in rows]}")
+
+
+def shard_checks(smi: str) -> None:
+    """``localsgd_check`` and ``elastic_check`` on NCCL ranks."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.testing import elastic_check, localsgd_check
+
+    for name, mod, argv in (
+            ("localsgd_check", localsgd_check, ()),
+            ("elastic_check", elastic_check, ("path",))):
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="elastic_")
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                ok = mod.report(mod.run(*([tmp] if argv else []), DEVICE,
+                                        "nccl"))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        emit("shard_" + name, dist_backend="nccl", ok=ok,
+             lines=buf.getvalue().splitlines(),
+             seconds=round(time.perf_counter() - t0, 3), nvidia_smi=smi)
+        check(ok, f"{name} --dist-backend nccl: {buf.getvalue()}")
+
+
 def library_ms(A, x) -> float:
     """One torch.sparse CSR matvec of the global matrix (the yardstick)."""
     import torch
@@ -4942,7 +5368,7 @@ def main(argv=None) -> int:
     phase_train(bw, smi)
     mesh_launches = phase_procmesh(A, plans, x, b, smi, two_level, service)
     phase_nccl(A, x, b, smi)
-    phase_shard(smi, bw, full=False)
+    phase_dryrun(smi, phase_shard(smi, bw, full=False))
     entries = [(name, KERNELS[name][1], launches[name], kern[name])
                for name in KERNELS]
     # the batched kernels at the service's k, with their serving launches

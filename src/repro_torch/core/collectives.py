@@ -79,7 +79,7 @@ __all__ = ["COLLECTIVE_OPS", "SOLVER_REDUCTION_OPS", "TRANSPORT_OPS",
            "all_to_all", "ppermute", "all_gather", "psum", "WIRE",
            "reset_wire", "CONTROL", "host_control", "Pending",
            "all_to_all_start", "ppermute_start", "all_gather_start",
-           "open_handles", "check_waited", "wire_seconds"]
+           "open_handles", "check_waited", "wire_seconds", "note_group"]
 
 COLLECTIVE_OPS = ("all-reduce", "reduce-scatter", "all-gather",
                   "all-to-all", "collective-permute",
@@ -109,7 +109,8 @@ class Collective:
     """One collective as issued: its kind (:data:`COLLECTIVE_OPS`), mesh
     axes, the operand of one shard for one column (shape, dtype), the
     columns it carried and, for ``collective-permute``, its src != dst
-    pairs."""
+    pairs.  An LM mesh's collective (:func:`note_group`) also carries
+    its ``group``'s size."""
 
     kind: str
     axis: tuple[str, ...]
@@ -117,6 +118,7 @@ class Collective:
     dtype: torch.dtype
     nrhs: int = 1
     pairs: int | None = None
+    group: int | None = None
 
     @property
     def nbytes(self) -> int:
@@ -160,6 +162,20 @@ def _note(kind: str, axis, x: torch.Tensor, lead: int,
         shape = (x.shape[lead + 1],) + shape
     rec = Collective(kind, (axis,) if isinstance(axis, str) else tuple(axis),
                      shape, x.dtype, math.prod(x.shape[:lead]), pairs)
+    for log in _RECORDERS:
+        log.append(rec)
+
+
+def note_group(kind: str, axes, x: torch.Tensor, size: int) -> None:
+    """Record one collective of an LM mesh (``launch.mesh.LMMesh``) for
+    the open :func:`record_collectives` blocks: ``kind``, the mesh
+    ``axes`` of its group, ``x`` the operand this rank hands it (its
+    block for an all-gather, the whole input for a reduce-scatter) and
+    the group's ``size``."""
+    if not _RECORDERS:
+        return
+    rec = Collective(kind, tuple(axes), tuple(x.shape), x.dtype,
+                     group=int(size))
     for log in _RECORDERS:
         log.append(rec)
 
@@ -438,10 +454,30 @@ class _OnCard(_Staged):
         return b.view(like.dtype).reshape(shape)
 
 
+class _Fake(_OnCard):
+    """One collective of a fake process group (``backend="fake"``: the
+    dry-run's ranks, ``launch.dryrun``): the payloads are fake tensors
+    that stay where they are, nothing moves and nothing is timed; the
+    call and its bytes are counted."""
+
+    def __init__(self, device: torch.device, kind: str):
+        self.device, self.kind = device, kind
+        self.on_card = True
+
+    def pending(self, works: list, finish, keep=()) -> Pending:
+        def done():
+            for w in works:
+                w.wait()
+            WIRE._d["calls"] += 1
+            return finish()
+        return Pending(self.kind, done, keep)
+
+
 def _wire(mesh, device: torch.device, kind: str) -> _Staged:
     """The wire of one collective on a process mesh: NCCL's on the card,
-    gloo's through the host."""
-    return (_OnCard if mesh.backend == "nccl" else _Staged)(device, kind)
+    gloo's through the host, a fake group's nowhere."""
+    return {"nccl": _OnCard, "fake": _Fake}.get(mesh.backend,
+                                                _Staged)(device, kind)
 
 
 def _gather_start(x: torch.Tensor, mesh, group, size: int, dim: int,

@@ -84,8 +84,13 @@ __all__ = ["CGMesh", "make_cg_mesh", "spawn_cg_mesh", "write_plan",
            "dist_backend", "BACKENDS", "RanksKilled"]
 
 #: the process mesh's backends: gloo on any device (host-staged on a
-#: card), NCCL one rank per card
-BACKENDS = ("gloo", "nccl")
+#: card), NCCL one rank per card; and ``fake``, only for an LM mesh that
+#: ``launch.dryrun`` joins as one rank of a fake process group
+#: (``torch.testing._internal.distributed.fake_pg``: every collective
+#: returns at once, nothing moves)
+BACKENDS = ("gloo", "nccl", "fake")
+#: the backends whose ranks are real processes
+_SPAWNED = BACKENDS[:2]
 
 
 class _HostControl:
@@ -227,7 +232,7 @@ def require_cards(world: int, device=None) -> None:
 def add_dist_backend(ap) -> None:
     """A CLI's ``--dist-backend``: the backend of its ``--mesh
     process`` (default gloo)."""
-    ap.add_argument("--dist-backend", default="gloo", choices=BACKENDS,
+    ap.add_argument("--dist-backend", default="gloo", choices=_SPAWNED,
                     help="with --mesh process: gloo (any device, payloads "
                          "through the host) or nccl (one rank per card)")
 
@@ -268,8 +273,8 @@ def make_cg_mesh(n_node: int, n_core: int, *, device=None,
     if backend is None and rank is None and world_size is None \
             and init_method is None:
         return CGMesh(n_node, n_core, device)
-    if backend not in BACKENDS:
-        raise ValueError(f"process mesh backend must be one of {BACKENDS} "
+    if backend not in _SPAWNED:
+        raise ValueError(f"process mesh backend must be one of {_SPAWNED} "
                          f"(or no backend for the virtual mesh), got "
                          f"{backend!r}")
     world = n_node * n_core
@@ -398,7 +403,10 @@ def make_mesh(sizes: tuple, axis_names: tuple, *, device=None,
     prod(sizes)``, as :func:`make_cg_mesh` joins one (NCCL: rank ``r`` on
     ``cuda:r``, refused before any process group without a card per rank;
     a gloo control group beside it), and builds the group of every tuple
-    of axes (every rank must call this, in the same order)."""
+    of axes (every rank must call this, in the same order).  With
+    ``backend="fake"`` this process alone is ``rank`` of a fake group of
+    ``world_size`` (no ``init_method``; the device is not checked): the
+    dry-run's stand-in for one device of a production mesh."""
     import itertools
 
     sizes, axis_names = tuple(int(n) for n in sizes), tuple(axis_names)
@@ -423,7 +431,11 @@ def make_mesh(sizes: tuple, axis_names: tuple, *, device=None,
         torch.cuda.set_device(device)
     import torch.distributed as dist
 
-    if not dist.is_initialized():
+    if not dist.is_initialized() and backend == "fake":
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=world)
+    elif not dist.is_initialized():
         if init_method is None:
             raise ValueError("a process mesh needs an init_method "
                              "('file://<path>' or 'tcp://<host>:<port>')")
@@ -496,10 +508,17 @@ def make_host_mesh(*, model: int | None = None, **process) -> LMMesh:
 
 def spawn_mesh(fn: Callable, world: int, device="cuda", *,
                model: int | None = None, backend: str = "gloo",
-               args: tuple = (), timeout: float = 600.0) -> list:
+               args: tuple = (), timeout: float = 600.0,
+               axes: dict | None = None) -> list:
     """:func:`spawn_cg_mesh` for the LM mesh: ``fn(mesh, *args)`` on
-    ``world`` spawned ranks of ``make_host_mesh(model=model)``, with the
-    same rendezvous, refusal, failure and timeout handling."""
+    ``world`` spawned ranks of ``make_host_mesh(model=model)`` (or, with
+    ``axes``, ``{name: size}`` in mesh order, of ``make_mesh`` over those
+    axes, e.g. ``{"pod": 2}``), with the same rendezvous, refusal,
+    failure and timeout handling."""
+    if axes is not None:
+        return _spawn(fn, world, device, backend, args, timeout, make_mesh,
+                      {"sizes": tuple(axes.values()),
+                       "axis_names": tuple(axes)})
     return _spawn(fn, world, device, backend, args, timeout,
                   make_host_mesh, {"model": model})
 
@@ -592,8 +611,8 @@ def _spawn(fn: Callable, world: int, device, backend: str, args: tuple,
     import torch.multiprocessing as mp
 
     device = resolve_device(device)
-    if backend not in BACKENDS:
-        raise ValueError(f"process mesh backend must be one of {BACKENDS}, "
+    if backend not in _SPAWNED:
+        raise ValueError(f"process mesh backend must be one of {_SPAWNED}, "
                          f"got {backend!r}")
     if backend == "nccl":
         require_cards(world, device)

@@ -1,6 +1,9 @@
 """Meta-device stand-ins for every model input, parameter, optimizer
-state and cache — the rules and the dry-run never allocate memory for the
-full configs.
+state and cache — the rules never allocate memory for the full configs.
+``launch.dryrun`` builds a rank's real arguments on fake tensors instead,
+and its tests count that rank's argument bytes from these stand-ins and
+the rules' ``shard_shape``; ``runtime.sharded.init_cache_sharded`` reads
+``init_cache``'s tree on ``meta`` the same way.
 
 The port of ``src/repro/launch/specs.py``: where the reference traces
 ``init_params`` / ``init_opt`` / ``init_cache`` under ``jax.eval_shape``,

@@ -21,6 +21,21 @@ reference's (a leading ``L`` dim); ``prefill`` and ``decode_step`` write
 them in place, record no graph, and return them.  The recurrent
 families' prefill is their training forward that also writes each
 layer's final state, so the two run the same arithmetic.
+
+**On a mesh** (sharded serving): a model from
+``runtime.sharded.init_sharded(..., serving=True)`` holds its blocks and
+gathers each weight where it is read; a cache from
+``runtime.sharded.init_cache_sharded`` is a dict of this rank's blocks
+with ``placements`` (``cache_pspecs``), and the tokens are the rank's
+rows (``batch_pspecs``).  Attention KV caches (and whisper's cross pair)
+hold the rank's slice of the sequence and are never gathered
+(``attention.SeqSplit``: a partial attention per slice, combined by one
+small all-gather of the softmax statistics).  A recurrent state split
+over ``model`` is gathered where a layer reads it and cut back to the
+block after the layer (every rank of the group computes the layer whole:
+duplicated compute, as training's).  A cache whose every group has one
+member runs the code of a whole cache: a 1×1 mesh gives the one-device
+bits.
 """
 from __future__ import annotations
 
@@ -243,7 +258,7 @@ def _recurrent_seq(params: "Model", cfg, x, cache: dict | None = None):
                 x = attn_block(params.shared_attn, cfg, x)
             else:
                 x, _ = _attn_block_prefill(params.shared_attn, cfg, x,
-                                           _layer(cache["attn_kv"], i))
+                                           _kv_layer(cache, "attn_kv", i))
             continue
         bp = getattr(params, f"{kind}_blocks")[i]
         if cache is None:
@@ -252,8 +267,10 @@ def _recurrent_seq(params: "Model", cfg, x, cache: dict | None = None):
         y, st = _MIXERS[kind][0](bp.mix, cfg,
                                  rms_norm(x, bp.ln, cfg.norm_eps))
         x = x + y
+        placed = _placed(cache, kind)
         for key, t in st.items():
-            cache[kind][key][i].copy_(t)
+            cache[kind][key][i].copy_(
+                t if placed is None else _cut_state(t, placed[key]))
     return x
 
 
@@ -263,11 +280,16 @@ def _recurrent_decode(params: "Model", cfg, x, cache: dict, pos):
     for kind, i in _recurrent_order(cfg):
         if kind == "attn":
             x, _ = _attn_block_decode(params.shared_attn, cfg, x,
-                                      _layer(cache["attn_kv"], i), pos)
+                                      _kv_layer(cache, "attn_kv", i), pos)
             continue
         bp = getattr(params, f"{kind}_blocks")[i]
+        state, placed = _layer(cache[kind], i), _placed(cache, kind)
+        whole = _whole_state(state, placed)
         y, _ = _MIXERS[kind][1](bp.mix, cfg, rms_norm(x, bp.ln, cfg.norm_eps),
-                                _layer(cache[kind], i))
+                                whole)
+        if whole is not state:          # the layer's blocks, cut back
+            for key, t in whole.items():
+                state[key].copy_(_cut_state(t, placed[key]))
         x = x + y
     return x
 
@@ -640,20 +662,93 @@ def _layer(group: dict, i: int) -> dict:
     return {k: t[i] for k, t in group.items()}
 
 
+def _placed(cache, *path):
+    """The placements of ``cache[path]`` when the cache is held as blocks
+    on a mesh (``runtime.sharded.init_cache_sharded``), else ``None``."""
+    out = getattr(cache, "placements", None)
+    for k in path:
+        if out is None:
+            return None
+        out = out[k]
+    return out
+
+
+def _kv_layer(cache, key: str, i: int) -> dict:
+    """Layer ``i``'s views of the KV group ``cache[key]``, with its
+    sequence split when the group is held as slices over a mesh."""
+    out = _layer(cache[key], i)
+    placed = _placed(cache, key)
+    split = None if placed is None else attn.seq_split(placed["k"])
+    if split is not None:
+        out["split"] = split
+    return out
+
+
+def _state_splits(placement) -> list:
+    """A recurrent state's splits in a layer's view, ``(dim, axes)``: the
+    stacked leaf's splits past its layer and batch dims (the batch is the
+    rank's rows, as the activations are)."""
+    return [(d - 1, axes) for d, axes in placement.splits
+            if d >= 2 and placement.parts(axes) > 1]
+
+
+def _whole_state(state: dict, placed: dict | None) -> dict:
+    """Layer views of a recurrent state, each gathered whole along the
+    dims its placement splits (``state`` itself when nothing is split)."""
+    if placed is None or not any(_state_splits(placed[k]) for k in state):
+        return state
+    from repro_torch.runtime.sharded import all_gather_dim
+
+    out = {}
+    for k, t in state.items():
+        pl = placed[k]
+        for d, axes in reversed(_state_splits(pl)):
+            t = all_gather_dim(t, pl.mesh, pl.mesh.group(axes),
+                               pl.parts(axes), d)
+        out[k] = t
+    return out
+
+
+def _cut_state(t: torch.Tensor, placement) -> torch.Tensor:
+    """This rank's block of a layer's whole state ``t``."""
+    for d, axes in _state_splits(placement):
+        size = t.shape[d] // placement.parts(axes)
+        t = t.narrow(d, placement.part_index(axes) * size, size)
+    return t
+
+
+def _check_rows(cache, x) -> None:
+    """A cache held as blocks must hold the rows the activations hold."""
+    if _placed(cache) is None:
+        return
+    b = next(_leaves(cache)).shape[1]
+    if b != x.shape[0]:
+        raise ValueError(f"the cache blocks hold {b} rows, the tokens "
+                         f"{x.shape[0]}: tokens and caches must split "
+                         "the batch alike (batch_pspecs, cache_pspecs)")
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
 @torch.no_grad()
 def prefill(params: Model, cfg: ArchConfig, tokens, cache, frames=None):
     """Run the full prompt, writing the caches in place.  Returns
     ``(cache, last_logits)`` with last_logits (B, 1, vocab_padded)."""
     x = _embed(params, cfg, tokens)
+    _check_rows(cache, x)
     if cfg.is_encdec:
         enc_out = _whisper_encode(params, cfg, frames)
         B, Sk, _ = enc_out.shape
         dt = enc_out.dtype
+        cross = _cross_split(cache)
         for i, bp in enumerate(params.dec_blocks):
             y, _ = attn.attention_prefill(
                 bp.self_attn, cfg,
                 layer_norm(x, bp.ln1_w, bp.ln1_b, cfg.norm_eps),
-                _layer(cache["self"], i))
+                _kv_layer(cache, "self", i))
             h = x + y
             h = h + attn.attention_train(
                 bp.cross_attn, cfg,
@@ -664,15 +759,25 @@ def prefill(params: Model, cfg: ArchConfig, tokens, cache, frames=None):
             # the cross K/V, computed once here, in the cache's dtype
             for name, w in (("cross_k", bp.cross_attn.wk),
                             ("cross_v", bp.cross_attn.wv)):
-                cache[name][i] = (enc_out @ w.to(dt)).reshape(
+                kv = (enc_out @ w.to(dt)).reshape(
                     B, Sk, cfg.n_kv_heads, cfg.d_head).to(cache[name].dtype)
+                if cross is None:
+                    cache[name][i] = kv
+                else:
+                    attn.write_slice(cache[name][i], kv, cross)
         return cache, _unembed(params, cfg, x[:, -1:])
     if cfg.block_pattern != "attn":
         x = _recurrent_seq(params, cfg, x, cache)
         return cache, _unembed(params, cfg, x[:, -1:])
     for i, bp in enumerate(params.blocks):
-        x, _ = _attn_block_prefill(bp, cfg, x, _layer(cache["kv"], i))
+        x, _ = _attn_block_prefill(bp, cfg, x, _kv_layer(cache, "kv", i))
     return cache, _unembed(params, cfg, x[:, -1:])
+
+
+def _cross_split(cache):
+    """Whisper's cross pair's sequence split (``None``: whole)."""
+    placed = _placed(cache, "cross_k")
+    return None if placed is None else attn.seq_split(placed)
 
 
 @torch.no_grad()
@@ -682,18 +787,21 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache, pos):
     the same bits; xlstm has no position and ignores it).  Writes the
     caches in place; returns (logits (B, vocab_padded), cache)."""
     x = _embed(params, cfg, tokens)
+    _check_rows(cache, x)
     if cfg.is_encdec:
+        cross = _cross_split(cache)
         for i, bp in enumerate(params.dec_blocks):
             y, _ = attn.attention_decode(
                 bp.self_attn, cfg,
                 layer_norm(x, bp.ln1_w, bp.ln1_b, cfg.norm_eps),
-                _layer(cache["self"], i), pos)
+                _kv_layer(cache, "self", i), pos)
             h = x + y
             y2, _ = attn.attention_decode(
                 bp.cross_attn, cfg,
                 layer_norm(h, bp.ln2_w, bp.ln2_b, cfg.norm_eps),
                 None, pos, cross_kv=(cache["cross_k"][i],
-                                     cache["cross_v"][i]))
+                                     cache["cross_v"][i]),
+                cross_split=cross)
             h = h + y2
             x = h + gelu_mlp(bp.ffn, layer_norm(h, bp.ln3_w, bp.ln3_b,
                                                 cfg.norm_eps))
@@ -702,5 +810,5 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache, pos):
         x = _recurrent_decode(params, cfg, x, cache, pos)
         return _unembed(params, cfg, x)[:, 0], cache
     for i, bp in enumerate(params.blocks):
-        x, _ = _attn_block_decode(bp, cfg, x, _layer(cache["kv"], i), pos)
+        x, _ = _attn_block_decode(bp, cfg, x, _kv_layer(cache, "kv", i), pos)
     return _unembed(params, cfg, x)[:, 0], cache

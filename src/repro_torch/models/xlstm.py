@@ -297,9 +297,11 @@ def init_slstm_state(cfg, batch: int, device=None) -> dict:
 
 def _slstm_cell(p: SLSTM, xg, st: dict) -> dict:
     """xg: (B, 4·d_in) pre-activation input contribution, float32.  The
-    recurrent product is float32 × float32 (TF32 must be off)."""
+    recurrent product is float32 × float32 (TF32 must be off; bf16
+    serving weights are widened, as the reference's type promotion
+    does)."""
     c, n, m, h_prev = st["c"], st["n"], st["m"], st["h"]
-    g = xg + h_prev @ p.r_gates + p.b_gates
+    g = xg + h_prev @ p.r_gates.to(h_prev.dtype) + p.b_gates
     gi, gf, gz, go = torch.chunk(g, 4, dim=-1)
     log_f = -F.softplus(-gf)                                # log sigmoid
     m_new = torch.maximum(log_f + m, gi)

@@ -42,6 +42,7 @@ through the host) and are timed into its ``WIRE`` by kind
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 
 import numpy as np
@@ -49,23 +50,35 @@ import torch
 from torch import nn
 from torch.nn.utils import parametrize
 
-from repro_torch.core.collectives import _gather_start, _wire
+from repro_torch.core.collectives import _gather_start, _wire, note_group
 from repro_torch.runtime.sharding import (NamedSharding, named,
                                           param_pspecs)
 
 __all__ = ["ShardState", "init_sharded", "model_params", "gather",
+           "group_axes",
            "all_gather_dim", "all_reduce", "sync_grads", "global_norm",
-           "full_tensor", "mean_over_mesh", "cutters"]
+           "full_tensor", "mean_over_mesh", "cutters", "CacheBlocks",
+           "init_cache_sharded"]
 
 #: gradients smaller than this (elements) are all-reduced flattened
 #: together, one call per replica group
 _BUCKET = 1 << 22
 
 
+def group_axes(mesh, group) -> tuple:
+    """The mesh axes whose process group ``group`` is (``()`` for
+    none)."""
+    for axes, g in mesh.groups.items():
+        if g is group:
+            return axes
+    return ()
+
+
 def all_gather_dim(x: torch.Tensor, mesh, group, n: int,
                    dim: int) -> torch.Tensor:
     """The group's blocks of ``x`` concatenated along ``dim`` in
     group-rank order."""
+    note_group("all-gather", group_axes(mesh, group), x, n)
     return _gather_start(x.detach(), mesh, group, n, dim).wait()
 
 
@@ -75,6 +88,7 @@ def _reduce_scatter_dim(g: torch.Tensor, mesh, group, n: int,
     rank's block."""
     import torch.distributed as dist
 
+    note_group("reduce-scatter", group_axes(mesh, group), g, n)
     st = _wire(mesh, g.device, "reduce-scatter")
     parts = st.put(torch.stack(g.chunk(n, dim)))
     out = parts.new_empty(parts.shape[1:])
@@ -140,12 +154,14 @@ class ShardState:
     params: dict
 
 
-def init_sharded(cfg, generator: torch.Generator, mesh, device=None,
-                 trainable: bool = True) -> nn.Module:
+def init_sharded(cfg, generator: torch.Generator | None, mesh, device=None,
+                 trainable: bool = True, serving: bool = False) -> nn.Module:
     """``init_params(cfg, generator, ...)`` holding only this rank's block
-    of every parameter, as ``param_pspecs(cfg, mesh, ...)`` says: each
-    leaf is cut to its block as soon as it is drawn, and each split one
-    is gathered where it is read.  ``model.sharding`` is its
+    of every parameter, as ``param_pspecs(cfg, mesh, ..., serving=)``
+    says: each leaf is cut to its block as soon as it is drawn (with
+    ``serving``, and cast to bf16, the reference's serving weights), and
+    each split one is gathered where it is read.  Without a ``generator`` the blocks are
+    left empty (the dry-run's fake ranks).  ``model.sharding`` is its
     :class:`ShardState`."""
     from repro_torch.models.common import on_new_param
     from repro_torch.models.model import init_params
@@ -156,16 +172,19 @@ def init_sharded(cfg, generator: torch.Generator, mesh, device=None,
     whole = dict(skeleton.named_parameters())
     name_of = {id(p): k for k, p in whole.items()}
     order = iter([name_of[id(p)] for p in made])
-    placements = named(mesh, param_pspecs(cfg, mesh, whole))
+    placements = named(mesh, param_pspecs(cfg, mesh, whole,
+                                          serving=serving))
+    dtype = torch.bfloat16 if serving else None
     shapes = {k: tuple(p.shape) for k, p in whole.items()}
     del skeleton, whole, made
 
     def keep_block(p):
         pl = placements[next(order)]
         if not pl.splits or mesh.size == 1:
-            return p
-        return nn.Parameter(pl.shard(p.detach()).clone(),
-                            requires_grad=False)
+            return p if dtype in (None, p.dtype) else nn.Parameter(
+                p.detach().to(dtype), requires_grad=False)
+        return nn.Parameter(pl.shard(p.detach()).to(dtype or p.dtype)
+                            .clone(), requires_grad=False)
     with on_new_param(keep_block):
         model = init_params(cfg, generator, device=device,
                             trainable=trainable)
@@ -179,6 +198,40 @@ def init_sharded(cfg, generator: torch.Generator, mesh, device=None,
                 unsafe=True)
     model.sharding = ShardState(mesh, placements, shapes, params)
     return model
+
+
+class CacheBlocks(dict):
+    """A serving cache held as blocks on a mesh: ``init_cache``'s tree of
+    this rank's blocks, with ``placements`` (the same tree of
+    ``NamedSharding``, ``cache_pspecs``).  ``models.model.prefill`` /
+    ``decode_step`` read the placements: an attention KV leaf is the
+    rank's slice of the sequence, a recurrent state is gathered where it
+    is read."""
+
+    placements: dict
+
+
+def init_cache_sharded(cfg, batch: int, max_len: int, mesh,
+                       kv_dtype=torch.bfloat16, device=None) -> CacheBlocks:
+    """``init_cache(cfg, batch, max_len, kv_dtype)`` held as this rank's
+    blocks (zeros), placed by ``cache_pspecs``; no whole leaf is
+    allocated."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import init_cache
+    from repro_torch.runtime.sharding import cache_pspecs
+
+    whole = init_cache(cfg, batch, max_len, kv_dtype, device="meta")
+    shape = ShapeConfig("serve", max_len, batch, "decode")
+    placements = named(mesh, cache_pspecs(cfg, shape, mesh, whole))
+
+    def blocks(tree, pl):
+        return {k: blocks(v, pl[k]) if isinstance(v, dict) else
+                torch.zeros(pl[k].shard_shape(v.shape), dtype=v.dtype,
+                            device=device) for k, v in tree.items()}
+
+    out = CacheBlocks(blocks(whole, placements))
+    out.placements = placements
+    return out
 
 
 def model_params(model: nn.Module) -> dict:
@@ -195,12 +248,17 @@ def all_reduce(t: torch.Tensor, mesh, group) -> torch.Tensor:
 
     if group is None:
         return t
+    axes = group_axes(mesh, group)
+    note_group("all-reduce", axes, t,
+               math.prod(mesh.shape[a] for a in axes))
     st = _wire(mesh, t.device, "all-reduce")
     buf = st.put(t)
     work = dist.all_reduce(buf, group=group, async_op=True)
     got = st.pending([work], lambda: st.back(buf, t, t.shape),
                      (buf,)).wait()
-    if got.data_ptr() != t.data_ptr():
+    # the result is ``t``'s own memory unless the wire staged a copy
+    if (got.untyped_storage()._cdata, got.storage_offset()) != \
+            (t.untyped_storage()._cdata, t.storage_offset()):
         t.copy_(got)
     return t
 

@@ -32,6 +32,15 @@ whose spec entry is ``None``), as ``launch.specs.param_specs`` gives it;
 or the port's parameter names (``<stack>.<i>.<rest>``, one tensor per
 layer, ``models.model.named_from_reference`` maps the one onto the
 other), whose spec is the stacked leaf's without that lead.
+
+Where they are applied: ``param_pspecs`` by ``runtime.sharded.
+init_sharded`` (training; with ``serving=True`` sharded serving's bf16
+weights), ``batch_pspecs`` by the trainer's and the server's rows
+(``launch.train.batch_rows``, which the server's rows use too) and
+``cache_pspecs`` by ``runtime.sharded.init_cache_sharded``: a serving
+cache held as blocks, its KV caches as the rank's slice of the sequence
+(``models.attention.SeqSplit``).  ``launch.dryrun`` traces all three on
+a fake process group.
 """
 from __future__ import annotations
 

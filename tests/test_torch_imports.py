@@ -2,7 +2,8 @@
 
 * An AST scan of every module under ``src/repro_torch/``, of
   ``chip_smoke.py`` and of ``examples/cg_solve_torch.py``,
-  ``examples/quickstart_torch.py`` and ``examples/train_lm_torch.py``:
+  ``examples/quickstart_torch.py``, ``examples/train_lm_torch.py`` and
+  ``examples/serve_lm_torch.py``:
   no ``jax`` or ``repro`` import anywhere, no ``triton`` import at
   module level, and no ``torch.sparse`` on the port's path.
 * Importing every ``repro_torch`` module in a fresh interpreter on this
@@ -25,7 +26,8 @@ MODULES = sorted(PKG.rglob("*.py"))
 FILES = MODULES + [REPO / "chip_smoke.py",
                    REPO / "examples" / "cg_solve_torch.py",
                    REPO / "examples" / "quickstart_torch.py",
-                   REPO / "examples" / "train_lm_torch.py"]
+                   REPO / "examples" / "train_lm_torch.py",
+                   REPO / "examples" / "serve_lm_torch.py"]
 
 
 def _imports(tree):

@@ -11,6 +11,7 @@ Usage:  python tests/torch_reference.py OUT.npz [CASE ...]
         python tests/torch_reference.py OUT.npz --modes
         python tests/torch_reference.py OUT.npz --ring
         python tests/torch_reference.py OUT.npz --train-mesh IN.npz ARCH
+        python tests/torch_reference.py OUT.json --dryrun LINES.json
 
 A case is ``FORMAT/N_NODExN_CORE`` (default: ``ell/4x2 sell/4x2 ell/1x4
 sell/1x4``) on ``graded_extruded_mesh_matrix(48, 6, seed=0)`` — the golden
@@ -526,8 +527,33 @@ def dump_train_mesh(inputs: str, arch: str) -> dict:
     return {"losses": np.asarray(losses), "grad_norms": np.asarray(norms)}
 
 
+def dump_dryrun(lines: str) -> dict:
+    """The reference's dry-run rules: ``skip_reason`` of every arch ×
+    shape (``"<arch>/<shape>"``, ``None`` for none) and
+    ``parse_collectives`` of each HLO text in the JSON list ``lines``.
+    Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host
+    devices, so it runs here, in a process of its own."""
+    import json
+
+    from repro.configs import SHAPES
+    from repro.launch.dryrun import ARCHS, parse_collectives, skip_reason
+
+    with open(lines) as f:
+        texts = json.load(f)
+    return {"archs": ARCHS, "shapes": list(SHAPES),
+            "skip": {f"{a}/{s}": skip_reason(a, s) for a in ARCHS
+                     for s in SHAPES},
+            "parsed": [parse_collectives(t) for t in texts]}
+
+
 def main() -> int:
     path, cases = sys.argv[1], sys.argv[2:] or CASES
+    if cases[0] == "--dryrun":
+        import json
+
+        with open(path, "w") as f:
+            json.dump(dump_dryrun(cases[1]), f)
+        return 0
     if cases == ["--ring"]:
         np.savez(path, **dump_ring())
         return 0
